@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--bases N]
+    python3 chip_smoke.py [--bases N] [--records N]
 
 Phases, each printing its lines; the first failure raises and the script
 exits nonzero:
@@ -17,7 +17,22 @@ exits nonzero:
    is checked code for code and count for count against a plain reference
    that shares no code with the port: every window of the generated
    records encoded in int64 on the card, then ``torch.unique``. The
-   kernel's launch count is checked against the batch count.
+   kernel's launch count is checked against the batch count;
+5. the distance kernels (K2 counts matrix, K3 and K4 (min,+)) against
+   their plain PyTorch versions on the card, element for element on edge
+   shapes, then timed with CUDA events at the distance path's shapes,
+   beside their plain versions and, for K3/K4, ``torch.cdist(p=1)``;
+6. the distance path on a seeded FASTA of ``--records`` records of
+   1,000-2,000 bases (default 54,018, the reference program's design
+   scale): (a) ``distance_file`` at k=3 on the first 16,384 records, (b)
+   ``KmerEngine(k=8).distance_sequences`` on the first 2,048, (c)
+   ``distance_stream_to_csv`` at k=3 over all records, one panel of 2,048
+   rows. Each is held against a plain reference that shares no code with
+   the port (int64 rolled codes and ``bincount`` on the card, blocked
+   ``torch.minimum(...).sum``, a NumPy float32 finish): counts and
+   min-sums exactly, distances bit for bit, sampled CSV lines byte for
+   byte. Every kernel's launch count is checked against what the run
+   implies.
 
 The script imports the port and nothing of JAX or of the JAX package.
 
@@ -53,6 +68,17 @@ CHECK_BASES = 4 << 20
 INVALID = 0xFF
 #: windows per chunk of the reference encode
 REF_CHUNK = 1 << 25
+#: the card's peaks for the bound of a kernel (NVIDIA's H100 SXM data
+#: sheet): device-memory bytes per second, and operations per second
+#: outside the tensor cores (the float32 rate; the data sheet gives no
+#: int32 rate, and the min-sum kernels' min and add are int32)
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+#: the distance path's shapes: records (a) counts at k=3, (b) at k=8, and
+#: the rows of (c)'s one streamed panel
+DIST_ROWS_A = 16384
+DIST_ROWS_B = 2048
+PANEL_ROWS = 2048
 
 
 def log(msg: str) -> None:
@@ -236,8 +262,6 @@ def phase_main_path(bases: int, dev, card: str) -> int:
         SparseKmerEngine,
         batch_plan,
     )
-    from dna_kmeres_parallel_tpu_torch.ops import encode_cuda
-
     t = time.perf_counter()
     stream, starts, lengths = smoke_records(bases)
     tmp = tempfile.TemporaryDirectory(prefix="kmer_smoke_")
@@ -266,11 +290,14 @@ def phase_main_path(bases: int, dev, card: str) -> int:
             ref_s = time.perf_counter() - t
             batch, _ = batch_plan(stream.size, k, KmerConfig().batch_bases)
             n_batches = math.ceil(stream.size / batch)
-            encode_cuda.LAUNCHES = 0
+            reset_launches()
             t = time.perf_counter()
             res = run()
             wall = time.perf_counter() - t
-            launches = encode_cuda.LAUNCHES
+            got = read_launches()
+            launches = got["encode_packed"]
+            if any(got[n] for n in got if n != "encode_packed"):
+                raise AssertionError(f"{name}: distance kernels launched: {got}")
             if (res.n_seqs, res.total_bases) != (lengths.size, int(lengths.sum())):
                 raise AssertionError(
                     f"{name}: {res.n_seqs} records of {res.total_bases} bases parsed"
@@ -297,10 +324,362 @@ def phase_main_path(bases: int, dev, card: str) -> int:
     return main_launches
 
 
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    from dna_kmeres_parallel_tpu_torch.ops import distance_cuda, encode_cuda, histogram_cuda
+
+    encode_cuda.LAUNCHES = 0
+    histogram_cuda.LAUNCHES = 0
+    distance_cuda.TRI_LAUNCHES = 0
+    distance_cuda.RECT_LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    from dna_kmeres_parallel_tpu_torch.ops import distance_cuda, encode_cuda, histogram_cuda
+
+    return {
+        "encode_packed": encode_cuda.LAUNCHES,
+        "counts_matrix": histogram_cuda.LAUNCHES,
+        "min_sum_tri": distance_cuda.TRI_LAUNCHES,
+        "min_sum_rect": distance_cuda.RECT_LAUNCHES,
+    }
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the peak rate."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def distance_records(n_seqs: int):
+    """Seeded records of 1,000-2,000 bases (0.1% N), as (stream, starts,
+    lengths): the u8 base stream with one INVALID separator between
+    records, and each record's offset and length in it."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    lengths = rng.integers(1000, 2001, n_seqs)
+    starts = np.concatenate([[0], np.cumsum(lengths + 1)[:-1]])
+    stream = rng.integers(0, 4, int(lengths.sum()) + n_seqs - 1, dtype=np.uint8)
+    stream[rng.random(stream.size) < 0.001] = INVALID
+    stream[starts[1:] - 1] = INVALID
+    return stream, starts, lengths
+
+
+def record_strings(stream, starts, lengths) -> list[str]:
+    import numpy as np
+
+    letters = np.frombuffer(b"ACGTN", np.uint8)
+    return [
+        letters[np.minimum(stream[s : s + n], 4)].tobytes().decode()
+        for s, n in zip(starts, lengths)
+    ]
+
+
+def record_grid(stream, starts, lengths):
+    """u8 grid [S, longest record], INVALID past each record's end."""
+    import numpy as np
+
+    grid = np.full((lengths.size, int(lengths.max())), INVALID, np.uint8)
+    for r, (s, n) in enumerate(zip(starts, lengths)):
+        grid[r, :n] = stream[s : s + n]
+    return grid
+
+
+def reference_counts(stream, starts, lengths, k: int, canonical: bool, dev):
+    """int32 [S, 4^k] per-record counts, in plain int64 torch on the card:
+    every window of the stream rolled into its code (and its reverse
+    complement, for canonical), then one ``bincount`` of row * 4^k + code.
+    Shares no code with the port."""
+    import torch
+
+    bins = 4**k
+    S = lengths.size
+    end = int(starts[-1] + lengths[-1])
+    b = torch.from_numpy(stream[:end]).to(dev).long()
+    n = end - k + 1
+    code = torch.zeros(n, dtype=torch.int64, device=dev)
+    rc = torch.zeros_like(code)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    for j in range(k):
+        d = b[j : j + n]
+        valid &= d < 4
+        code = (code << 2) | (d & 3)
+        rc |= (3 - (d & 3)) << (2 * j)
+    if canonical:
+        code = torch.minimum(code, rc)
+    pos = torch.arange(n, device=dev)
+    row = torch.searchsorted(torch.from_numpy(starts).to(dev), pos, right=True) - 1
+    idx = (row * bins + code)[valid]
+    return torch.bincount(idx, minlength=S * bins).reshape(S, bins).to(torch.int32)
+
+
+def reference_min_sums(a, b):
+    """int32 [S, S2] sum_p min(a_ip, b_jp), plain torch on the card. Up to
+    1,024 bins: a blocked broadcast of ``torch.minimum``. Past that (k=8's
+    sparse rows, where a broadcast would move a terabyte) the identity
+    min(x, y) = sum_{t >= 1} [x >= t] [y >= t] as float32 matrix products:
+    exact, since every product is 0 or 1, every sum stays below 2^24 and
+    TF32 is off."""
+    import torch
+
+    S, B = a.shape
+    S2 = b.shape[0]
+    if B <= 1024:
+        out = torch.empty(S, S2, dtype=torch.int32, device=a.device)
+        rows = max(1, (1 << 27) // max(S2 * B, 1))
+        for r in range(0, S, rows):
+            out[r : r + rows] = torch.minimum(a[r : r + rows, None, :], b[None]).sum(-1)
+        return out
+    if max(int(a.sum(1).max()), int(b.sum(1).max())) >= 1 << 24:
+        raise ValueError("row sums too large for the float32 reference")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        acc = torch.zeros(S, S2, dtype=torch.float32, device=a.device)
+        for t in range(1, int(max(a.max(), b.max())) + 1):
+            acc += (a >= t).float() @ (b >= t).float().T
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return acc.to(torch.int32)
+
+
+def reference_packed(sums, len_rows, len_cols, k: int):
+    """float32 distances 1 - s / (min(L_i, L_j) - k + 1) in NumPy for row
+    i against columns j > i (rows and columns both start at sequence 0),
+    concatenated row by row: the packed strict upper triangle."""
+    import numpy as np
+
+    out = []
+    for i in range(sums.shape[0]):
+        s = sums[i, i + 1 :].astype(np.float32)
+        denom = (np.minimum(len_rows[i], len_cols[i + 1 :]) - k + 1).astype(np.float32)
+        out.append(np.float32(1.0) - s / denom)
+    return np.concatenate(out) if out else np.zeros(0, np.float32)
+
+
+def same_bits(a, b) -> bool:
+    import numpy as np
+
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
+    return a.shape == b.shape and np.array_equal(a.view(np.uint32), b.view(np.uint32))
+
+
+def check_csv(path: Path, want, n_sample: int = 100_000) -> int:
+    """One line per value, and ``n_sample`` seeded lines equal to Python's
+    ``"%f"`` of the reference's values. Returns the lines checked."""
+    import numpy as np
+
+    data = np.fromfile(path, dtype=np.uint8)
+    nl = np.flatnonzero(data == ord("\n"))
+    if nl.size != want.size or (data.size and data[-1] != ord("\n")):
+        raise AssertionError(f"{path.name}: {nl.size} lines for {want.size} pairs")
+    begin = np.concatenate([[0], nl[:-1] + 1])
+    rng = np.random.default_rng(2)
+    idx = rng.choice(want.size, size=min(n_sample, want.size), replace=False)
+    for i in idx:
+        line = data[begin[i] : nl[i] + 1].tobytes()
+        if line != ("%f\n" % want[i]).encode():
+            raise AssertionError(f"{path.name} line {i}: {line!r} != %f of {want[i]!r}")
+    return idx.size
+
+
+def phase_distance_kernels(dev, card: str, records) -> dict:
+    """K2, K3 and K4 against their plain versions on edge shapes, then
+    timed at the distance path's shapes. Returns each kernel's record."""
+    import numpy as np
+    import torch
+
+    from dna_kmeres_parallel_tpu_torch.ops import distance, distance_cuda, histogram_cuda
+
+    worst = {"counts_matrix": 0, "min_sum_tri": 0, "min_sum_rect": 0}
+
+    def check(name, got, ref, what):
+        torch.cuda.synchronize()
+        err = max_abs_err((got,), (ref,))
+        log(f"kernel check {name} {what}: max_abs_err={err}")
+        worst[name] = max(worst[name], err)
+        if err:
+            raise AssertionError(f"{name} disagrees with plain at {what}")
+
+    rng = np.random.default_rng(3)
+    # 600 rows of 0-2,000 bases: N runs, rows shorter than k, empty rows.
+    g = rng.integers(0, 4, (600, 2000)).astype(np.uint8)
+    g[rng.random(g.shape) < 0.01] = INVALID
+    g[:50, 100:400] = INVALID
+    for r, n in enumerate(rng.integers(0, 2001, 600)):
+        g[r, n if r % 7 else r % 9 :] = INVALID
+    grid = torch.from_numpy(g).to(dev)
+    for k in (3, 5, 8):
+        for canonical in (False, True):
+            check("counts_matrix",
+                  histogram_cuda.counts_matrix_cuda(grid, k, 4**k, canonical),
+                  histogram_cuda.counts_matrix_reference(grid, k, 4**k, canonical),
+                  f"k={k} canonical={canonical} grid {tuple(g.shape)}")
+    for B, S, S2 in ((64, 1000, 777), (1024, 1000, 777), (65536, 300, 130)):
+        a = rng.integers(0, 200, (S, B)).astype(np.int32)
+        a[rng.random(a.shape) < 0.5] = 0
+        a = torch.from_numpy(a).to(dev)
+        check("min_sum_tri", distance_cuda.min_sum_tri_cuda(a),
+              distance.min_sum_matrix(a), f"[{S}, {B}]")
+        check("min_sum_rect", distance_cuda.min_sum_rect_cuda(a[:S2 // 3], a[S - S2 :]),
+              distance.min_sum_matrix(a[:S2 // 3], a[S - S2 :]),
+              f"[{S2 // 3}, {B}] x [{S2}, {B}]")
+
+    # The distance path's shapes: (a)'s grid and counts at k=3, (b)'s grid
+    # at k=8, and (c)'s panel against every record.
+    stream, starts, lengths = records
+    na, nb = min(DIST_ROWS_A, lengths.size), min(DIST_ROWS_B, lengths.size)
+    grid_a = torch.from_numpy(record_grid(stream, starts[:na], lengths[:na])).to(dev)
+    grid_b = grid_a[:nb].contiguous()
+    grid_all = torch.from_numpy(record_grid(stream, starts, lengths)).to(dev)
+    counts_a = histogram_cuda.counts_matrix_cuda(grid_a, 3, 64)
+    check("counts_matrix", counts_a,
+          histogram_cuda.counts_matrix_reference(grid_a, 3, 64), f"(a) {tuple(grid_a.shape)}")
+    counts_all = histogram_cuda.counts_matrix_cuda(grid_all, 3, 64)
+    panel = counts_all[: min(PANEL_ROWS, lengths.size)]
+    out_a = torch.empty(na, na, dtype=torch.int32, device=dev)
+    out_c = torch.empty(panel.shape[0], lengths.size, dtype=torch.int32, device=dev)
+    distance_cuda.launch_min_sum_tri(counts_a, out_a)
+    check("min_sum_tri", out_a, distance.min_sum_matrix(counts_a), f"(a) {tuple(counts_a.shape)}")
+    distance_cuda.launch_min_sum_rect(panel, counts_all, out_c)
+    check("min_sum_rect", out_c, distance.min_sum_matrix(panel, counts_all),
+          f"(c) {tuple(panel.shape)} x {tuple(counts_all.shape)}")
+
+    rec = {}
+    sa, sl = grid_a.shape
+    rec["counts_matrix"] = dict(
+        ms=time_ms(lambda: histogram_cuda.counts_matrix_cuda(grid_a, 3, 64), 20),
+        plain_ms=time_ms(lambda: histogram_cuda.counts_matrix_reference(grid_a, 3, 64), 3),
+        library_ms=None,
+        bound=bound_ms(sa * sl + sa * 64 * 4, 0),
+        shape=f"k=3 grid [{sa}, {sl}]",
+    )
+    k8_ms = time_ms(lambda: histogram_cuda.counts_matrix_cuda(grid_b, 8, 65536), 20)
+    nbytes = grid_b.numel() + nb * 65536 * 4
+    log(f"kernel time counts_matrix k=8 grid {tuple(grid_b.shape)}: {k8_ms:.4f} ms, "
+        f"bound {bound_ms(nbytes, 0)[0]:.4f} ms [{card}]")
+    af = counts_a.float()
+    rec["min_sum_tri"] = dict(
+        ms=time_ms(lambda: distance_cuda.launch_min_sum_tri(counts_a, out_a), 10),
+        plain_ms=time_ms(lambda: distance.min_sum_matrix(counts_a), 2),
+        library_ms=time_ms(lambda: torch.cdist(af, af, p=1), 3),
+        bound=bound_ms(na * 64 * 4 + na * na * 4, 2 * 64 * na * (na + 1) // 2),
+        shape=f"[{na}, 64]",
+    )
+    pf, cf = panel.float(), counts_all.float()
+    npn, nall = panel.shape[0], lengths.size
+    rec["min_sum_rect"] = dict(
+        ms=time_ms(lambda: distance_cuda.launch_min_sum_rect(panel, counts_all, out_c), 10),
+        plain_ms=time_ms(lambda: distance.min_sum_matrix(panel, counts_all), 2),
+        library_ms=time_ms(lambda: torch.cdist(pf, cf, p=1), 3),
+        bound=bound_ms((npn + nall) * 64 * 4 + npn * nall * 4, 2 * 64 * npn * nall),
+        shape=f"[{npn}, 64] x [{nall}, 64]",
+    )
+    for name, r in rec.items():
+        r["max_abs_err"] = worst[name]
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        log(f"kernel time {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, torch.cdist {lib}, bound {r['bound'][0]:.4f} ms "
+            f"({r['bound'][1]}) [{card}]")
+    return rec
+
+
+def expect_launches(name: str, want: dict) -> dict:
+    got = read_launches()
+    if got != want:
+        raise AssertionError(f"{name}: launches {got}, the path implies {want}")
+    return got
+
+
+def phase_distance_path(records, path: Path, dev, card: str) -> dict:
+    """Runs (a), (b) and (c) of the distance path, each checked against the
+    plain reference. Returns each run's launch counts."""
+    import numpy as np
+    import torch
+
+    import dna_kmeres_parallel_tpu_torch as port
+    from dna_kmeres_parallel_tpu_torch import KmerConfig
+    from dna_kmeres_parallel_tpu_torch.models.engine import KmerEngine
+    from dna_kmeres_parallel_tpu_torch.ops import distance_cuda
+
+    stream, starts, lengths = records
+    S = lengths.size
+    none = dict.fromkeys(("encode_packed", "counts_matrix", "min_sum_tri", "min_sum_rect"), 0)
+    seqs = record_strings(stream, starts, lengths)
+    launches = {}
+
+    def report(name, wall, n_pairs, phases, note):
+        split = " ".join(f"{p}={s:.3f}" for p, s in phases.items())
+        log(f"{name}: {n_pairs} pairs, wall {wall:.3f} s, "
+            f"{n_pairs / wall / 1e6:.2f} Mpairs/s; phases s: {split}; {note} [{card}]")
+
+    def in_memory_run(name, k, n, run):
+        reset_launches()
+        t = time.perf_counter()
+        res = run()
+        wall = time.perf_counter() - t
+        launches[name] = expect_launches(
+            name, {**none, "counts_matrix": 1, "min_sum_tri": 1})
+        ref_counts = reference_counts(stream, starts[:n], lengths[:n], k, False, dev)
+        if res.n != n or not np.array_equal(res.counts, ref_counts.cpu().numpy()):
+            raise AssertionError(f"{name}: counts differ from the reference")
+        counts = torch.from_numpy(res.counts).to(dev)
+        ref_sums = reference_min_sums(ref_counts, ref_counts)
+        if not torch.equal(distance_cuda.min_sum_tri_cuda(counts), ref_sums):
+            raise AssertionError(f"{name}: K3 min-sums differ from the reference")
+        want = reference_packed(ref_sums.cpu().numpy(), lengths[:n], lengths[:n], k)
+        if not same_bits(res.packed, want):
+            raise AssertionError(f"{name}: distances differ from the reference")
+        report(name, wall, want.size, res.phases,
+               "counts, min-sums and distances equal the reference")
+        del counts, ref_sums, ref_counts
+        torch.cuda.empty_cache()
+
+    na, nb = min(DIST_ROWS_A, S), min(DIST_ROWS_B, S)
+    in_memory_run(f"(a) distance_file(k=3, max_seqs={na})", 3, na,
+                  lambda: port.distance_file(str(path), k=3, device=dev, max_seqs=na))
+    in_memory_run(f"(b) KmerEngine(k=8).distance_sequences({nb} records)", 8, nb,
+                  lambda: KmerEngine(KmerConfig(k=8), device=dev).distance_sequences(seqs[:nb]))
+
+    name = f"(c) distance_stream_to_csv(k=3, {S} records, panel_rows={PANEL_ROWS}, max_panels=1)"
+    csv = path.with_suffix(".csv")
+    eng = KmerEngine(KmerConfig(k=3), device=dev)
+    reset_launches()
+    t = time.perf_counter()
+    out = eng.distance_stream_to_csv(seqs, csv, panel_rows=PANEL_ROWS, max_panels=1)
+    wall = time.perf_counter() - t
+    launches["(c)"] = expect_launches(name, {**none, "counts_matrix": 1, "min_sum_rect": 1})
+    rows = min(PANEL_ROWS, S - 1)
+    ref_counts = reference_counts(stream, starts, lengths, 3, False, dev)
+    ref_sums = reference_min_sums(ref_counts[:rows], ref_counts)
+    want = reference_packed(ref_sums.cpu().numpy(), lengths[:rows], lengths, 3)
+    if out["n_pairs"] != want.size:
+        raise AssertionError(f"{name}: {out['n_pairs']} pairs, the panel has {want.size}")
+    counts = eng._counts_on_device(stream, starts, lengths)
+    if not torch.equal(counts, ref_counts):
+        raise AssertionError(f"{name}: counts differ from the reference")
+    if not torch.equal(distance_cuda.min_sum_rect_cuda(counts[:rows], counts), ref_sums):
+        raise AssertionError(f"{name}: K4 min-sums differ from the reference")
+    if not same_bits(eng.make_dense_panel_fn(counts, lengths)(0, rows), want):
+        raise AssertionError(f"{name}: panel distances differ from the reference")
+    checked = check_csv(csv, want)
+    report(name, wall, want.size, out["phases"],
+           f"counts, min-sums and distances equal the reference, "
+           f"{csv.stat().st_size} CSV bytes, {checked} sampled lines equal %f")
+    csv.unlink()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--bases", type=int, default=256_000_000,
                     help="size of the main path's FASTA (default 256 Mbase)")
+    ap.add_argument("--records", type=int, default=54_018,
+                    help="records of the distance path's FASTA (default 54,018)")
     args = ap.parse_args()
 
     import torch
@@ -313,7 +692,11 @@ def main() -> int:
 
     if not Path(dna_kmeres_parallel_tpu_torch.__file__).resolve().is_relative_to(ROOT):
         raise RuntimeError("the port must be imported from this checkout")
-    from dna_kmeres_parallel_tpu_torch.models.sparse_engine import require_native
+    from dna_kmeres_parallel_tpu_torch import KmerConfig
+    from dna_kmeres_parallel_tpu_torch.models.sparse_engine import (
+        batch_plan,
+        require_native,
+    )
     from dna_kmeres_parallel_tpu_torch.ops import kernels
 
     # 1. the card and the host library
@@ -342,8 +725,24 @@ def main() -> int:
     # 4. the main path
     launches = phase_main_path(args.bases, dev, card)
 
+    # 5-6. the distance kernels and the distance path
+    t = time.perf_counter()
+    records = distance_records(args.records)
+    tmp = tempfile.TemporaryDirectory(prefix="kmer_smoke_")
+    try:
+        path = Path(tmp.name) / "dist.fasta"
+        write_fasta(path, *records)
+        log(f"distance fasta: {records[2].size} records, {int(records[2].sum())} "
+            f"bases, written in {time.perf_counter() - t:.1f} s")
+        dist = phase_distance_kernels(dev, card, records)
+        dist_launches = phase_distance_path(records, path, dev, card)
+    finally:
+        tmp.cleanup()
+
     ms, plain_ms, err = timed[(21, False)]
-    log(json.dumps({"kernels": [{
+    T = batch_plan(1 << 40, 21, KmerConfig().batch_bases)[1]
+    k1_bound = bound_ms(T // 2 + T * 6, 0)
+    kernels_json = [{
         "name": "encode_packed",
         "route": "cuda",
         "source": "dna_kmeres_parallel_tpu_torch/csrc/encode_packed.cu",
@@ -352,7 +751,31 @@ def main() -> int:
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
-    }]}))
+        "bound_ms": k1_bound[0],
+        "bound_by": k1_bound[1],
+        "library_ms": None,
+    }]
+    for name, src, replaces, run in (
+        ("counts_matrix", "counts_matrix.cu", "histogram_pallas.py:114", "(a)"),
+        ("min_sum_tri", "min_sum.cu", "distance_pallas.py:152", "(a)"),
+        ("min_sum_rect", "min_sum.cu", "distance_pallas.py:191", "(c)"),
+    ):
+        r = dist[name]
+        run_key = next(key for key in dist_launches if key.startswith(run))
+        kernels_json.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"dna_kmeres_parallel_tpu_torch/csrc/{src}",
+            "replaces": f"dna_kmeres_parallel_tpu/ops/{replaces}",
+            "launches": dist_launches[run_key][name],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1],
+            "library_ms": r["library_ms"],
+        })
+    log(json.dumps({"kernels": kernels_json}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,32 +1,41 @@
-"""dna_kmeres_parallel_tpu_torch — the PyTorch and CUDA port of
-``dna_kmeres_parallel_tpu``.
+"""dna_kmeres_parallel_tpu_torch — the PyTorch and CUDA port of the JAX
+package ``dna_kmeres_parallel_tpu``.
 
-It imports ``torch`` and never ``jax``. From the JAX package it uses only
-the jax-free modules: ``utils`` (codec, config, fasta, datagen), the C++
-host library ``native`` and ``models.oracle``. The JAX package stays the
-reference every part of the port is held against.
+It imports ``torch`` and never ``jax``, and nothing of the JAX package: it
+keeps its own copies of the host code it needs (``utils``, and the C++
+host library under ``native``). The JAX package stays the reference every
+part of the port is held against, in the tests.
 
 Layout (module names follow the JAX package's, so each counterpart is
 easy to find)
 ------
-- ``ops/``     the split-word encode (``sparse``), its hand-written CUDA
-               kernel's wrapper and plain PyTorch version (``encode_cuda``),
-               the kernel build (``kernels``) and device resolution
-               (``runtime``).
+- ``ops/``     the split-word encode (``sparse``), the plain dense encode
+               (``encode``), counts matrices (``histogram``), the (min,+)
+               product and the distance finish (``distance``); the
+               hand-written CUDA kernels' wrappers beside their plain
+               PyTorch versions (``encode_cuda``, ``histogram_cuda``,
+               ``distance_cuda``); the kernel build (``kernels``) and
+               device resolution (``runtime``).
 - ``csrc/``    CUDA C++ sources for Hopper (``sm_90a``), built with nvcc at
                first use.
-- ``models/``  host plane staging (``engine``) and the sparse counting
-               engine (``sparse_engine``).
+- ``models/``  plane staging and the dense distance engine (``engine``),
+               the sparse counting engine (``sparse_engine``) and the
+               resumable distance-CSV writer (``distance_stream``).
+- ``native/``  the C++ host library (parse, pack, radix compaction, merge,
+               ``%f`` formatting), built with g++ at first use.
+- ``utils/``   codec, configuration, FASTA parsing, packed-triangle
+               indexing, CSV writers, the checkpoint file.
 
-What is ported: exact sparse k-mer counting, k = 1..31, canonical or not.
-Every public entry takes an explicit ``device``: ``"cuda"`` runs the
-hand-written kernel and raises where CUDA is missing; ``"cpu"`` runs the
-kernel's plain PyTorch version.
+What is ported: exact sparse k-mer counting, k = 1..31, canonical or not;
+dense pairwise k-mer distances, k <= 8, in memory or streamed to the
+reference's CSV. Every public entry takes an explicit ``device``:
+``"cuda"`` runs the hand-written kernels and raises where CUDA is missing;
+``"cpu"`` runs the kernels' plain PyTorch versions.
 """
 
 __version__ = "0.1.0"
 
-from dna_kmeres_parallel_tpu.utils.config import KmerConfig  # noqa: F401
+from dna_kmeres_parallel_tpu_torch.utils.config import KmerConfig  # noqa: F401
 
 
 def _sparse_config(k: int, canonical: bool, kw) -> KmerConfig:
@@ -58,4 +67,32 @@ def count_sequences(
     return SparseKmerEngine(cfg, device=device).count_sequences(list(seqs))
 
 
-__all__ = ["KmerConfig", "__version__", "count_file", "count_sequences"]
+def distance_file(path, k: int = 3, canonical: bool = False, device="cuda", **kw):
+    """Packed pairwise k-mer distances of the records of a FASTA file ->
+    DistanceResult. k <= 8 (dense counts); larger k raises."""
+    from dna_kmeres_parallel_tpu_torch.models.engine import KmerEngine
+
+    cfg = KmerConfig(k=k, canonical=canonical, **kw)
+    return KmerEngine(cfg, device=device).distance_file(path)
+
+
+def distance_sequences(
+    seqs, k: int = 3, canonical: bool = False, device="cuda", ids=None, **kw
+):
+    """Packed pairwise k-mer distances of in-memory sequences (list of
+    ACGT strings) -> DistanceResult. k <= 8 (dense counts); larger k
+    raises."""
+    from dna_kmeres_parallel_tpu_torch.models.engine import KmerEngine
+
+    cfg = KmerConfig(k=k, canonical=canonical, **kw)
+    return KmerEngine(cfg, device=device).distance_sequences(list(seqs), ids=ids)
+
+
+__all__ = [
+    "KmerConfig",
+    "__version__",
+    "count_file",
+    "count_sequences",
+    "distance_file",
+    "distance_sequences",
+]

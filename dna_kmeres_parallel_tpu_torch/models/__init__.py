@@ -1,1 +1,2 @@
-"""Engines: plane staging and the sparse counting engine."""
+"""Engines: plane staging and the dense distance engine, the sparse
+counting engine, and the resumable distance-CSV writer."""

@@ -9,9 +9,8 @@ window words by K1 on the device, copied back, and turned into a sorted
 folds the batch tables into one. Counts are exact integers.
 
 The JAX engine has more routes (a device sort, host-only and super-k-mer
-compaction); the port has this one. ``KmerConfig`` fields that only
-select among the JAX routes (``use_pallas``, ``pack_input``,
-``sort_row_len``) are not read.
+compaction); the port has this one, and ``KmerConfig.device_sort`` /
+``compact`` values that would select another raise.
 """
 
 from __future__ import annotations
@@ -23,15 +22,15 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from dna_kmeres_parallel_tpu import native
-from dna_kmeres_parallel_tpu.utils import codec
-from dna_kmeres_parallel_tpu.utils.config import KmerConfig
+from dna_kmeres_parallel_tpu_torch import native
 from dna_kmeres_parallel_tpu_torch.models.engine import (
     pack_planes_np,
     planes_to_device,
 )
 from dna_kmeres_parallel_tpu_torch.ops import runtime
 from dna_kmeres_parallel_tpu_torch.ops import sparse as sparse_ops
+from dna_kmeres_parallel_tpu_torch.utils import codec, fasta
+from dna_kmeres_parallel_tpu_torch.utils.config import KmerConfig
 
 _LANE = 128
 
@@ -44,12 +43,10 @@ def _round_up(x: int, m: int) -> int:
 
 
 def require_native() -> None:
-    """Build (at first use) and load the C++ host library that parses,
-    packs, compacts and merges; raise with its build error if it cannot."""
-    if not native.available():
-        raise RuntimeError(
-            f"the native host library failed to build: {native.build_error()}"
-        )
+    """Build (at first use) and load the port's C++ host library, which
+    parses, packs, compacts, merges and formats; raises with the
+    compiler's output if it cannot be built."""
+    native.load()
 
 
 def batch_plan(total: int, k: int, batch_bases: int) -> tuple[int, int]:
@@ -59,23 +56,6 @@ def batch_plan(total: int, k: int, batch_bases: int) -> tuple[int, int]:
     pow2 = 1 << (max(total, _LANE) - 1).bit_length()
     batch = max(min(batch_bases, pow2), k)
     return batch, _round_up(batch + k - 1, _LANE)
-
-
-def _mark(dev: torch.device):
-    """A point on the device's timeline: a CUDA event recorded on the
-    current stream on the card, the host clock on the CPU. Reading the
-    events adds no synchronize: they are read after ``words_to_host`` has
-    waited for the stream."""
-    if dev.type != "cuda":
-        return time.perf_counter()
-    event = torch.cuda.Event(enable_timing=True)
-    event.record(torch.cuda.current_stream(dev))
-    return event
-
-
-def _span_s(a, b) -> float:
-    """Seconds between two ``_mark`` points."""
-    return b - a if isinstance(a, float) else a.elapsed_time(b) / 1e3
 
 
 def words_to_host(words) -> tuple[np.ndarray, ...]:
@@ -238,15 +218,15 @@ class SparseKmerEngine:
                 padded[: seg.shape[0]] = seg
                 planes = pack_planes_np(padded)
                 lap("staging")
-                m0 = _mark(dev)
+                m0 = runtime.mark(dev)
                 staged = planes_to_device(planes, dev)
-                m1 = _mark(dev)
+                m1 = runtime.mark(dev)
                 words = sparse_ops.encode_words_planes(
                     *staged, end - start, cfg.k, cfg.canonical
                 )
-                m2 = _mark(dev)
+                m2 = runtime.mark(dev)
                 host = words_to_host(words)  # waits for the device
-                h2d, kernel = _span_s(m0, m1), _span_s(m1, m2)
+                h2d, kernel = runtime.span_s(m0, m1), runtime.span_s(m1, m2)
                 phases["h2d"] += h2d
                 phases["kernel"] += kernel
                 lap("d2h")
@@ -273,8 +253,6 @@ class SparseKmerEngine:
         return self.count_stream(flat, sum(len(s) for s in seqs), len(seqs))
 
     def count_file(self, source) -> SparseCountResult:
-        from dna_kmeres_parallel_tpu.utils import fasta
-
         cfg = self.config
         t0 = time.perf_counter()
         if cfg.parser_variant == "modern" and isinstance(

@@ -1,2 +1,3 @@
-"""Device compute: the split-word encode, its hand-written CUDA kernel and
-the kernel build."""
+"""Device compute: the split-word encode, counts matrices and (min,+)
+products, their hand-written CUDA kernels' wrappers beside their plain
+PyTorch versions, and the kernel build."""

@@ -1,0 +1,150 @@
+"""K3 and K4, the tiled (min,+) products: CUDA wrappers.
+
+The kernels (``csrc/min_sum.cu``) replace the TPU kernels
+``dna_kmeres_parallel_tpu/ops/distance_pallas.py::min_sum_matrix_pallas_tri``
+(K3: the symmetric [S, S] matrix from upper-triangle tiles) and
+``::min_sum_matrix_pallas`` (K4: a rectangular [S, S2] panel). Their plain
+version is ``ops/distance.min_sum_matrix``.
+
+``min_sum_matrix_tri`` and ``min_sum_matrix_rect`` pick the route by the
+counts' device and nothing else: the kernel on the card, the plain version
+on the CPU. Both refuse counts whose row sums reach 2^31: an int32
+min-sum could not hold such a pair, and the kernels do not wrap.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dna_kmeres_parallel_tpu_torch.ops import distance as dist_ops
+
+#: Kernel launches since the counts were last reset; each wrapper adds one
+#: per launch of its kernel and nothing else touches them except a
+#: caller's reset.
+TRI_LAUNCHES = 0
+RECT_LAUNCHES = 0
+
+
+def check_counts(*mats: torch.Tensor) -> None:
+    """Raise unless every matrix is a 2-D int32 [rows, B] tensor with one B
+    and one device, and every row's sum is below 2^31."""
+    for m in mats:
+        if m.dtype != torch.int32 or m.dim() != 2:
+            raise ValueError(
+                f"counts must be 2-D int32 tensors, got {m.dtype} {tuple(m.shape)}"
+            )
+        if m.shape[1] != mats[0].shape[1] or m.device != mats[0].device:
+            raise ValueError(
+                f"counts must share bins and device, got {tuple(m.shape)} on "
+                f"{m.device} and {tuple(mats[0].shape)} on {mats[0].device}"
+            )
+        if m.numel() and int(m.sum(1, dtype=torch.int64).max()) >= 1 << 31:
+            raise ValueError(
+                "a row of the counts sums to 2^31 or more: its min-sums could "
+                "overflow int32"
+            )
+
+
+def _launch(fn, name: str, *args) -> None:
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {rc}")
+
+
+def _cuda_ready(*mats: torch.Tensor) -> None:
+    for m in mats:
+        if m.device.type != "cuda" or m.device != mats[0].device:
+            raise ValueError(
+                f"the min-sum kernels need tensors on one card, got {m.device}"
+            )
+        if m.dtype != torch.int32 or m.dim() != 2 or not m.is_contiguous():
+            raise ValueError(
+                "the min-sum kernels need contiguous 2-D int32 tensors, got "
+                f"{m.dtype} {tuple(m.shape)}"
+            )
+
+
+def launch_min_sum_tri(counts: torch.Tensor, out: torch.Tensor) -> None:
+    """Launch K3 into ``out`` (int32 [S, S] on the card). Checks shapes and
+    devices only: the caller has checked the row sums."""
+    global TRI_LAUNCHES
+    _cuda_ready(counts, out)
+    S, B = counts.shape
+    if out.dtype != torch.int32 or out.shape != (S, S):
+        raise ValueError(f"out must be int32 {(S, S)}, got {out.dtype} {tuple(out.shape)}")
+    from dna_kmeres_parallel_tpu_torch.ops import kernels
+
+    lib = kernels.load()
+    with torch.cuda.device(counts.device):
+        stream = torch.cuda.current_stream(counts.device).cuda_stream
+        _launch(lib.kp_min_sum_tri, "kp_min_sum_tri",
+                counts.data_ptr(), S, B, out.data_ptr(), stream)
+    TRI_LAUNCHES += 1
+
+
+def launch_min_sum_rect(
+    counts: torch.Tensor, counts_other: torch.Tensor, out: torch.Tensor
+) -> None:
+    """Launch K4 into ``out`` (int32 [S, S2] on the card). Checks shapes
+    and devices only: the caller has checked the row sums."""
+    global RECT_LAUNCHES
+    _cuda_ready(counts, counts_other, out)
+    S, B = counts.shape
+    S2 = counts_other.shape[0]
+    if counts_other.shape[1] != B:
+        raise ValueError(f"bins differ: {B} and {counts_other.shape[1]}")
+    if out.dtype != torch.int32 or out.shape != (S, S2):
+        raise ValueError(f"out must be int32 {(S, S2)}, got {out.dtype} {tuple(out.shape)}")
+    from dna_kmeres_parallel_tpu_torch.ops import kernels
+
+    lib = kernels.load()
+    with torch.cuda.device(counts.device):
+        stream = torch.cuda.current_stream(counts.device).cuda_stream
+        _launch(lib.kp_min_sum_rect, "kp_min_sum_rect", counts.data_ptr(), S,
+                counts_other.data_ptr(), S2, B, out.data_ptr(), stream)
+    RECT_LAUNCHES += 1
+
+
+def min_sum_tri_cuda(counts: torch.Tensor) -> torch.Tensor:
+    """K3: int32 [S, B] on the card -> the full symmetric int32 [S, S]
+    min-sum matrix on the card."""
+    check_counts(counts)
+    _cuda_ready(counts)
+    S = counts.shape[0]
+    out = torch.empty(S, S, dtype=torch.int32, device=counts.device)
+    if S:
+        launch_min_sum_tri(counts, out)
+    return out
+
+
+def min_sum_rect_cuda(counts: torch.Tensor, counts_other: torch.Tensor) -> torch.Tensor:
+    """K4: int32 [S, B] and [S2, B] on the card -> int32 [S, S2]."""
+    check_counts(counts, counts_other)
+    _cuda_ready(counts, counts_other)
+    S, S2 = counts.shape[0], counts_other.shape[0]
+    out = torch.empty(S, S2, dtype=torch.int32, device=counts.device)
+    if S and S2:
+        launch_min_sum_rect(counts, counts_other, out)
+    return out
+
+
+def min_sum_matrix_tri(counts: torch.Tensor) -> torch.Tensor:
+    """Symmetric int32 [S, S] min-sums: K3 on the card, the plain version
+    on the CPU."""
+    if counts.device.type == "cuda":
+        return min_sum_tri_cuda(counts)
+    if counts.device.type != "cpu":
+        raise ValueError(f"no min-sum for device {counts.device}")
+    check_counts(counts)
+    return dist_ops.min_sum_matrix(counts)
+
+
+def min_sum_matrix_rect(counts: torch.Tensor, counts_other: torch.Tensor) -> torch.Tensor:
+    """int32 [S, S2] min-sums of a row panel against partner rows: K4 on
+    the card, the plain version on the CPU."""
+    if counts.device.type == "cuda":
+        return min_sum_rect_cuda(counts, counts_other)
+    if counts.device.type != "cpu":
+        raise ValueError(f"no min-sum for device {counts.device}")
+    check_counts(counts, counts_other)
+    return dist_ops.min_sum_matrix(counts, counts_other)

@@ -1,6 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``),
+one process per source, all started together, and the objects are linked
 into ONE shared library with a plain C interface, at first use, under
 ``build/torch_kernels/`` beside the package. The library's name carries a
 hash of the sources and flags, so an edited source rebuilds and an
@@ -28,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -61,6 +62,22 @@ def library_path() -> Path:
     return BUILD_DIR / f"libkmer_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands concurrently; raise with the output of the first
+    that fails, else return all their output."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate(timeout=600)[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{out}"
+            )
+    return "".join(outs)
+
+
 @functools.cache
 def build() -> tuple[Path, str]:
     """Compile the kernels if this source hash has no library yet.
@@ -71,23 +88,19 @@ def build() -> tuple[Path, str]:
     if so.exists():
         return so, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Compile to a private name, then rename: a concurrent build never
-    # sees a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, so)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return so, proc.stdout + proc.stderr
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
+        log = _run([
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(_sources(), objs)
+        ])
+        # Link to a private name, then rename: a concurrent build never
+        # sees a half-written library.
+        lib = Path(tmp) / so.name
+        log += _run([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(lib), *map(str, objs)]])
+        os.replace(lib, so)
+    return so, log
 
 
 @functools.cache
@@ -100,4 +113,10 @@ def load() -> ctypes.CDLL:
     lib.kp_encode_packed.argtypes = [
         vp, vp, ll, ll, ci, ci, vp, vp, ci, vp,
     ]
+    lib.kp_counts_matrix.restype = ci
+    lib.kp_counts_matrix.argtypes = [vp, ll, ll, ci, ci, ci, vp, vp]
+    lib.kp_min_sum_tri.restype = ci
+    lib.kp_min_sum_tri.argtypes = [vp, ll, ll, vp, vp]
+    lib.kp_min_sum_rect.restype = ci
+    lib.kp_min_sum_rect.argtypes = [vp, ll, vp, ll, ll, vp, vp]
     return lib

@@ -1,0 +1,63 @@
+"""Runtime configuration of the port's engines.
+
+The fields are those of the JAX package's ``KmerConfig`` that the port
+reads; routes the port does not have raise where they are asked for.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+_COMPACT_MODES = ("auto", "device", "host", "device-rle", "device-super")
+
+
+@dataclass(frozen=True)
+class KmerConfig:
+    """Configuration of counting and distance runs.
+
+    Attributes:
+      k: k-mer length, 1..31.
+      canonical: fold each k-mer with its reverse complement
+         (min(code, revcomp(code))).
+      max_seqs: optional cap on the records read from a file.
+      batch_bases: bases per device batch of the sparse counter (inputs
+         shorter than one batch use a power-of-two batch).
+      dense_bins_limit: largest 4^k counted as a dense histogram; above it
+         the sparse (sorted-table) counter applies.
+      parser_variant: "modern" | "blank_line" | "no_blank_line" (the
+         reference's record splitting, see utils/fasta.py).
+      device_sort: sparse counter: whether the device sorts the window
+         words. Only None (no device sort) is ported.
+      compact: sparse counter: where each batch's table is built. Only
+         "auto" (device encode, host radix compaction) is ported.
+    """
+
+    k: int = 3
+    canonical: bool = False
+    max_seqs: int | None = None
+    batch_bases: int = 1 << 24
+    dense_bins_limit: int = 1 << 24
+    parser_variant: str = "modern"
+    device_sort: bool | None = None
+    compact: str = "auto"
+
+    def __post_init__(self):
+        if not (1 <= self.k <= 31):
+            raise ValueError(f"k must be in [1, 31], got {self.k}")
+        if self.parser_variant not in ("modern", "blank_line", "no_blank_line"):
+            raise ValueError(f"bad parser_variant {self.parser_variant!r}")
+        if self.compact not in _COMPACT_MODES:
+            raise ValueError(f"bad compact {self.compact!r}")
+
+    @property
+    def bins(self) -> int:
+        return 1 << (2 * self.k)
+
+    @property
+    def dense(self) -> bool:
+        """Whether the dense histogram representation applies."""
+        return self.bins <= self.dense_bins_limit
+
+    def replace(self, **kw) -> "KmerConfig":
+        return dataclasses.replace(self, **kw)

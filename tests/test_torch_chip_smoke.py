@@ -1,6 +1,8 @@
 """``chip_smoke.py``'s own parts, on the CPU: the seeded records, their
-FASTA, and the plain reference table the main path is held against on
-the card. Exact integer tables: the tolerance is zero."""
+FASTA, the plain reference table the counting path is held against on
+the card, and a rehearsal of the distance path at a small size (the
+kernels' plain versions standing in for the kernels, counted as they
+would be). Exact integers and float32 bits: the tolerance is zero."""
 
 import re
 import sys
@@ -80,3 +82,78 @@ def test_script_imports_only_the_port():
     for name in imports:
         assert not name.startswith("jax"), name
         assert not re.match(r"dna_kmeres_parallel_tpu(\.|$)", name), name
+
+
+@pytest.fixture
+def counted_plain_versions(monkeypatch):
+    """Route the distance path's kernel wrappers to their plain versions
+    on the CPU, each adding to its kernel's launch count as the kernel
+    would."""
+    from dna_kmeres_parallel_tpu_torch.ops import distance, distance_cuda, histogram_cuda
+
+    plain_counts = histogram_cuda.counts_matrix_reference
+    tri, rect = distance_cuda.min_sum_matrix_tri, distance_cuda.min_sum_matrix_rect
+
+    def counts(*a, **kw):
+        histogram_cuda.LAUNCHES += 1
+        return plain_counts(*a, **kw)
+
+    def counted_tri(c):
+        distance_cuda.TRI_LAUNCHES += 1
+        return tri(c)
+
+    def counted_rect(a, b):
+        distance_cuda.RECT_LAUNCHES += 1
+        return rect(a, b)
+
+    monkeypatch.setattr(histogram_cuda, "counts_matrix_reference", counts)
+    monkeypatch.setattr(distance_cuda, "min_sum_matrix_tri", counted_tri)
+    monkeypatch.setattr(distance_cuda, "min_sum_matrix_rect", counted_rect)
+    monkeypatch.setattr(distance_cuda, "min_sum_tri_cuda", distance.min_sum_matrix)
+    monkeypatch.setattr(distance_cuda, "min_sum_rect_cuda", distance.min_sum_matrix)
+
+
+def test_distance_records_layout():
+    stream, starts, lengths = chip_smoke.distance_records(50)
+    assert np.all((lengths >= 1000) & (lengths <= 2000))
+    assert stream.size == lengths.sum() + 49
+    assert np.all(stream[starts[1:] - 1] == chip_smoke.INVALID)
+
+
+def test_reference_counts_and_distances_match_oracle():
+    records = chip_smoke.distance_records(12)
+    seqs = chip_smoke.record_strings(*records)
+    for k, canonical in ((3, False), (5, True)):
+        counts = chip_smoke.reference_counts(*records, k, canonical, CPU).numpy()
+        for s, row in zip(seqs, counts):
+            assert np.array_equal(row, oracle.count_vector(s, k, canonical))
+    for k in (3, 8):  # the broadcast route and the threshold-product route
+        counts = chip_smoke.reference_counts(*records, k, False, CPU)
+        sums = chip_smoke.reference_min_sums(counts, counts).numpy()
+        packed = chip_smoke.reference_packed(sums, records[2], records[2], k)
+        assert chip_smoke.same_bits(packed, oracle.distance_matrix_packed(seqs, k))
+
+
+def test_check_csv_catches_a_wrong_line(tmp_path):
+    want = np.array([0.25, 0.5, 1.0 / 3.0], np.float32)
+    path = tmp_path / "d.csv"
+    path.write_bytes(b"0.250000\n0.500000\n0.333333\n")
+    assert chip_smoke.check_csv(path, want) == 3
+    path.write_bytes(b"0.250000\n0.500001\n0.333333\n")
+    with pytest.raises(AssertionError, match="line 1"):
+        chip_smoke.check_csv(path, want)
+
+
+def test_distance_path_rehearsal(tmp_path, monkeypatch, counted_plain_versions):
+    # 70 records with the path's row counts cut to fit: (a) 40, (b) 20
+    # records, (c) panels of 16 rows.
+    monkeypatch.setattr(chip_smoke, "DIST_ROWS_A", 40)
+    monkeypatch.setattr(chip_smoke, "DIST_ROWS_B", 20)
+    monkeypatch.setattr(chip_smoke, "PANEL_ROWS", 16)
+    records = chip_smoke.distance_records(70)
+    path = tmp_path / "dist.fasta"
+    chip_smoke.write_fasta(path, *records)
+    launches = chip_smoke.phase_distance_path(records, path, CPU, "cpu")
+    assert [key[:3] for key in launches] == ["(a)", "(b)", "(c)"]
+    assert list(launches["(c)"].values()) == [0, 1, 0, 1]
+    assert not (tmp_path / "dist.csv").exists()

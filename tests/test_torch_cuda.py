@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
-the card. Every test here needs an NVIDIA card and skips without one.
+the card: K1 (encode), K2 (counts matrix), K3 and K4 ((min,+) products).
+Every test here needs an NVIDIA card and skips without one.
 
 The file imports no JAX, so it also runs where JAX is not installed (as on
 the machine with the card), without the repository's conftest:
@@ -12,10 +13,15 @@ import numpy as np
 import pytest
 import torch
 
-from dna_kmeres_parallel_tpu.utils import codec
 from dna_kmeres_parallel_tpu_torch.models import engine
-from dna_kmeres_parallel_tpu_torch.ops import encode_cuda
+from dna_kmeres_parallel_tpu_torch.ops import (
+    distance,
+    distance_cuda,
+    encode_cuda,
+    histogram_cuda,
+)
 from dna_kmeres_parallel_tpu_torch.ops import sparse as sparse_ops
+from dna_kmeres_parallel_tpu_torch.utils import codec
 
 KS = [1, 11, 13, 15, 16, 21, 23, 24, 31]
 
@@ -76,3 +82,90 @@ def test_kernel_edges_on_card(cuda_device, n, n_own, k):
         assert torch.equal(g, r)
     valid = int((got[0] != -1).sum())
     assert valid <= max(0, min(n_own, n - k + 1))
+
+
+def base_grid(S: int, L: int, seed: int) -> np.ndarray:
+    """Seeded u8 grid [S, L]: 3% N, an N run, rows of every length from 0
+    up (0xFF past a row's end), so some rows are shorter than k."""
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, 4, (S, L)).astype(np.uint8)
+    g[rng.random((S, L)) < 0.03] = codec.INVALID_BASE
+    if L > 40:
+        g[0, 10:30] = codec.INVALID_BASE
+    for r, n in enumerate(rng.integers(0, L + 1, S)):
+        g[r, n:] = codec.INVALID_BASE
+    return g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("canonical", [False, True])
+@pytest.mark.parametrize(
+    "S,L,k,bins",
+    [(1, 1, 3, 64), (5, 2, 3, 64), (37, 300, 3, 64), (64, 513, 5, 1024),
+     (9, 2000, 8, 65536), (3, 40, 1, 4), (16, 200, 10, 65536), (2, 0, 3, 64)],
+)
+def test_counts_matrix_kernel_matches_plain(cuda_device, S, L, k, bins, canonical):
+    # k=10 keeps only the codes below 65,536 (the rest are dropped, as in
+    # the plain version); L=0 and L=2 hold no window.
+    grid = torch.from_numpy(base_grid(S, L, S * 7 + L)).to(cuda_device)
+    launches = histogram_cuda.LAUNCHES
+    got = histogram_cuda.counts_matrix_grid(grid, k, bins, canonical)
+    assert histogram_cuda.LAUNCHES == launches + 1
+    ref = histogram_cuda.counts_matrix_reference(grid, k, bins, canonical)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.shape == (S, bins)
+    assert torch.equal(got, ref)
+
+
+def counts(S: int, B: int, seed: int, dev, cmax: int = 9) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, cmax + 1, (S, B)).astype(np.int32)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "S,B", [(1, 1), (1, 64), (2, 3), (63, 64), (64, 64), (65, 300), (130, 1024), (200, 33)]
+)
+def test_min_sum_tri_kernel_matches_plain(cuda_device, S, B):
+    a = counts(S, B, S + B, cuda_device)
+    launches = distance_cuda.TRI_LAUNCHES
+    got = distance_cuda.min_sum_matrix_tri(a)
+    assert distance_cuda.TRI_LAUNCHES == launches + 1
+    ref = distance.min_sum_matrix(a)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.shape == (S, S)
+    assert torch.equal(got, ref)
+    assert torch.equal(got, got.T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "S,S2,B", [(1, 1, 1), (1, 200, 64), (70, 1, 64), (129, 65, 300), (64, 128, 1024), (5, 77, 65536)]
+)
+def test_min_sum_rect_kernel_matches_plain(cuda_device, S, S2, B):
+    a = counts(S, B, S, cuda_device)
+    b = counts(S2, B, S2 + 1, cuda_device, cmax=3)
+    launches = distance_cuda.RECT_LAUNCHES
+    got = distance_cuda.min_sum_matrix_rect(a, b)
+    assert distance_cuda.RECT_LAUNCHES == launches + 1
+    ref = distance.min_sum_matrix(a, b)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.shape == (S, S2)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_min_sum_refuses_rows_summing_to_2_31(cuda_device):
+    # One row sums to exactly 2^31: its min-sum with itself would not fit
+    # int32. Both kernels refuse before launching; one below passes.
+    a = torch.zeros(3, 4, dtype=torch.int32, device=cuda_device)
+    a[1, 0] = a[1, 1] = 1 << 30
+    tri, rect = distance_cuda.TRI_LAUNCHES, distance_cuda.RECT_LAUNCHES
+    with pytest.raises(ValueError, match="2\\^31"):
+        distance_cuda.min_sum_matrix_tri(a)
+    with pytest.raises(ValueError, match="2\\^31"):
+        distance_cuda.min_sum_matrix_rect(a[:1], a)
+    assert (distance_cuda.TRI_LAUNCHES, distance_cuda.RECT_LAUNCHES) == (tri, rect)
+    a[1, 1] -= 1
+    got = distance_cuda.min_sum_matrix_tri(a)
+    assert int(got[1, 1]) == (1 << 31) - 1

@@ -1,69 +1,117 @@
-"""The port runs without JAX: it imports none of it, and none of the JAX
-package's modules that import it."""
+"""The port runs without JAX and without the JAX package: it imports
+neither, keeping its own copies of the host code it needs."""
 
+import json
 import os
 import re
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 import dna_kmeres_parallel_tpu_torch as port
+from dna_kmeres_parallel_tpu.models import oracle
 
 PKG = Path(port.__file__).resolve().parent
 REPO = PKG.parent
 
 _NO_JAX_RUN = r"""
+import json
 import sys
 
 class RefuseJax:
+    # Refuse jax, jaxlib and the JAX package (not the port, whose name
+    # only begins like it).
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith(("jax.", "jaxlib")):
-            raise ImportError(f"jax import refused: {name}")
+        if (
+            name == "jax"
+            or name.startswith(("jax.", "jaxlib"))
+            or name == "dna_kmeres_parallel_tpu"
+            or name.startswith("dna_kmeres_parallel_tpu.")
+        ):
+            raise ImportError(f"import refused: {name}")
         return None
 
 sys.meta_path.insert(0, RefuseJax())
 
 import dna_kmeres_parallel_tpu_torch as port
-from dna_kmeres_parallel_tpu.models import oracle
+from dna_kmeres_parallel_tpu_torch.utils import io
 
-seqs = ["ACGTTGCANNACGTACGTTTTTTTTTTTTTTTTTTTTTTTTGCA" * 7, "GATTACA" * 40]
+seqs = json.loads(sys.argv[1])
 res = port.count_sequences(seqs, k=21, device="cpu")
-assert res.table() == oracle.count_table_any_k(seqs, 21), "table mismatch"
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
-print("NO_JAX_OK", res.distinct_kmers)
+dist = port.distance_sequences(seqs, k=3, device="cpu")
+io.write_distances_csv(sys.argv[2], dist.packed)
+banned = [
+    m for m in sys.modules
+    if m.split(".")[0] in ("jax", "jaxlib", "dna_kmeres_parallel_tpu")
+]
+assert not banned, banned
+print(json.dumps({"table": res.table(), "bits": dist.packed.view("u4").tolist()}))
 """
 
+SEQS = ["ACGTTGCANNACGTACGTTTTTTTTTTTTTTTTTTTTTTTTGCA" * 7, "GATTACA" * 40, "ACGTAC"]
 
-def test_port_runs_with_jax_refused():
+
+def test_port_runs_with_jax_refused(tmp_path):
+    # jax and the JAX package are both refused in the subprocess.
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(REPO)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p]
     )
+    csv = tmp_path / "d.csv"
     proc = subprocess.run(
-        [sys.executable, "-c", _NO_JAX_RUN],
-        capture_output=True, text=True, timeout=120, env=env, cwd=str(REPO),
+        [sys.executable, "-c", _NO_JAX_RUN, json.dumps(SEQS), str(csv)],
+        capture_output=True, text=True, timeout=300, env=env, cwd=str(REPO),
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "NO_JAX_OK" in proc.stdout
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["table"] == oracle.count_table_any_k(SEQS, 21)
+    want = oracle.distance_matrix_packed(SEQS, 3)
+    assert out["bits"] == want.view(np.uint32).tolist()
+    assert csv.read_bytes() == "".join("%f\n" % v for v in want).encode()
 
 
+#: an import of jax, or any mention of the JAX package as a module
+#: (``dna_kmeres_parallel_tpu`` followed by a dot, a space or a quote)
 _FORBIDDEN = re.compile(
-    r"^\s*(import jax|from jax)"
-    r"|dna_kmeres_parallel_tpu\.(ops|parallel|models\.engine|models\.sparse_engine)\b"
-    r"|from dna_kmeres_parallel_tpu(\.models)? import .*\b(ops|parallel|engine|sparse_engine)\b",
+    r"^\s*(?:import|from)\s+jax(?:lib)?\b"
+    r"|^\s*(?:import|from)\s+dna_kmeres_parallel_tpu\b"
+    r"|dna_kmeres_parallel_tpu[. \"']",
     re.M,
 )
 
 
 @pytest.mark.parametrize(
-    "src", sorted(p.relative_to(REPO).as_posix() for p in PKG.rglob("*.py"))
+    "src",
+    sorted(
+        p.relative_to(REPO).as_posix()
+        for p in [*PKG.rglob("*.py"), *PKG.rglob("*.cpp"), *PKG.rglob("*.cu")]
+    ),
 )
 def test_source_imports_nothing_of_jax(src):
     text = (REPO / src).read_text()
     assert not _FORBIDDEN.findall(text), src
+
+
+def test_forbidden_pattern_catches_the_jax_package():
+    for line in (
+        "import jax",
+        "from jax import numpy",
+        "from dna_kmeres_parallel_tpu.utils import codec",
+        "import dna_kmeres_parallel_tpu",
+        "from dna_kmeres_parallel_tpu import native",
+        'importlib.import_module("dna_kmeres_parallel_tpu.native")',
+    ):
+        assert _FORBIDDEN.search(line), line
+    for line in (
+        "from dna_kmeres_parallel_tpu_torch.utils import codec",
+        "import dna_kmeres_parallel_tpu_torch as port",
+        "# replaces dna_kmeres_parallel_tpu/ops/distance_pallas.py",
+    ):
+        assert not _FORBIDDEN.search(line), line
 
 
 def test_cuda_request_raises_without_cuda():
@@ -73,3 +121,5 @@ def test_cuda_request_raises_without_cuda():
         port.count_sequences(["ACGT" * 10], k=21, device="cuda")
     with pytest.raises(ValueError, match="unsupported device"):
         port.count_sequences(["ACGT" * 10], k=21, device="meta")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port.distance_sequences(["ACGT" * 10], k=3, device="cuda")
