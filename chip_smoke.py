@@ -9,15 +9,25 @@ exits nonzero:
 1. the card (nvidia-smi name and power limit), torch and CUDA versions,
    and the native host library's build;
 2. the kernels' build from ``dna_kmeres_parallel_tpu_torch/csrc`` (nvcc);
-3. every kernel against its plain PyTorch version on the card, element
-   for element, and both timed with CUDA events at the main path's batch;
+3. K1 against its plain PyTorch version on the card, element for element,
+   and both timed with CUDA events at the main path's batch; then the
+   dense histogram kernels K5-K8 the same way: k in {1, 2, 3, 4, 6, 7, 8}
+   x canonical x four ``n_own`` on an N-rich stream, K8 at 1,000, 3,000
+   and 4^11 bins, each timed at one 16 Mbase batch;
 4. the main path: exact k-mer counting of a seeded random FASTA of
    ``--bases`` bases (default 256 Mbase, about one large human
    chromosome) through ``count_file`` and ``SparseKmerEngine``. Each table
    is checked code for code and count for count against a plain reference
    that shares no code with the port: every window of the generated
    records encoded in int64 on the card, then ``torch.unique``. The
-   kernel's launch count is checked against the batch count;
+   kernel's launch count is checked against the batch count. Then the
+   dense path on the same file: ``count_file`` at k=3 (K7 after the
+   device unpack), canonical k=6 and k=8 (K5), and with
+   ``pack_input=False`` at k=2 (K7), k=5 and canonical k=8 (K6), and at k=9
+   (K1, densified), each histogram against ``torch.bincount`` of the same
+   reference codes and each run launching only its route's kernel, once
+   per batch; and ``histogram_stream`` at 3,000 bins over the whole
+   stream (K8, one launch);
 5. the distance kernels (K2 counts matrix, K3 and K4 (min,+)) against
    their plain PyTorch versions on the card, element for element on edge
    shapes, then timed with CUDA events at the distance path's shapes,
@@ -68,6 +78,32 @@ CHECK_BASES = 4 << 20
 INVALID = 0xFF
 #: windows per chunk of the reference encode
 REF_CHUNK = 1 << 25
+#: k of the dense kernels' check, each with and without canonical
+DENSE_KS = (1, 2, 3, 4, 6, 7, 8)
+#: K8's (k, bins) checks: two bin counts that are not powers of two, and
+#: one above the shared-memory slices
+ANY_CASES = ((5, 1000), (6, 3000), (11, 4**11))
+#: the dense path's count_file runs: (name, k, canonical, pack_input, the
+#: kernel its route launches once per batch)
+DENSE_RUNS = (
+    ("count_file(k=3)", 3, False, True, "hist_u8_small"),
+    ("count_file(k=6, canonical)", 6, True, True, "hist_planes"),
+    ("count_file(k=8)", 8, False, True, "hist_planes"),
+    ("count_file(k=2, pack_input=False)", 2, False, False, "hist_u8_small"),
+    ("count_file(k=5, pack_input=False)", 5, False, False, "hist_u8"),
+    ("count_file(k=8, canonical, pack_input=False)", 8, True, False, "hist_u8"),
+    ("count_file(k=9)", 9, False, True, "encode_packed"),
+)
+#: K8 on the dense path: the routing entry at bins that are not a power of
+#: two, over the whole stream
+ANY_RUN = ("histogram_stream(k=6, bins=3000)", 6, 3000)
+#: the run whose launches the kernels line reports for each dense kernel
+DENSE_MAIN = {
+    "hist_planes": "count_file(k=8)",
+    "hist_u8": "count_file(k=5, pack_input=False)",
+    "hist_u8_small": "count_file(k=3)",
+    "hist_u8_any": ANY_RUN[0],
+}
 #: the card's peaks for the bound of a kernel (NVIDIA's H100 SXM data
 #: sheet): device-memory bytes per second, and operations per second
 #: outside the tensor cores (the float32 rate; the data sheet gives no
@@ -224,16 +260,15 @@ def write_fasta(path: Path, stream, starts, lengths) -> None:
                 f.write(rec[full:].tobytes() + b"\n")
 
 
-def reference_table(stream, k: int, canonical: bool, dev):
-    """Sorted distinct codes (u64) and counts (i64) of every valid window
-    of the stream, in plain int64 torch on the card: the code of a window
-    rolled over its k bases (and its reverse complement, for canonical),
-    then ``torch.unique``. Shares no code with the port."""
+def reference_codes(stream, k: int, canonical: bool, dev):
+    """The int64 codes of every valid window of the stream, chunk by chunk,
+    in plain torch on the card: the code of a window rolled over its k
+    bases (and its reverse complement, for canonical). Shares no code with
+    the port."""
     import torch
 
     b = torch.from_numpy(stream).to(dev)
     n = b.numel() - k + 1
-    parts = []
     for s in range(0, n, REF_CHUNK):
         m = min(REF_CHUNK, n - s)
         w = b[s : s + m + k - 1].long()
@@ -247,12 +282,32 @@ def reference_table(stream, k: int, canonical: bool, dev):
             rc |= (3 - (d & 3)) << (2 * j)
         if canonical:
             code = torch.minimum(code, rc)
-        parts.append(code[valid])
+        yield code[valid]
+
+
+def reference_table(stream, k: int, canonical: bool, dev):
+    """Sorted distinct codes (u64) and counts (i64) of every valid window
+    of the stream: ``reference_codes``, then ``torch.unique``."""
+    import torch
+
+    parts = list(reference_codes(stream, k, canonical, dev))
     codes, counts = torch.unique(torch.cat(parts), sorted=True, return_counts=True)
     return codes.cpu().numpy().view("u8"), counts.cpu().numpy()
 
 
-def phase_main_path(bases: int, dev, card: str) -> int:
+def reference_hist(stream, k: int, canonical: bool, dev, bins: int | None = None):
+    """int64 [bins] (default 4^k) counts of the valid windows' codes below
+    ``bins``: ``reference_codes``, then ``torch.bincount``."""
+    import torch
+
+    bins = 4**k if bins is None else bins
+    hist = torch.zeros(bins, dtype=torch.int64, device=dev)
+    for codes in reference_codes(stream, k, canonical, dev):
+        hist += torch.bincount(codes[codes < bins], minlength=bins)
+    return hist.cpu().numpy()
+
+
+def phase_main_path(records, path: Path, dev, card: str) -> int:
     import numpy as np
     import torch
 
@@ -262,15 +317,8 @@ def phase_main_path(bases: int, dev, card: str) -> int:
         SparseKmerEngine,
         batch_plan,
     )
-    t = time.perf_counter()
-    stream, starts, lengths = smoke_records(bases)
-    tmp = tempfile.TemporaryDirectory(prefix="kmer_smoke_")
-    path = Path(tmp.name) / "smoke.fasta"
-    write_fasta(path, stream, starts, lengths)
-    log(f"fasta: {lengths.size} records, {int(lengths.sum())} bases, "
-        f"{int((stream == INVALID).sum()) - lengths.size + 1} N, "
-        f"{path.stat().st_size} bytes, written in {time.perf_counter() - t:.1f} s")
 
+    stream, _, lengths = records
     runs = [
         ("count_file(k=21)", 21, False,
          lambda: port.count_file(str(path), k=21, device=dev)),
@@ -282,66 +330,217 @@ def phase_main_path(bases: int, dev, card: str) -> int:
          .count_file(str(path))),
     ]
     main_launches = None
-    try:
-        for name, k, canonical, run in runs:
-            t = time.perf_counter()
-            ref_codes, ref_counts = reference_table(stream, k, canonical, dev)
-            torch.cuda.empty_cache()
-            ref_s = time.perf_counter() - t
-            batch, _ = batch_plan(stream.size, k, KmerConfig().batch_bases)
-            n_batches = math.ceil(stream.size / batch)
-            reset_launches()
-            t = time.perf_counter()
-            res = run()
-            wall = time.perf_counter() - t
-            got = read_launches()
-            launches = got["encode_packed"]
-            if any(got[n] for n in got if n != "encode_packed"):
-                raise AssertionError(f"{name}: distance kernels launched: {got}")
-            if (res.n_seqs, res.total_bases) != (lengths.size, int(lengths.sum())):
-                raise AssertionError(
-                    f"{name}: {res.n_seqs} records of {res.total_bases} bases parsed"
-                )
-            if not (
-                np.array_equal(res.codes, ref_codes)
-                and np.array_equal(res.counts, ref_counts)
-            ):
-                raise AssertionError(f"{name}: table differs from the reference")
-            if launches != n_batches:
-                raise AssertionError(
-                    f"{name}: {launches} kernel launches for {n_batches} batches"
-                )
-            if main_launches is None:  # the first run is the main path's
-                main_launches = launches
-            phases = " ".join(f"{p}={s:.3f}" for p, s in res.phases.items())
-            log(f"{name}: {res.distinct_kmers} distinct, {res.total_kmers} k-mers, "
-                f"equal to the reference ({ref_s:.2f} s); "
-                f"{launches} launches for {n_batches} batches; "
-                f"wall {wall:.3f} s, {res.total_bases / wall / 1e9:.4f} Gbase/s; "
-                f"phases s: {phases} [{card}]")
-    finally:
-        tmp.cleanup()
+    for name, k, canonical, run in runs:
+        t = time.perf_counter()
+        ref_codes, ref_counts = reference_table(stream, k, canonical, dev)
+        torch.cuda.empty_cache()
+        ref_s = time.perf_counter() - t
+        batch, _ = batch_plan(stream.size, k, KmerConfig().batch_bases)
+        n_batches = math.ceil(stream.size / batch)
+        reset_launches()
+        t = time.perf_counter()
+        res = run()
+        wall = time.perf_counter() - t
+        got = read_launches()
+        launches = got["encode_packed"]
+        if any(got[n] for n in got if n != "encode_packed"):
+            raise AssertionError(f"{name}: other kernels launched: {got}")
+        if (res.n_seqs, res.total_bases) != (lengths.size, int(lengths.sum())):
+            raise AssertionError(
+                f"{name}: {res.n_seqs} records of {res.total_bases} bases parsed"
+            )
+        if not (
+            np.array_equal(res.codes, ref_codes)
+            and np.array_equal(res.counts, ref_counts)
+        ):
+            raise AssertionError(f"{name}: table differs from the reference")
+        if launches != n_batches:
+            raise AssertionError(
+                f"{name}: {launches} kernel launches for {n_batches} batches"
+            )
+        if main_launches is None:  # the first run is the main path's
+            main_launches = launches
+        phases = " ".join(f"{p}={s:.3f}" for p, s in res.phases.items())
+        log(f"{name}: {res.distinct_kmers} distinct, {res.total_kmers} k-mers, "
+            f"equal to the reference ({ref_s:.2f} s); "
+            f"{launches} launches for {n_batches} batches; "
+            f"wall {wall:.3f} s, {res.total_bases / wall / 1e9:.4f} Gbase/s; "
+            f"phases s: {phases} [{card}]")
     return main_launches
+
+
+def phase_dense_kernels(dev, card: str) -> dict:
+    """K5-K8 against their plain versions on an N-rich stream, element for
+    element, then each timed at one 16 Mbase batch beside its plain
+    version. Returns each kernel's record."""
+    import numpy as np
+    import torch
+
+    from dna_kmeres_parallel_tpu_torch import KmerConfig
+    from dna_kmeres_parallel_tpu_torch.models.engine import batch_plan, stage_batch_planes
+    from dna_kmeres_parallel_tpu_torch.ops import histogram_cuda as hc
+
+    worst = dict.fromkeys(("hist_planes", "hist_u8", "hist_u8_small", "hist_u8_any"), 0)
+
+    def check(name, got, ref, what):
+        torch.cuda.synchronize()
+        err = max_abs_err((got,), (ref,))
+        worst[name] = max(worst[name], err)
+        if err:
+            raise AssertionError(f"{name} disagrees with plain at {what}")
+
+    rng = np.random.default_rng(4)
+    bases = check_stream(rng, CHECK_BASES)
+    planes = stage_batch_planes(bases, dev)
+    b = torch.from_numpy(bases).to(dev)
+    owns = (0, 1, CHECK_BASES // 2 + 5, CHECK_BASES)
+    for k in DENSE_KS:
+        for canonical in (False, True):
+            for n_own in owns:
+                what = f"k={k} canonical={canonical} n_own={n_own}"
+                check("hist_planes", hc.hist_planes_cuda(*planes, n_own, k, canonical),
+                      hc.hist_planes_reference(*planes, n_own, k, canonical), what)
+                ref = hc.hist_u8_reference(b, n_own, k, 4**k, canonical)
+                check("hist_u8", hc.hist_u8_cuda(b, n_own, k, 4**k, canonical), ref, what)
+                if 4**k <= hc.SMALL_BINS:
+                    check("hist_u8_small", hc.hist_u8_small_cuda(b, n_own, k, 4**k, canonical),
+                          ref, what)
+            log(f"kernel check dense k={k} canonical={canonical}: {CHECK_BASES} bases, "
+                f"n_own in {owns}: K5, K6{', K7' if k <= 3 else ''} equal their plain "
+                f"versions, {int(ref.sum())} windows at full n_own")
+    for k, bins in ANY_CASES:
+        for canonical in (False, True):
+            for n_own in owns:
+                check("hist_u8_any", hc.hist_u8_any_cuda(b, n_own, k, bins, canonical),
+                      hc.hist_u8_reference(b, n_own, k, bins, canonical),
+                      f"k={k} bins={bins} canonical={canonical} n_own={n_own}")
+        log(f"kernel check dense K8 k={k} bins={bins}: equal to plain")
+
+    # One 16 Mbase batch: batch_bases owned + a (k-1) halo, padded.
+    batch, T = batch_plan(1 << 40, 8, KmerConfig().batch_bases)
+    bases = check_stream(rng, T)
+    planes = stage_batch_planes(bases, dev)
+    b = torch.from_numpy(bases).to(dev)
+    rec = {}
+
+    def timed(name, shape, bins, kernel, plain, in_bytes):
+        check(name, kernel(None), plain(), f"T={T} {shape}")
+        acc = torch.zeros(bins, dtype=torch.int32, device=dev)
+        rec[name] = dict(
+            ms=time_ms(lambda: kernel(acc), 20),
+            plain_ms=time_ms(plain, 3),
+            library_ms=None,
+            bound=bound_ms(in_bytes + 2 * 4 * bins, batch),
+            shape=shape,
+        )
+
+    timed("hist_planes", "k=8 planes", 4**8,
+          lambda acc: hc.hist_planes_cuda(*planes, batch, 8, False, acc),
+          lambda: hc.hist_planes_reference(*planes, batch, 8), T // 2)
+    timed("hist_u8", "k=8 u8", 4**8,
+          lambda acc: hc.hist_u8_cuda(b, batch, 8, 4**8, False, acc),
+          lambda: hc.hist_u8_reference(b, batch, 8, 4**8), T)
+    timed("hist_u8_small", "k=3 u8", 64,
+          lambda acc: hc.hist_u8_small_cuda(b, batch, 3, 64, False, acc),
+          lambda: hc.hist_u8_reference(b, batch, 3, 64), T)
+    _, k8, bins8 = ANY_RUN
+    timed("hist_u8_any", f"k={k8} bins={bins8} u8", bins8,
+          lambda acc: hc.hist_u8_any_cuda(b, batch, k8, bins8, False, acc),
+          lambda: hc.hist_u8_reference(b, batch, k8, bins8), T)
+    acc = torch.zeros(4**11, dtype=torch.int32, device=dev)
+    wide_ms = time_ms(lambda: hc.hist_u8_any_cuda(b, batch, 11, 4**11, False, acc), 20)
+    log(f"kernel time hist_u8_any k=11 bins={4**11} u8 T={T}: {wide_ms:.4f} ms, bound "
+        f"{bound_ms(T + 8 * 4**11, batch)[0]:.4f} ms [{card}]")
+    for name, r in rec.items():
+        r["max_abs_err"] = worst[name]
+        log(f"kernel time {name} {r['shape']} T={T}: kernel {r['ms']:.4f} ms "
+            f"({batch / r['ms'] / 1e6:.2f} Gwindow/s), plain {r['plain_ms']:.3f} ms, "
+            f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), max_abs_err={worst[name]} [{card}]")
+    return rec
+
+
+def phase_dense_path(records, path: Path, dev, card: str) -> dict:
+    """The dense counting runs (DENSE_RUNS, then ANY_RUN) on the main
+    path's FASTA, each against ``reference_hist``. Returns each run's launch
+    counts."""
+    import numpy as np
+    import torch
+
+    import dna_kmeres_parallel_tpu_torch as port
+    from dna_kmeres_parallel_tpu_torch import KmerConfig
+    from dna_kmeres_parallel_tpu_torch.models.engine import batch_plan
+    from dna_kmeres_parallel_tpu_torch.ops import histogram_cuda
+
+    stream, _, lengths = records
+    none = dict.fromkeys(read_launches(), 0)
+    launches = {}
+    for name, k, canonical, pack_input, kernel in DENSE_RUNS:
+        t = time.perf_counter()
+        ref = reference_hist(stream, k, canonical, dev)
+        torch.cuda.empty_cache()
+        ref_s = time.perf_counter() - t
+        batch, _ = batch_plan(stream.size, k, KmerConfig().batch_bases)
+        n_batches = math.ceil(stream.size / batch)
+        reset_launches()
+        t = time.perf_counter()
+        res = port.count_file(str(path), k=k, canonical=canonical,
+                              pack_input=pack_input, device=dev)
+        wall = time.perf_counter() - t
+        launches[name] = expect_launches(name, {**none, kernel: n_batches})
+        if (res.n_seqs, res.total_bases) != (lengths.size, int(lengths.sum())):
+            raise AssertionError(f"{name}: {res.n_seqs} records of {res.total_bases} bases parsed")
+        if res.hist.dtype != np.int64 or not np.array_equal(res.hist, ref):
+            raise AssertionError(f"{name}: histogram differs from the reference")
+        phases = " ".join(f"{p}={s:.3f}" for p, s in res.phases.items())
+        log(f"{name}: {res.distinct_kmers} distinct, {res.total_kmers} k-mers, equal to "
+            f"the reference ({ref_s:.2f} s); {n_batches} {kernel} launches for "
+            f"{n_batches} batches; wall {wall:.3f} s, "
+            f"{res.total_bases / wall / 1e9:.4f} Gbase/s; phases s: {phases} [{card}]")
+
+    name, k, bins = ANY_RUN
+    ref = reference_hist(stream, k, False, dev, bins)
+    b = torch.from_numpy(stream).to(dev)
+    reset_launches()
+    t = time.perf_counter()
+    got = histogram_cuda.histogram_stream(b, b.numel(), k, bins).cpu().numpy()
+    wall = time.perf_counter() - t
+    launches[name] = expect_launches(name, {**none, "hist_u8_any": 1})
+    if got.shape != (bins,) or not np.array_equal(got, ref):
+        raise AssertionError(f"{name}: histogram differs from the reference")
+    log(f"{name} over {b.numel()} bases on the card: {int(got.sum())} windows, equal to "
+        f"the reference; 1 hist_u8_any launch; wall {wall:.3f} s [{card}]")
+    return launches
+
+
+#: every kernel's launch counter: (module, attribute) by kernel name
+COUNTERS = {
+    "encode_packed": ("encode_cuda", "LAUNCHES"),
+    "counts_matrix": ("histogram_cuda", "COUNTS_LAUNCHES"),
+    "min_sum_tri": ("distance_cuda", "TRI_LAUNCHES"),
+    "min_sum_rect": ("distance_cuda", "RECT_LAUNCHES"),
+    "hist_planes": ("histogram_cuda", "PLANES_LAUNCHES"),
+    "hist_u8": ("histogram_cuda", "U8_LAUNCHES"),
+    "hist_u8_small": ("histogram_cuda", "SMALL_LAUNCHES"),
+    "hist_u8_any": ("histogram_cuda", "ANY_LAUNCHES"),
+}
+
+
+def _counter_module(name: str):
+    import importlib
+
+    return importlib.import_module(f"dna_kmeres_parallel_tpu_torch.ops.{name}")
 
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    from dna_kmeres_parallel_tpu_torch.ops import distance_cuda, encode_cuda, histogram_cuda
-
-    encode_cuda.LAUNCHES = 0
-    histogram_cuda.LAUNCHES = 0
-    distance_cuda.TRI_LAUNCHES = 0
-    distance_cuda.RECT_LAUNCHES = 0
+    for module, attr in COUNTERS.values():
+        setattr(_counter_module(module), attr, 0)
 
 
 def read_launches() -> dict:
-    from dna_kmeres_parallel_tpu_torch.ops import distance_cuda, encode_cuda, histogram_cuda
-
     return {
-        "encode_packed": encode_cuda.LAUNCHES,
-        "counts_matrix": histogram_cuda.LAUNCHES,
-        "min_sum_tri": distance_cuda.TRI_LAUNCHES,
-        "min_sum_rect": distance_cuda.RECT_LAUNCHES,
+        kernel: getattr(_counter_module(module), attr)
+        for kernel, (module, attr) in COUNTERS.items()
     }
 
 
@@ -608,7 +807,7 @@ def phase_distance_path(records, path: Path, dev, card: str) -> dict:
 
     stream, starts, lengths = records
     S = lengths.size
-    none = dict.fromkeys(("encode_packed", "counts_matrix", "min_sum_tri", "min_sum_rect"), 0)
+    none = dict.fromkeys(read_launches(), 0)
     seqs = record_strings(stream, starts, lengths)
     launches = {}
 
@@ -721,9 +920,24 @@ def main() -> int:
     # 3. kernel vs plain
     dev = torch.device("cuda", 0)
     timed = phase_kernels(dev, card)
+    dense = phase_dense_kernels(dev, card)
 
-    # 4. the main path
-    launches = phase_main_path(args.bases, dev, card)
+    # 4. the main path and the dense path, on one FASTA
+    t = time.perf_counter()
+    records = smoke_records(args.bases)
+    tmp = tempfile.TemporaryDirectory(prefix="kmer_smoke_")
+    try:
+        path = Path(tmp.name) / "smoke.fasta"
+        write_fasta(path, *records)
+        stream, _, lengths = records
+        log(f"fasta: {lengths.size} records, {int(lengths.sum())} bases, "
+            f"{int((stream == INVALID).sum()) - lengths.size + 1} N, "
+            f"{path.stat().st_size} bytes, written in {time.perf_counter() - t:.1f} s")
+        launches = phase_main_path(records, path, dev, card)
+        dense_launches = phase_dense_path(records, path, dev, card)
+    finally:
+        tmp.cleanup()
+    del records, stream
 
     # 5-6. the distance kernels and the distance path
     t = time.perf_counter()
@@ -768,6 +982,26 @@ def main() -> int:
             "source": f"dna_kmeres_parallel_tpu_torch/csrc/{src}",
             "replaces": f"dna_kmeres_parallel_tpu/ops/{replaces}",
             "launches": dist_launches[run_key][name],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1],
+            "library_ms": r["library_ms"],
+        })
+    for name, replaces in (
+        ("hist_planes", "histogram_pallas.py:814"),
+        ("hist_u8", "histogram_pallas.py:604"),
+        ("hist_u8_small", "histogram_pallas.py:375"),
+        ("hist_u8_any", "histogram_pallas.py:927"),
+    ):
+        r = dense[name]
+        kernels_json.append({
+            "name": name,
+            "route": "cuda",
+            "source": "dna_kmeres_parallel_tpu_torch/csrc/histogram.cu",
+            "replaces": f"dna_kmeres_parallel_tpu/ops/{replaces}",
+            "launches": dense_launches[DENSE_MAIN[name]][name],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],

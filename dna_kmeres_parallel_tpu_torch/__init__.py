@@ -10,7 +10,8 @@ Layout (module names follow the JAX package's, so each counterpart is
 easy to find)
 ------
 - ``ops/``     the split-word encode (``sparse``), the plain dense encode
-               (``encode``), counts matrices (``histogram``), the (min,+)
+               and 2-bit unpack (``encode``), histograms and counts
+               matrices (``histogram``), the (min,+)
                product and the distance finish (``distance``); the
                hand-written CUDA kernels' wrappers beside their plain
                PyTorch versions (``encode_cuda``, ``histogram_cuda``,
@@ -18,7 +19,8 @@ easy to find)
                device resolution (``runtime``).
 - ``csrc/``    CUDA C++ sources for Hopper (``sm_90a``), built with nvcc at
                first use.
-- ``models/``  plane staging and the dense distance engine (``engine``),
+- ``models/``  batch staging and the dense counting and distance engine
+               (``engine``),
                the sparse counting engine (``sparse_engine``) and the
                resumable distance-CSV writer (``distance_stream``).
 - ``native/``  the C++ host library (parse, pack, radix compaction, merge,
@@ -26,9 +28,10 @@ easy to find)
 - ``utils/``   codec, configuration, FASTA parsing, packed-triangle
                indexing, CSV writers, the checkpoint file.
 
-What is ported: exact sparse k-mer counting, k = 1..31, canonical or not;
-dense pairwise k-mer distances, k <= 8, in memory or streamed to the
-reference's CSV. Every public entry takes an explicit ``device``:
+What is ported: exact k-mer counting, k = 1..31, canonical or not, as a
+dense histogram where 4^k <= dense_bins_limit (k <= 12 by default) and as
+a sorted sparse table above; dense pairwise k-mer distances, k <= 8, in
+memory or streamed to the reference's CSV. Every public entry takes an explicit ``device``:
 ``"cuda"`` runs the hand-written kernels and raises where CUDA is missing;
 ``"cpu"`` runs the kernels' plain PyTorch versions.
 """
@@ -38,33 +41,31 @@ __version__ = "0.1.0"
 from dna_kmeres_parallel_tpu_torch.utils.config import KmerConfig  # noqa: F401
 
 
-def _sparse_config(k: int, canonical: bool, kw) -> KmerConfig:
+def _engine(k: int, canonical: bool, device, kw):
+    """The engine ``count_file`` / ``count_sequences`` use, as the JAX
+    package routes: the dense engine where 4^k <= dense_bins_limit (k <= 12
+    by default), the sparse engine above."""
     cfg = KmerConfig(k=k, canonical=canonical, **kw)
     if cfg.dense:
-        raise NotImplementedError(
-            f"k={k} counts on the dense route (4^k <= dense_bins_limit="
-            f"{cfg.dense_bins_limit}), which is not ported yet (ROADMAP "
-            "item 6); SparseKmerEngine counts any k directly"
-        )
-    return cfg
+        from dna_kmeres_parallel_tpu_torch.models.engine import KmerEngine
+
+        return KmerEngine(cfg, device=device)
+    from dna_kmeres_parallel_tpu_torch.models.sparse_engine import SparseKmerEngine
+
+    return SparseKmerEngine(cfg, device=device)
 
 
 def count_file(path, k: int = 21, canonical: bool = False, device="cuda", **kw):
-    """Count k-mers in a FASTA file -> SparseCountResult (sorted table)."""
-    from dna_kmeres_parallel_tpu_torch.models.sparse_engine import SparseKmerEngine
-
-    cfg = _sparse_config(k, canonical, kw)
-    return SparseKmerEngine(cfg, device=device).count_file(path)
+    """Count k-mers in a FASTA file -> CountResult (dense int64 histogram,
+    k <= 12 by default) or SparseCountResult (sorted table, larger k)."""
+    return _engine(k, canonical, device, kw).count_file(path)
 
 
 def count_sequences(
     seqs, k: int = 21, canonical: bool = False, device="cuda", **kw
 ):
     """Count k-mers over in-memory sequences (list of ACGT strings)."""
-    from dna_kmeres_parallel_tpu_torch.models.sparse_engine import SparseKmerEngine
-
-    cfg = _sparse_config(k, canonical, kw)
-    return SparseKmerEngine(cfg, device=device).count_sequences(list(seqs))
+    return _engine(k, canonical, device, kw).count_sequences(list(seqs))
 
 
 def distance_file(path, k: int = 3, canonical: bool = False, device="cuda", **kw):

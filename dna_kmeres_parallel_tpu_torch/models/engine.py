@@ -1,11 +1,12 @@
-"""Host staging of the device encoder's planes, and the dense distance
-engine.
+"""Host staging of the device batches, and the dense engine: dense
+counting and dense distances.
 
-The port of ``dna_kmeres_parallel_tpu/models/engine.py``'s plane staging
-(``pack_planes_np``, ``stage_batch_planes``) and of its ``KmerEngine``
-distance entries (``counts_matrix``, ``distance_sequences``,
-``distance_file``, ``distance_stream_to_csv``, ``make_dense_panel_fn``).
-The dense counting entries come with ROADMAP item 6.
+The port of ``dna_kmeres_parallel_tpu/models/engine.py``: its plane
+staging (``pack_planes_np``, ``stage_batch_planes``), and its
+``KmerEngine`` with the dense counting entries (``count_stream``,
+``count_sequences``, ``count_file``) and the distance entries
+(``counts_matrix``, ``distance_sequences``, ``distance_file``,
+``distance_stream_to_csv``, ``make_dense_panel_fn``).
 """
 
 from __future__ import annotations
@@ -21,9 +22,35 @@ from dna_kmeres_parallel_tpu_torch import native
 from dna_kmeres_parallel_tpu_torch.models import distance_stream
 from dna_kmeres_parallel_tpu_torch.ops import distance as dist_ops
 from dna_kmeres_parallel_tpu_torch.ops import distance_cuda, histogram_cuda, runtime
+from dna_kmeres_parallel_tpu_torch.ops import encode as encode_ops
 from dna_kmeres_parallel_tpu_torch.ops.encode_cuda import host_planes_from_packfmt
 from dna_kmeres_parallel_tpu_torch.utils import codec, fasta
 from dna_kmeres_parallel_tpu_torch.utils.config import KmerConfig
+
+
+_LANE = 128
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def batch_plan(total: int, k: int, batch_bases: int) -> tuple[int, int]:
+    """(bases owned per batch, padded batch length T) for a stream of
+    ``total`` bases: streams shorter than one batch use a power-of-two
+    bucket, and every batch reads k-1 halo bases past what it owns."""
+    pow2 = 1 << (max(total, _LANE) - 1).bit_length()
+    batch = max(min(batch_bases, pow2), k)
+    return batch, _round_up(batch + k - 1, _LANE)
+
+
+def host_to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A NumPy array as a tensor on ``device``; to the card it goes through
+    pinned host memory, without waiting for the copy."""
+    t = torch.from_numpy(a)
+    if device.type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    return t
 
 
 def pack_planes_np(flat_u8: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -37,15 +64,8 @@ def pack_planes_np(flat_u8: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 def planes_to_device(
     planes: tuple[np.ndarray, np.ndarray], device: torch.device
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """u32 NumPy planes -> int32 tensors on ``device`` with the same bits.
-    To the card they go through pinned host memory."""
-    out = []
-    for plane in planes:
-        t = torch.from_numpy(plane.view(np.int32))
-        if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-        out.append(t)
-    return out[0], out[1]
+    """u32 NumPy planes -> int32 tensors on ``device`` with the same bits."""
+    return tuple(host_to_device(plane.view(np.int32), device) for plane in planes)
 
 
 def stage_batch_planes(
@@ -53,6 +73,46 @@ def stage_batch_planes(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Planes of a padded batch on ``device``: 0.5 B per base."""
     return planes_to_device(pack_planes_np(padded), device)
+
+
+# ---------------------------------------------------------------------------
+# Dense counting
+# ---------------------------------------------------------------------------
+
+#: windows the device accumulator takes before it is added into the host
+#: int64 histogram: well below 2^31, so the int32 counts never wrap
+FLUSH_WINDOWS = (1 << 31) - (1 << 27)
+
+#: Phases of CountResult.phases, in the order a batch runs them.
+COUNT_PHASES = ("parse", "staging", "h2d", "kernel", "d2h")
+
+
+@dataclass
+class CountResult:
+    k: int
+    canonical: bool
+    hist: np.ndarray  # int64 [4^k] dense histogram
+    n_seqs: int
+    total_bases: int
+    elapsed_s: float = 0.0
+    #: seconds per phase (COUNT_PHASES), summed over batches. On the card
+    #: h2d and kernel are device-timeline spans (CUDA events) and d2h is the
+    #: host wall of the accumulator's copies to the host, which wait for the
+    #: batches still queued; staging and parse are host-clock spans. k =
+    #: 9..12 carry the sparse engine's phases (sparse_engine.PHASES).
+    phases: dict[str, float] = field(default_factory=dict)
+
+    def table(self) -> dict[str, int]:
+        nz = np.nonzero(self.hist)[0]
+        return {codec.code_to_kmer(int(c), self.k): int(self.hist[c]) for c in nz}
+
+    @property
+    def total_kmers(self) -> int:
+        return int(self.hist.sum())
+
+    @property
+    def distinct_kmers(self) -> int:
+        return int(np.count_nonzero(self.hist))
 
 
 # ---------------------------------------------------------------------------
@@ -110,9 +170,15 @@ def seq_stream(seqs: list[str]) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
 
 
 class KmerEngine:
-    """Single-device dense distance engine, k <= 8: the per-sequence
-    counts matrix (K2), the (min,+) product (K3 for all pairs, K4 for a
-    streamed panel), and the float32 finish on the host."""
+    """Single-device dense engine.
+
+    Counting, k <= 15 (``count_*``): a dense int64 histogram of 4^k bins,
+    from the histogram kernels (K5 from the encoder's planes, K6 and K7
+    from bases) up to 65,536 bins (k <= 8), and from the sparse engine,
+    densified, above.
+    Distances, k <= 8 (``distance_*``): the per-sequence counts matrix
+    (K2), the (min,+) product (K3 for all pairs, K4 for a streamed panel),
+    and the float32 finish on the host."""
 
     def __init__(
         self,
@@ -122,14 +188,144 @@ class KmerEngine:
     ):
         cfg = config or KmerConfig()
         self.config = cfg.replace(**kw) if kw else cfg
+        if self.config.k > encode_ops.MAX_DENSE_K:
+            raise NotImplementedError(
+                f"the dense engine serves k <= {encode_ops.MAX_DENSE_K}; "
+                f"SparseKmerEngine counts k={self.config.k}"
+            )
+        self.device = runtime.resolve_device(device)
+        native.load()
+
+    def _require_distance_k(self) -> None:
         if self.config.k > MAX_DIST_K:
             raise NotImplementedError(
                 f"distances at k={self.config.k} need more than 4^{MAX_DIST_K} "
                 "dense bins: they go through sparse tables, which are not "
                 "ported yet (ROADMAP item 8)"
             )
-        self.device = runtime.resolve_device(device)
-        native.load()
+
+    # ------------------------------------------------------------- counting
+    def _stage(self, padded: np.ndarray) -> tuple[np.ndarray, ...]:
+        """The host half of a batch, as the JAX engine's ``_count_batch*``
+        route it: with ``pack_input``, the encoder's u32 planes for k = 4..8
+        (K5) or the packed bytes and validity bits for k <= 3 (unpacked on
+        the device, then K7); without it, the u8 bases (K7 or K6)."""
+        cfg = self.config
+        if cfg.pack_input and cfg.k >= 4:
+            return pack_planes_np(padded)
+        if cfg.pack_input:
+            return native.pack_2bit_native(padded)[:2]
+        return (padded,)
+
+    def _ship_and_count(self, host: tuple, n_own: int, acc: torch.Tensor):
+        """The device half of a batch: copy what ``_stage`` made to the
+        device and add its histogram into ``acc``. Returns the event marks
+        before the copy, after it and after the kernel."""
+        cfg, dev = self.config, self.device
+        planes = cfg.pack_input and cfg.k >= 4
+        m0 = runtime.mark(dev)
+        if planes:
+            staged = planes_to_device(host, dev)
+        else:
+            staged = tuple(host_to_device(a, dev) for a in host)
+        m1 = runtime.mark(dev)
+        if planes:
+            histogram_cuda.histogram_planes(*staged, n_own, cfg.k, cfg.canonical, acc)
+        else:
+            bases = encode_ops.unpack_stream(*staged) if cfg.pack_input else staged[0]
+            histogram_cuda.histogram_stream(bases, n_own, cfg.k, cfg.bins, cfg.canonical, acc)
+        return m0, m1, runtime.mark(dev)
+
+    def count_stream(self, flat: np.ndarray, total_bases: int, n_seqs: int) -> CountResult:
+        """Count a flat base stream (u8 codes, one 0xFF between records).
+
+        Each batch owns the windows that start in [start, end) and reads
+        k-1 halo bases past it, padded with 0xFF to the batch length. The
+        batches add into one int32 accumulator on the device, with no wait
+        between them; it is added into the host int64 histogram at the end,
+        and before it has taken FLUSH_WINDOWS windows."""
+        cfg, dev = self.config, self.device
+        t0 = time.perf_counter()
+        if cfg.bins > histogram_cuda.MAX_BINS:  # k = 9..12: count sparse, densify
+            from dna_kmeres_parallel_tpu_torch.models.sparse_engine import (
+                SparseKmerEngine,
+                dense_from_sparse,
+            )
+
+            sp = SparseKmerEngine(cfg, device=dev).count_stream(flat, total_bases, n_seqs)
+            return CountResult(
+                k=cfg.k, canonical=cfg.canonical,
+                hist=dense_from_sparse(sp, cfg.bins), n_seqs=n_seqs,
+                total_bases=total_bases, elapsed_s=time.perf_counter() - t0,
+                phases=sp.phases,
+            )
+        phases = dict.fromkeys(COUNT_PHASES, 0.0)
+        hist = np.zeros(cfg.bins, dtype=np.int64)
+        total = flat.shape[0]
+        if total >= cfg.k:
+            batch, T = batch_plan(total, cfg.k, cfg.batch_bases)
+            acc = torch.zeros(cfg.bins, dtype=torch.int32, device=dev)
+            acc_windows = 0
+            marks: list = []
+
+            def drain() -> None:
+                nonlocal acc_windows
+                t = time.perf_counter()
+                hist[:] += acc.cpu().numpy()  # waits for the queued batches
+                acc.zero_()
+                acc_windows = 0
+                phases["d2h"] += time.perf_counter() - t
+
+            for start in range(0, total, batch):
+                t = time.perf_counter()
+                end = min(start + batch, total)
+                seg = flat[start : min(end + cfg.k - 1, total)]
+                padded = np.full(T, codec.INVALID_BASE, dtype=np.uint8)
+                padded[: seg.shape[0]] = seg
+                host = self._stage(padded)
+                phases["staging"] += time.perf_counter() - t
+                marks.append(self._ship_and_count(host, end - start, acc))
+                acc_windows += end - start
+                if acc_windows >= FLUSH_WINDOWS:
+                    drain()
+            if acc_windows:
+                drain()
+            for m0, m1, m2 in marks:
+                phases["h2d"] += runtime.span_s(m0, m1)
+                phases["kernel"] += runtime.span_s(m1, m2)
+        return CountResult(
+            k=cfg.k, canonical=cfg.canonical, hist=hist, n_seqs=n_seqs,
+            total_bases=total_bases, elapsed_s=time.perf_counter() - t0,
+            phases=phases,
+        )
+
+    def count_sequences(self, seqs: list[str]) -> CountResult:
+        flat = codec.concat_with_sentinels(seqs)
+        return self.count_stream(flat, sum(len(s) for s in seqs), len(seqs))
+
+    def count_file(self, source) -> CountResult:
+        """Count a FASTA file: the native parser for a path with the modern
+        record semantics, the Python parsers otherwise."""
+        cfg = self.config
+        t0 = time.perf_counter()
+        if cfg.parser_variant == "modern" and isinstance(source, (str, os.PathLike)):
+            parsed = native.parse_fasta_native(source, max_seqs=cfg.max_seqs)
+            parse_s = time.perf_counter() - t0
+            res = self.count_stream(parsed.stream, parsed.total_bases, parsed.n_seqs)
+        else:
+            seqs = [r.seq for r in self._parse(source)]
+            parse_s = time.perf_counter() - t0
+            res = self.count_sequences(seqs)
+        res.phases["parse"] = parse_s
+        return res
+
+    def _parse(self, source) -> list[fasta.FastaRecord]:
+        cfg = self.config
+        if cfg.parser_variant == "modern":
+            return fasta.parse_fasta(source, max_seqs=cfg.max_seqs)
+        return fasta.parse_fasta_reference(
+            source, variant=cfg.parser_variant, max_seqs=cfg.max_seqs
+        )
 
     # ------------------------------------------------------------- counts
     def _counts_on_device(
@@ -146,16 +342,14 @@ class KmerEngine:
             for row, (o, n) in enumerate(zip(offsets[lo:hi].tolist(),
                                              lengths[lo:hi].tolist())):
                 grid[row, :n] = stream[o : o + n]
-            g = torch.from_numpy(grid)
-            if dev.type == "cuda":
-                g = g.pin_memory().to(dev, non_blocking=True)
             out[lo:hi] = histogram_cuda.counts_matrix_grid(
-                g, cfg.k, cfg.bins, cfg.canonical
+                host_to_device(grid, dev), cfg.k, cfg.bins, cfg.canonical
             )
         return out
 
     def counts_matrix(self, seqs: list[str]) -> np.ndarray:
         """Per-sequence count vectors, int32 [S, 4^k], on the host."""
+        self._require_distance_k()
         return self._counts_on_device(*seq_stream(seqs)).cpu().numpy()
 
     # ------------------------------------------------------------- distances
@@ -191,6 +385,7 @@ class KmerEngine:
         self, seqs: list[str], ids: list[str] | None = None
     ) -> DistanceResult:
         """Packed pairwise distances of in-memory sequences."""
+        self._require_distance_k()
         t0 = time.perf_counter()
         phases = dict.fromkeys(DIST_PHASES, 0.0)
         return self._distances(*seq_stream(seqs), ids, phases, t0)
@@ -199,6 +394,7 @@ class KmerEngine:
         """Packed pairwise distances of the records of a FASTA file (the
         native parser for a path with the modern record semantics, the
         Python parsers otherwise)."""
+        self._require_distance_k()
         cfg = self.config
         t0 = time.perf_counter()
         phases = dict.fromkeys(DIST_PHASES, 0.0)
@@ -206,12 +402,7 @@ class KmerEngine:
             parsed = native.parse_fasta_native(source, max_seqs=cfg.max_seqs)
             args = (parsed.stream, parsed.offsets[:-1], parsed.lengths, parsed.ids)
         else:
-            if cfg.parser_variant == "modern":
-                records = fasta.parse_fasta(source, max_seqs=cfg.max_seqs)
-            else:
-                records = fasta.parse_fasta_reference(
-                    source, variant=cfg.parser_variant, max_seqs=cfg.max_seqs
-                )
+            records = self._parse(source)
             args = (*seq_stream([r.seq for r in records]), [r.id for r in records])
         phases["parse"] = time.perf_counter() - t0
         return self._distances(*args, phases, t0)
@@ -234,6 +425,7 @@ class KmerEngine:
         (fsync, then checkpoint; a resumed run is byte-identical).
         max_panels bounds the panels of this call; row_lo/row_hi stream one
         row block. The result carries the writer's keys plus ``phases``."""
+        self._require_distance_k()
         cfg = self.config
         t0 = time.perf_counter()
         phases = dict.fromkeys(DIST_PHASES, 0.0)
@@ -266,6 +458,7 @@ class KmerEngine:
         panel_fn(r0, r1) -> float32 packed distances of rows r0..r1-1 (row
         i: columns i+1..S-1). Adds its seconds to ``phases`` (min_sum,
         d2h, finish) when given one."""
+        self._require_distance_k()
         cfg, dev = self.config, self.device
         counts = torch.as_tensor(counts).to(dev)
         lengths = np.asarray(lengths, dtype=np.int64)

@@ -24,6 +24,7 @@ import torch
 
 from dna_kmeres_parallel_tpu_torch import native
 from dna_kmeres_parallel_tpu_torch.models.engine import (
+    batch_plan,
     pack_planes_np,
     planes_to_device,
 )
@@ -32,14 +33,8 @@ from dna_kmeres_parallel_tpu_torch.ops import sparse as sparse_ops
 from dna_kmeres_parallel_tpu_torch.utils import codec, fasta
 from dna_kmeres_parallel_tpu_torch.utils.config import KmerConfig
 
-_LANE = 128
-
 #: Phases of SparseCountResult.phases, in the order a batch runs them.
 PHASES = ("parse", "staging", "h2d", "kernel", "d2h", "compact", "merge")
-
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
 
 
 def require_native() -> None:
@@ -49,13 +44,12 @@ def require_native() -> None:
     native.load()
 
 
-def batch_plan(total: int, k: int, batch_bases: int) -> tuple[int, int]:
-    """(bases owned per batch, padded batch length T) for a stream of
-    ``total`` bases: streams shorter than one batch use a power-of-two
-    bucket, and every batch reads k-1 halo bases past what it owns."""
-    pow2 = 1 << (max(total, _LANE) - 1).bit_length()
-    batch = max(min(batch_bases, pow2), k)
-    return batch, _round_up(batch + k - 1, _LANE)
+def dense_from_sparse(sp: "SparseCountResult", bins: int) -> np.ndarray:
+    """The dense int64 histogram [bins] of a sparse result (its codes are
+    unique, so this is an indexed store): how k = 9..12 are counted."""
+    hist = np.zeros(bins, dtype=np.int64)
+    hist[sp.codes.astype(np.int64)] = sp.counts
+    return hist
 
 
 def words_to_host(words) -> tuple[np.ndarray, ...]:

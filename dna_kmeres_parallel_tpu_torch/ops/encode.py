@@ -1,8 +1,9 @@
-"""Dense window codes on torch tensors: the plain rolling encode, reverse
-complement and canonical fold that feed K2's plain version.
+"""Dense window codes on torch tensors: the 2-bit unpack, and the plain
+rolling encode, reverse complement and canonical fold that feed the
+histogram kernels' plain versions.
 
-The port of ``dna_kmeres_parallel_tpu/ops/encode.py``'s ``rolling_codes``,
-``revcomp_codes`` and ``canonicalize``. Codes are big-endian 2-bit codes
+The port of ``dna_kmeres_parallel_tpu/ops/encode.py``'s ``unpack_stream``,
+``rolling_codes``, ``revcomp_codes`` and ``canonicalize``. Codes are big-endian 2-bit codes
 in int32, so k <= 15 (4^15 < 2^31); larger k uses the split words of
 ``ops/sparse.py``.
 """
@@ -12,6 +13,45 @@ from __future__ import annotations
 import torch
 
 MAX_DENSE_K = 15
+
+#: the base code of an invalid base (N, or the separator between records)
+INVALID = 0xFF
+
+
+def unpack_stream(data: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The 2-bit packed format -> uint8 base codes [T], INVALID where a
+    base is invalid.
+
+    data: uint8 [T/4], base i at bits 2*(i % 4) of byte i // 4; mask: uint8
+    [T/8], bit i % 8 of byte i // 8 set where base i is valid. The counting
+    engine ships a k <= 3 batch in this form and unpacks it on the device
+    with these tensor ops, outside any kernel."""
+    if data.dtype != torch.uint8 or mask.dtype != torch.uint8:
+        raise ValueError(f"data and mask must be uint8, got {data.dtype}, {mask.dtype}")
+    if 4 * data.numel() != 8 * mask.numel():
+        raise ValueError(
+            f"{data.numel()} data bytes hold {4 * data.numel()} bases but "
+            f"{mask.numel()} mask bytes hold {8 * mask.numel()}"
+        )
+    dev = data.device
+    shifts = torch.arange(0, 8, 2, dtype=torch.uint8, device=dev)
+    bases = ((data[:, None] >> shifts) & 3).reshape(-1)
+    bits = torch.arange(8, dtype=torch.uint8, device=dev)
+    valid = ((mask[:, None] >> bits) & 1).reshape(-1).bool()
+    return bases.masked_fill(~valid, INVALID)
+
+
+def planes_to_stream(words_le: torch.Tensor, inval_be: torch.Tensor) -> torch.Tensor:
+    """The encoder's u32 planes [Tw] (int32 tensors holding u32 bits:
+    ``words_le`` base j of a word at bits 2j, ``inval_be`` digit 11 at bits
+    30-2j where base j is invalid) -> the uint8 base stream [16*Tw] they
+    hold, INVALID where a base is invalid."""
+    sh = 2 * torch.arange(16, device=words_le.device, dtype=torch.int64)
+    w = words_le.to(torch.int64) & 0xFFFFFFFF
+    iv = inval_be.to(torch.int64) & 0xFFFFFFFF
+    digits = ((w[:, None] >> sh) & 3).reshape(-1).to(torch.uint8)
+    bad = (((iv[:, None] >> (30 - sh)) & 3) != 0).reshape(-1)
+    return digits.masked_fill(bad, INVALID)
 
 
 def rolling_codes(bases: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:

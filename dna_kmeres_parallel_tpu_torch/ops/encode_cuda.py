@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dna_kmeres_parallel_tpu_torch.ops import encode as encode_ops
 from dna_kmeres_parallel_tpu_torch.ops import sparse as sparse_ops
 
 #: Kernel launches since the count was last reset; the wrapper adds one
@@ -27,7 +28,7 @@ from dna_kmeres_parallel_tpu_torch.ops import sparse as sparse_ops
 LAUNCHES = 0
 
 
-def _check_planes(words_le: torch.Tensor, inval_be: torch.Tensor, k: int):
+def check_planes(words_le: torch.Tensor, inval_be: torch.Tensor, k: int):
     if not (1 <= k <= sparse_ops.MAX_SPARSE_K):
         raise ValueError(f"k must be in [1, {sparse_ops.MAX_SPARSE_K}], got {k}")
     for name, t in (("words_le", words_le), ("inval_be", inval_be)):
@@ -55,7 +56,7 @@ def encode_packed(
     planes [16*Tw] on the card (hi is None for k <= 15). Raises on
     anything the kernel does not take, and if the launch fails."""
     global LAUNCHES
-    _check_planes(words_le, inval_be, k)
+    check_planes(words_le, inval_be, k)
     if words_le.device.type != "cuda":
         raise ValueError(f"encode_packed needs CUDA tensors, got {words_le.device}")
     if not (words_le.is_contiguous() and inval_be.is_contiguous()):
@@ -106,17 +107,12 @@ def encode_packed_reference(
     """Plain PyTorch version of :func:`encode_packed`: the same planes in
     the same order, on whatever device the planes lie, in int64 ops.
 
-    Unpacks the digits, rolls over the k window offsets
+    Unpacks the planes (``encode.planes_to_stream``), rolls over the k window offsets
     (``sparse.rolling_codes_split``), then ``sparse.canonicalize_split``."""
-    _check_planes(words_le, inval_be, k)
+    check_planes(words_le, inval_be, k)
     dev = words_le.device
     T = 16 * words_le.shape[0]
-    sh = 2 * torch.arange(16, device=dev, dtype=torch.int64)
-    w = words_le.to(torch.int64) & 0xFFFFFFFF
-    iv = inval_be.to(torch.int64) & 0xFFFFFFFF
-    digits = ((w[:, None] >> sh) & 3).reshape(-1)
-    bad = (((iv[:, None] >> (30 - sh)) & 3) != 0).reshape(-1)
-    bases = digits.masked_fill(bad, 0xFF)
+    bases = encode_ops.planes_to_stream(words_le, inval_be)
     lo_full = torch.full((T,), -1, dtype=torch.int64, device=dev)
     hi_full = torch.full((T,), -1, dtype=torch.int64, device=dev)
     n = T - k + 1

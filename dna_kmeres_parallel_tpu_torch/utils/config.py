@@ -21,12 +21,16 @@ class KmerConfig:
       canonical: fold each k-mer with its reverse complement
          (min(code, revcomp(code))).
       max_seqs: optional cap on the records read from a file.
-      batch_bases: bases per device batch of the sparse counter (inputs
-         shorter than one batch use a power-of-two batch).
+      batch_bases: bases per device batch of the counters (inputs shorter
+         than one batch use a power-of-two batch).
       dense_bins_limit: largest 4^k counted as a dense histogram; above it
          the sparse (sorted-table) counter applies.
       parser_variant: "modern" | "blank_line" | "no_blank_line" (the
          reference's record splitting, see utils/fasta.py).
+      pack_input: dense counter: ship each batch 2-bit packed (0.5 B per
+         base: the encoder's u32 planes for k = 4..8, counted by K5; the
+         packed bytes and validity bits for k <= 3, unpacked on the
+         device) instead of 1 B per base (K6, K7).
       device_sort: sparse counter: whether the device sorts the window
          words. Only None (no device sort) is ported.
       compact: sparse counter: where each batch's table is built. Only
@@ -39,6 +43,7 @@ class KmerConfig:
     batch_bases: int = 1 << 24
     dense_bins_limit: int = 1 << 24
     parser_variant: str = "modern"
+    pack_input: bool = True
     device_sort: bool | None = None
     compact: str = "auto"
 

@@ -1,8 +1,8 @@
 """``chip_smoke.py``'s own parts, on the CPU: the seeded records, their
 FASTA, the plain reference table the counting path is held against on
-the card, and a rehearsal of the distance path at a small size (the
-kernels' plain versions standing in for the kernels, counted as they
-would be). Exact integers and float32 bits: the tolerance is zero."""
+the card, and rehearsals of the dense counting path and of the distance
+path at a small size (the kernels' plain versions standing in for the
+kernels, counted as they would be). Exact integers and float32 bits: the tolerance is zero."""
 
 import re
 import sys
@@ -65,6 +65,20 @@ def test_reference_table_matches_oracle(records, k, canonical):
     assert got == want
 
 
+@pytest.mark.parametrize("k,canonical,bins", [(3, False, None), (8, True, None), (6, False, 3000)])
+def test_reference_hist_matches_oracle(records, k, canonical, bins):
+    stream, starts, _ = records
+    n = 20_000
+    small = np.concatenate(
+        [stream[starts[0] : starts[0] + n], [chip_smoke.INVALID],
+         stream[starts[1] : starts[1] + n]]
+    ).astype(np.uint8)
+    hist = chip_smoke.reference_hist(small, k, canonical, CPU, bins)
+    seqs = record_strings(small, [0, n + 1], [n, n])
+    want = sum(oracle.count_vector(s, k, canonical).astype(np.int64) for s in seqs)
+    assert hist.dtype == np.int64 and np.array_equal(hist, want[: bins or 4**k])
+
+
 def test_fasta_counts_through_port_equal_reference(records, tmp_path):
     path = tmp_path / "smoke.fasta"
     chip_smoke.write_fasta(path, *records)
@@ -95,7 +109,7 @@ def counted_plain_versions(monkeypatch):
     tri, rect = distance_cuda.min_sum_matrix_tri, distance_cuda.min_sum_matrix_rect
 
     def counts(*a, **kw):
-        histogram_cuda.LAUNCHES += 1
+        histogram_cuda.COUNTS_LAUNCHES += 1
         return plain_counts(*a, **kw)
 
     def counted_tri(c):
@@ -155,5 +169,46 @@ def test_distance_path_rehearsal(tmp_path, monkeypatch, counted_plain_versions):
     chip_smoke.write_fasta(path, *records)
     launches = chip_smoke.phase_distance_path(records, path, CPU, "cpu")
     assert [key[:3] for key in launches] == ["(a)", "(b)", "(c)"]
-    assert list(launches["(c)"].values()) == [0, 1, 0, 1]
+    assert {n: c for n, c in launches["(c)"].items() if c} == {"counts_matrix": 1, "min_sum_rect": 1}
     assert not (tmp_path / "dist.csv").exists()
+
+
+@pytest.fixture
+def counted_dense_plain_versions(monkeypatch):
+    """Route the dense path's kernel entries to their plain versions on the
+    CPU, each adding to the launch count of the kernel the card would run
+    (``u8_route`` for a u8 stream; K1 for the k=9 encode)."""
+    from dna_kmeres_parallel_tpu_torch.ops import encode_cuda, histogram_cuda
+
+    counters = {"small": "SMALL_LAUNCHES", "u8": "U8_LAUNCHES", "any": "ANY_LAUNCHES"}
+    plain_encode = encode_cuda.encode_packed_reference
+
+    def planes(*a, **kw):
+        histogram_cuda.PLANES_LAUNCHES += 1
+        return histogram_cuda.hist_planes_reference(*a, **kw)
+
+    def stream(bases, n_own, k, bins, canonical=False, acc=None):
+        name = counters[histogram_cuda.u8_route(bins)]
+        setattr(histogram_cuda, name, getattr(histogram_cuda, name) + 1)
+        return histogram_cuda.hist_u8_reference(bases, n_own, k, bins, canonical, acc)
+
+    def encode(*a, **kw):
+        encode_cuda.LAUNCHES += 1
+        return plain_encode(*a, **kw)
+
+    monkeypatch.setattr(histogram_cuda, "histogram_planes", planes)
+    monkeypatch.setattr(histogram_cuda, "histogram_stream", stream)
+    monkeypatch.setattr(encode_cuda, "encode_packed_reference", encode)
+
+
+def test_dense_path_rehearsal(records, tmp_path, counted_dense_plain_versions):
+    # The main path's two records (about 500 kbase: one batch per run).
+    path = tmp_path / "smoke.fasta"
+    chip_smoke.write_fasta(path, *records)
+    launches = chip_smoke.phase_dense_path(records, path, CPU, "cpu")
+    names = [run[0] for run in chip_smoke.DENSE_RUNS] + [chip_smoke.ANY_RUN[0]]
+    assert list(launches) == names
+    for (name, *_, kernel) in chip_smoke.DENSE_RUNS:
+        assert {n: c for n, c in launches[name].items() if c} == {kernel: 1}, name
+    assert {n: c for n, c in launches[chip_smoke.ANY_RUN[0]].items() if c} == {"hist_u8_any": 1}
+    assert set(chip_smoke.DENSE_MAIN.values()) <= set(launches)

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
-the card: K1 (encode), K2 (counts matrix), K3 and K4 ((min,+) products).
+the card: K1 (encode), K2 (counts matrix), K3 and K4 ((min,+) products),
+K5-K8 (dense histograms).
 Every test here needs an NVIDIA card and skips without one.
 
 The file imports no JAX, so it also runs where JAX is not installed (as on
@@ -108,9 +109,9 @@ def test_counts_matrix_kernel_matches_plain(cuda_device, S, L, k, bins, canonica
     # k=10 keeps only the codes below 65,536 (the rest are dropped, as in
     # the plain version); L=0 and L=2 hold no window.
     grid = torch.from_numpy(base_grid(S, L, S * 7 + L)).to(cuda_device)
-    launches = histogram_cuda.LAUNCHES
+    launches = histogram_cuda.COUNTS_LAUNCHES
     got = histogram_cuda.counts_matrix_grid(grid, k, bins, canonical)
-    assert histogram_cuda.LAUNCHES == launches + 1
+    assert histogram_cuda.COUNTS_LAUNCHES == launches + 1
     ref = histogram_cuda.counts_matrix_reference(grid, k, bins, canonical)
     torch.cuda.synchronize()
     assert got.dtype == torch.int32 and got.shape == (S, bins)
@@ -169,3 +170,120 @@ def test_min_sum_refuses_rows_summing_to_2_31(cuda_device):
     a[1, 1] -= 1
     got = distance_cuda.min_sum_matrix_tri(a)
     assert int(got[1, 1]) == (1 << 31) - 1
+
+
+# ---------------------------------------------------------------------------
+# K5-K8: dense histograms, added into an accumulator
+# ---------------------------------------------------------------------------
+
+DENSE_KS = [1, 2, 3, 4, 6, 7, 8]
+
+
+def own_cases(n: int) -> list[int]:
+    return [0, 1, n // 2 + 3, n, 10**12]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("canonical", [False, True])
+@pytest.mark.parametrize("k", DENSE_KS)
+def test_hist_planes_kernel_matches_plain(cuda_device, k, canonical):
+    # K5 from the planes of an N-rich stream with a homopolymer run, for
+    # several n_own, added into one accumulator that starts at 7.
+    bases = stream(8192, 100 + k)
+    planes = engine.stage_batch_planes(bases, cuda_device)
+    acc = torch.full((4**k,), 7, dtype=torch.int32, device=cuda_device)
+    ref = acc.clone()
+    for n_own in own_cases(8192):
+        launches = histogram_cuda.PLANES_LAUNCHES
+        out = histogram_cuda.histogram_planes(*planes, n_own, k, canonical, acc)
+        assert out is acc and histogram_cuda.PLANES_LAUNCHES == launches + 1
+        histogram_cuda.hist_planes_reference(*planes, n_own, k, canonical, ref)
+        torch.cuda.synchronize()
+        assert torch.equal(acc, ref), n_own
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("canonical", [False, True])
+@pytest.mark.parametrize("k", DENSE_KS)
+def test_hist_u8_kernels_match_plain(cuda_device, k, canonical):
+    # K7 at k <= 3 and K6 at every k (4^k bins is a power of two), from an
+    # N-rich stream with a homopolymer run.
+    b = torch.from_numpy(stream(8192, 200 + k)).to(cuda_device)
+    kernels = [("U8_LAUNCHES", histogram_cuda.hist_u8_cuda)]
+    if k <= 3:
+        kernels.append(("SMALL_LAUNCHES", histogram_cuda.hist_u8_small_cuda))
+    for counter, fn in kernels:
+        for n_own in own_cases(8192):
+            launches = getattr(histogram_cuda, counter)
+            got = fn(b, n_own, k, 4**k, canonical)
+            assert getattr(histogram_cuda, counter) == launches + 1
+            ref = histogram_cuda.hist_u8_reference(b, n_own, k, 4**k, canonical)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.int32 and torch.equal(got, ref), (fn.__name__, n_own)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("canonical", [False, True])
+@pytest.mark.parametrize("k,bins", [(5, 1000), (6, 3000), (8, 40000), (11, 4**11), (12, 4**12), (3, 5)])
+def test_hist_u8_any_kernel_matches_plain(cuda_device, k, bins, canonical):
+    # K8 at bins that are not powers of two (one and three shared slices)
+    # and above 65,536 (atomics into device memory); codes >= bins dropped.
+    b = torch.from_numpy(stream(20000, k + bins % 97)).to(cuda_device)
+    launches = histogram_cuda.ANY_LAUNCHES
+    got = histogram_cuda.hist_u8_any_cuda(b, 19000, k, bins, canonical)
+    assert histogram_cuda.ANY_LAUNCHES == launches + 1
+    ref = histogram_cuda.hist_u8_reference(b, 19000, k, bins, canonical)
+    torch.cuda.synchronize()
+    assert got.shape == (bins,) and torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 7, 8, 9, 16, 300])
+def test_hist_kernels_short_streams(cuda_device, n):
+    # Streams shorter than, equal to and just past k = 8; every kernel
+    # launches (and counts) even when no window is counted.
+    bases = stream(max(16, -(-n // 16) * 16), n)
+    planes = engine.stage_batch_planes(bases, cuda_device)
+    got = histogram_cuda.hist_planes_cuda(*planes, n, 8)
+    ref = histogram_cuda.hist_planes_reference(*planes, n, 8)
+    assert torch.equal(got, ref)
+    b = torch.from_numpy(bases[:n].copy()).to(cuda_device)
+    for fn, k, bins in ((histogram_cuda.hist_u8_cuda, 8, 4**8),
+                        (histogram_cuda.hist_u8_small_cuda, 3, 64),
+                        (histogram_cuda.hist_u8_any_cuda, 10, 4**10)):
+        got = fn(b, n, k, bins)
+        ref = histogram_cuda.hist_u8_reference(b, n, k, bins)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), fn.__name__
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_hist_kernels_homopolymer(cuda_device, k):
+    # All 32 lanes of every warp on one bin: all-T, then all-A.
+    b = torch.full((1 << 20,), 3, dtype=torch.uint8, device=cuda_device)
+    b[1 << 19 :] = 0
+    n = (1 << 20) - k + 1
+    got = histogram_cuda.histogram_stream(b, n, k, 4**k)
+    assert int(got[4**k - 1]) == (1 << 19) - k + 1 and int(got[0]) == (1 << 19) - k + 1
+    assert int(got.sum()) == n
+    planes = engine.stage_batch_planes(b.cpu().numpy(), cuda_device)
+    assert torch.equal(histogram_cuda.hist_planes_cuda(*planes, n, k), got)
+
+
+@pytest.mark.cuda
+def test_dense_count_on_card_equals_cpu(cuda_device):
+    # The engine end to end on the card against its CPU route: each route
+    # (K5 planes, K7 packed, K6 and K7 from u8, K1 + densify) over several
+    # batches.
+    import dna_kmeres_parallel_tpu_torch as port
+
+    rng = np.random.default_rng(9)
+    seqs = ["".join(rng.choice(list("ACGTN"), size=n, p=[0.24] * 4 + [0.04]))
+            for n in (5000, 3, 12000, 700)]
+    for k, canonical, pack in ((8, False, True), (6, True, True), (3, False, True),
+                               (5, True, False), (2, False, False), (9, False, True)):
+        kw = dict(k=k, canonical=canonical, pack_input=pack, batch_bases=4096)
+        got = port.count_sequences(seqs, device="cuda", **kw)
+        want = port.count_sequences(seqs, device="cpu", **kw)
+        assert np.array_equal(got.hist, want.hist), (k, canonical, pack)

@@ -42,6 +42,10 @@ from dna_kmeres_parallel_tpu_torch.utils import io
 
 seqs = json.loads(sys.argv[1])
 res = port.count_sequences(seqs, k=21, device="cpu")
+dense = {
+    str(k): port.count_sequences(seqs, k=k, device="cpu", pack_input=pack).table()
+    for k, pack in ((2, True), (3, False), (5, True), (6, False), (9, True))
+}
 dist = port.distance_sequences(seqs, k=3, device="cpu")
 io.write_distances_csv(sys.argv[2], dist.packed)
 banned = [
@@ -49,7 +53,7 @@ banned = [
     if m.split(".")[0] in ("jax", "jaxlib", "dna_kmeres_parallel_tpu")
 ]
 assert not banned, banned
-print(json.dumps({"table": res.table(), "bits": dist.packed.view("u4").tolist()}))
+print(json.dumps({"table": res.table(), "dense": dense, "bits": dist.packed.view("u4").tolist()}))
 """
 
 SEQS = ["ACGTTGCANNACGTACGTTTTTTTTTTTTTTTTTTTTTTTTGCA" * 7, "GATTACA" * 40, "ACGTAC"]
@@ -69,6 +73,8 @@ def test_port_runs_with_jax_refused(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["table"] == oracle.count_table_any_k(SEQS, 21)
+    for k, table in out["dense"].items():
+        assert table == oracle.count_table_any_k(SEQS, int(k)), k
     want = oracle.distance_matrix_packed(SEQS, 3)
     assert out["bits"] == want.view(np.uint32).tolist()
     assert csv.read_bytes() == "".join("%f\n" % v for v in want).encode()
@@ -123,3 +129,5 @@ def test_cuda_request_raises_without_cuda():
         port.count_sequences(["ACGT" * 10], k=21, device="meta")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         port.distance_sequences(["ACGT" * 10], k=3, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port.count_sequences(["ACGT" * 10], k=6, device="cuda")

@@ -74,15 +74,6 @@ def test_count_sequences_short_and_empty_streams():
         assert res.table() == oracle.count_table_any_k(seqs, 21)
 
 
-@pytest.mark.parametrize("entry", ["count_file", "count_sequences"])
-def test_dense_k_is_not_ported(tmp_path, entry):
-    path = tmp_path / "in.fasta"
-    path.write_text(">a\nACGTACGTACGT\n")
-    arg = str(path) if entry == "count_file" else ["ACGTACGTACGT"]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        getattr(port, entry)(arg, k=8, device="cpu")
-
-
 @pytest.mark.parametrize(
     "kw", [{"device_sort": True}, {"compact": "host"}, {"compact": "device-rle"}]
 )
