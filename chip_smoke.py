@@ -13,7 +13,9 @@ exits nonzero:
    and both timed with CUDA events at the main path's batch; then the
    dense histogram kernels K5-K8 the same way: k in {1, 2, 3, 4, 6, 7, 8}
    x canonical x four ``n_own`` on an N-rich stream, K8 at 1,000, 3,000
-   and 4^11 bins, each timed at one 16 Mbase batch;
+   and 4^11 bins, each timed at one 16 Mbase batch; then K9 (the u8-stream
+   encoder) at every split-word width x canonical x four ``n_own``, on
+   streams shorter than k and unaligned, and timed at the k=21 batch;
 4. the main path: exact k-mer counting of a seeded random FASTA of
    ``--bases`` bases (default 256 Mbase, about one large human
    chromosome) through ``count_file`` and ``SparseKmerEngine``. Each table
@@ -27,7 +29,15 @@ exits nonzero:
    (K1, densified), each histogram against ``torch.bincount`` of the same
    reference codes and each run launching only its route's kernel, once
    per batch; and ``histogram_stream`` at 3,000 bins over the whole
-   stream (K8, one launch);
+   stream (K8, one launch). Then the streaming counter
+   (``StreamingCounter``) on the same file: k=21 with ``compact="device"``
+   through K9 (``pack_input=False``) and through K1, ``compact="host"``
+   (no launch), ``compact="auto"`` (its decision and flips), canonical
+   k=11 through K9, dense k=8 (K5) with a checkpoint every 64 Mbase, a
+   child process killed by SIGKILL after its second checkpoint and resumed
+   here, and ``count_file(k=21, pack_input=False)`` (K9). Each reference
+   is computed once per (k, canonical) and shared by the runs held against
+   it;
 5. the distance kernels (K2 counts matrix, K3 and K4 (min,+)) against
    their plain PyTorch versions on the card, element for element on edge
    shapes, then timed with CUDA events at the distance path's shapes,
@@ -115,6 +125,17 @@ OPS_PER_S = 67e12
 DIST_ROWS_A = 16384
 DIST_ROWS_B = 2048
 PANEL_ROWS = 2048
+#: k of K9's check (every width of the split words), each with and
+#: without canonical
+STREAM_KS = (1, 11, 13, 15, 16, 21, 23, 24, 31)
+#: K9's check stream: not a multiple of the kernel's 2,048-window tile
+STREAM_CHECK_BASES = CHECK_BASES + 777
+#: the streaming path's batch (None: KmerConfig's 16 Mbase) and the bases
+#: between its checkpoints
+STREAM_BATCH_BASES = None
+STREAM_CKPT_BASES = 64 << 20
+#: the streaming run whose launches the kernels line reports for K9
+STREAM_MAIN = "StreamingCounter(k=21, compact=device, pack_input=False)"
 
 
 def log(msg: str) -> None:
@@ -307,7 +328,16 @@ def reference_hist(stream, k: int, canonical: bool, dev, bins: int | None = None
     return hist.cpu().numpy()
 
 
-def phase_main_path(records, path: Path, dev, card: str) -> int:
+def cached(refs: dict, key: tuple, make):
+    """``refs[key]``, made by ``make()`` the first time: each reference is
+    computed once per (kind, k, canonical) and shared by every run held
+    against it."""
+    if key not in refs:
+        refs[key] = make()
+    return refs[key]
+
+
+def phase_main_path(records, path: Path, dev, card: str, refs: dict | None = None) -> int:
     import numpy as np
     import torch
 
@@ -319,6 +349,7 @@ def phase_main_path(records, path: Path, dev, card: str) -> int:
     )
 
     stream, _, lengths = records
+    refs = {} if refs is None else refs
     runs = [
         ("count_file(k=21)", 21, False,
          lambda: port.count_file(str(path), k=21, device=dev)),
@@ -332,7 +363,9 @@ def phase_main_path(records, path: Path, dev, card: str) -> int:
     main_launches = None
     for name, k, canonical, run in runs:
         t = time.perf_counter()
-        ref_codes, ref_counts = reference_table(stream, k, canonical, dev)
+        ref_codes, ref_counts = cached(
+            refs, ("table", k, canonical), lambda: reference_table(stream, k, canonical, dev)
+        )
         torch.cuda.empty_cache()
         ref_s = time.perf_counter() - t
         batch, _ = batch_plan(stream.size, k, KmerConfig().batch_bases)
@@ -459,7 +492,7 @@ def phase_dense_kernels(dev, card: str) -> dict:
     return rec
 
 
-def phase_dense_path(records, path: Path, dev, card: str) -> dict:
+def phase_dense_path(records, path: Path, dev, card: str, refs: dict | None = None) -> dict:
     """The dense counting runs (DENSE_RUNS, then ANY_RUN) on the main
     path's FASTA, each against ``reference_hist``. Returns each run's launch
     counts."""
@@ -472,11 +505,13 @@ def phase_dense_path(records, path: Path, dev, card: str) -> dict:
     from dna_kmeres_parallel_tpu_torch.ops import histogram_cuda
 
     stream, _, lengths = records
+    refs = {} if refs is None else refs
     none = dict.fromkeys(read_launches(), 0)
     launches = {}
     for name, k, canonical, pack_input, kernel in DENSE_RUNS:
         t = time.perf_counter()
-        ref = reference_hist(stream, k, canonical, dev)
+        ref = cached(refs, ("hist", k, canonical),
+                     lambda: reference_hist(stream, k, canonical, dev))
         torch.cuda.empty_cache()
         ref_s = time.perf_counter() - t
         batch, _ = batch_plan(stream.size, k, KmerConfig().batch_bases)
@@ -512,9 +547,234 @@ def phase_dense_path(records, path: Path, dev, card: str) -> dict:
     return launches
 
 
+def phase_stream_kernel(dev, card: str) -> dict:
+    """K9 against its plain version, element for element: every k of
+    STREAM_KS x canonical x four n_own on an N-rich stream whose length is
+    not a multiple of the kernel's tile, plus streams shorter than k and an
+    unaligned view; then timed at the main path's 16 Mbase batch (k=21)
+    beside its plain version. Returns the kernel's record."""
+    import numpy as np
+    import torch
+
+    from dna_kmeres_parallel_tpu_torch import KmerConfig
+    from dna_kmeres_parallel_tpu_torch.models.engine import batch_plan
+    from dna_kmeres_parallel_tpu_torch.ops import encode_cuda
+    from dna_kmeres_parallel_tpu_torch.ops import sparse as sparse_ops
+
+    def check(b, n_own, k, canonical) -> int:
+        got = sparse_ops.encode_words(b, n_own, k, canonical)
+        ref = sparse_ops.narrow_words(
+            *encode_cuda.encode_stream_reference(b, n_own, k, canonical), k
+        )
+        torch.cuda.synchronize()
+        err = max_abs_err(got, ref)
+        if err:
+            raise AssertionError(
+                f"encode_stream disagrees with plain at T={b.numel()} n_own={n_own} "
+                f"k={k} canonical={canonical}"
+            )
+        return int((got[-1] != -1).sum())
+
+    rng = np.random.default_rng(5)
+    T = STREAM_CHECK_BASES
+    b = torch.from_numpy(check_stream(rng, T)).to(dev)
+    owns = (0, 1, T // 2, None)  # None: T - k + 1, the last window's start + 1
+    for k in STREAM_KS:
+        for canonical in (False, True):
+            valid = [check(b, T - k + 1 if n is None else n, k, canonical) for n in owns]
+            if k > 1:
+                check(b[3 : 3 + k - 1], k, k, canonical)  # shorter than one window
+            check(b[5 : 5 + 10_001], 10_001, k, canonical)  # unaligned start
+        log(f"kernel check encode_stream k={k}: T={T}, n_own in "
+            f"{tuple(T - k + 1 if n is None else n for n in owns)}, canonical and not: "
+            f"equal to plain; {valid[-1]} valid windows at full n_own")
+
+    batch, T = batch_plan(1 << 40, 21, KmerConfig().batch_bases)
+    b = torch.from_numpy(check_stream(rng, T)).to(dev)
+    check(b, batch, 21, False)
+    ms = time_ms(lambda: encode_cuda.encode_stream(b, batch, 21, False), 50)
+    plain_ms = time_ms(lambda: encode_cuda.encode_stream_reference(b, batch, 21, False), 5)
+    bound = bound_ms(T + 6 * T, 0)  # T bytes read, lo (4 B) and hi (2 B) stored
+    log(f"kernel time encode_stream k=21 T={T}: kernel {ms:.4f} ms "
+        f"({T / ms / 1e6:.2f} Gwindow/s, {6 * T / ms / 1e6:.1f} GB/s stored), plain "
+        f"{plain_ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}), max_abs_err=0 [{card}]")
+    return dict(ms=ms, plain_ms=plain_ms, bound=bound, max_abs_err=0)
+
+
+#: the child of the kill-and-resume run: counts on ``dev`` with a
+#: checkpoint every ``every`` bases and SIGKILLs itself once its second
+#: checkpoint is published
+_KILLED_CHILD = r"""
+import os, signal, sys
+sys.path.insert(0, sys.argv[1])
+from dna_kmeres_parallel_tpu_torch import KmerConfig
+from dna_kmeres_parallel_tpu_torch.models.pipeline import StreamingCounter
+from dna_kmeres_parallel_tpu_torch.utils import checkpoint
+
+root, path, ckpt, dev, every, batch = sys.argv[1:7]
+save = checkpoint.save_checkpoint
+published = []
+
+def save_then_die(*a, **kw):
+    save(*a, **kw)
+    published.append(1)
+    if len(published) == 2:
+        sys.stdout.flush()
+        os.kill(os.getpid(), signal.SIGKILL)
+
+checkpoint.save_checkpoint = save_then_die
+kw = {} if batch == "None" else {"batch_bases": int(batch)}
+StreamingCounter(KmerConfig(k=21, **kw), device=dev, checkpoint_path=ckpt,
+                 checkpoint_every_bases=int(every)).run(path)
+"""
+
+
+def phase_stream_path(records, path: Path, dev, card: str, refs: dict | None = None) -> dict:
+    """The streaming counter on the main path's FASTA: k=21 through K9
+    (``pack_input=False``) and K1, the host route, the 'auto' race,
+    canonical k=11 through K9, dense k=8 with a checkpoint every
+    STREAM_CKPT_BASES bases, a child killed after its second checkpoint and
+    resumed here, and ``count_file(k=21, pack_input=False)``. Each table or
+    histogram is held against the cached plain reference, and each run's
+    launches against its route. Returns each run's launch counts."""
+    import signal
+
+    import numpy as np
+    import torch
+
+    import dna_kmeres_parallel_tpu_torch as port
+    from dna_kmeres_parallel_tpu_torch import KmerConfig
+    from dna_kmeres_parallel_tpu_torch.models.engine import batch_plan
+    from dna_kmeres_parallel_tpu_torch.models.pipeline import StreamingCounter
+    from dna_kmeres_parallel_tpu_torch.utils import checkpoint
+
+    stream, _, lengths = records
+    refs = {} if refs is None else refs
+    none = dict.fromkeys(read_launches(), 0)
+    size = {} if STREAM_BATCH_BASES is None else {"batch_bases": STREAM_BATCH_BASES}
+    batch, _ = batch_plan(stream.size, 21, KmerConfig(**size).batch_bases)
+    n_batches = math.ceil(stream.size / batch)
+    launches = {}
+
+    def table_ref(k, canonical):
+        return cached(refs, ("table", k, canonical),
+                      lambda: reference_table(stream, k, canonical, dev))
+
+    def equal_to_ref(name, res, k, canonical):
+        if (res.n_seqs, res.total_bases) != (lengths.size, int(lengths.sum())):
+            raise AssertionError(f"{name}: {res.n_seqs} records of {res.total_bases} bases")
+        if hasattr(res, "hist"):
+            if k <= 8:
+                want = cached(refs, ("hist", k, canonical),
+                              lambda: reference_hist(stream, k, canonical, dev))
+            else:
+                codes, counts = table_ref(k, canonical)
+                want = np.zeros(4**k, np.int64)
+                want[codes.astype(np.int64)] = counts
+            ok = res.hist.dtype == np.int64 and np.array_equal(res.hist, want)
+        else:
+            codes, counts = table_ref(k, canonical)
+            ok = np.array_equal(res.codes, codes) and np.array_equal(res.counts, counts)
+        if not ok:
+            raise AssertionError(f"{name}: result differs from the reference")
+        torch.cuda.empty_cache()
+
+    def report(name, wall, res, metrics, got):
+        fired = {n: c for n, c in got.items() if c}
+        phases = " ".join(f"{p}={s:.3f}" for p, s in metrics.phase_seconds.items())
+        log(f"{name}: equal to the reference; wall {wall:.3f} s, "
+            f"{res.total_bases / wall / 1e9:.4f} Gbase/s; phases s: {phases}; "
+            f"counters {dict(metrics.counters)}; launches {fired or 'none'} [{card}]")
+
+    def streamed(name, k, canonical, kw, want=None, **sc_kw):
+        """One StreamingCounter run; ``want`` is its exact launch count by
+        kernel (None: checked by the caller)."""
+        cfg = KmerConfig(k=k, canonical=canonical, **size, **kw)
+        sc = StreamingCounter(cfg, device=dev, **sc_kw)
+        reset_launches()
+        t = time.perf_counter()
+        res = sc.run(str(path))
+        wall = time.perf_counter() - t
+        got = read_launches() if want is None else expect_launches(name, {**none, **want})
+        launches[name] = got
+        equal_to_ref(name, res, k, canonical)
+        report(name, wall, res, sc.metrics, got)
+        return res, sc.metrics, got
+
+    streamed(STREAM_MAIN, 21, False, {"compact": "device", "pack_input": False},
+             {"encode_stream": n_batches})
+    streamed("StreamingCounter(k=21, compact=device)", 21, False,
+             {"compact": "device"}, {"encode_packed": n_batches})
+    streamed("StreamingCounter(k=21, compact=host)", 21, False, {"compact": "host"}, {})
+    name = "StreamingCounter(k=21, compact=auto)"
+    _, m, got = streamed(name, 21, False, {"compact": "auto"})
+    # Batches 1-3 always run on the card and batch 4 on the host; the rest
+    # follow the race.
+    if {n for n, c in got.items() if c} != {"encode_packed"} or not (
+        3 <= got["encode_packed"] <= n_batches - 1
+    ):
+        raise AssertionError(f"{name}: launches {got} for {n_batches} batches")
+    log(f"{name}: decided {'host' if m.counters['compact_host_selected'] else 'device'}, "
+        f"{m.counters.get('compact_mode_flips', 0)} flips, "
+        f"{got['encode_packed']} of {n_batches} batches on the card [{card}]")
+    streamed("StreamingCounter(k=11, canonical, compact=device, pack_input=False)", 11, True,
+             {"compact": "device", "pack_input": False}, {"encode_stream": n_batches})
+
+    ckpt = path.with_name("stream.npz")
+    name = f"StreamingCounter(k=8, checkpoint_every_bases={STREAM_CKPT_BASES})"
+    _, m, _ = streamed(name, 8, False, {}, {"hist_planes": n_batches},
+                       checkpoint_path=str(ckpt), checkpoint_every_bases=STREAM_CKPT_BASES)
+    final = checkpoint.load_checkpoint(ckpt)
+    if not final.dense or final.cursor != stream.size or m.counters["checkpoints"] < 2:
+        raise AssertionError(f"{name}: {m.counters['checkpoints']} checkpoints, "
+                             f"the last at {final.cursor} of {stream.size}")
+    ckpt.unlink()
+
+    # A real kill: the child SIGKILLs itself once its second checkpoint is
+    # on disk, and this process resumes from that file.
+    name = "StreamingCounter(k=21) killed after its second checkpoint, resumed"
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _KILLED_CHILD, str(ROOT), str(path), str(ckpt), str(dev),
+         str(STREAM_CKPT_BASES), str(STREAM_BATCH_BASES)],
+        capture_output=True, text=True, timeout=600, cwd=str(ROOT),
+    )
+    child_s = time.perf_counter() - t
+    if proc.returncode != -signal.SIGKILL:
+        raise AssertionError(f"{name}: the child exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    saved = checkpoint.load_checkpoint(ckpt)
+    per_ckpt = -(-STREAM_CKPT_BASES // batch) * batch
+    if saved.dense or saved.cursor != 2 * per_ckpt:
+        raise AssertionError(f"{name}: the child's checkpoint is at {saved.cursor}, "
+                             f"not {2 * per_ckpt}")
+    res, m, _ = streamed(name, 21, False, {}, None, checkpoint_path=str(ckpt),
+                         checkpoint_every_bases=1 << 62)
+    if m.counters.get("resumed_from_base") != saved.cursor:
+        raise AssertionError(f"{name}: resumed from {m.counters.get('resumed_from_base')}")
+    log(f"{name}: child killed by SIGKILL after {child_s:.1f} s with its checkpoint at "
+        f"base {saved.cursor}; resumed_from_base={m.counters['resumed_from_base']} "
+        f"[{card}]")
+    ckpt.unlink()
+
+    name = "count_file(k=21, pack_input=False)"
+    reset_launches()
+    t = time.perf_counter()
+    res = port.count_file(str(path), k=21, pack_input=False, device=dev, **size)
+    wall = time.perf_counter() - t
+    launches[name] = expect_launches(name, {**none, "encode_stream": n_batches})
+    equal_to_ref(name, res, 21, False)
+    phases = " ".join(f"{p}={s:.3f}" for p, s in res.phases.items())
+    log(f"{name}: equal to the reference; {n_batches} encode_stream launches for "
+        f"{n_batches} batches; wall {wall:.3f} s, {res.total_bases / wall / 1e9:.4f} "
+        f"Gbase/s; phases s: {phases} [{card}]")
+    return launches
+
+
 #: every kernel's launch counter: (module, attribute) by kernel name
 COUNTERS = {
     "encode_packed": ("encode_cuda", "LAUNCHES"),
+    "encode_stream": ("encode_cuda", "STREAM_LAUNCHES"),
     "counts_matrix": ("histogram_cuda", "COUNTS_LAUNCHES"),
     "min_sum_tri": ("distance_cuda", "TRI_LAUNCHES"),
     "min_sum_rect": ("distance_cuda", "RECT_LAUNCHES"),
@@ -921,11 +1181,13 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     timed = phase_kernels(dev, card)
     dense = phase_dense_kernels(dev, card)
+    k9 = phase_stream_kernel(dev, card)
 
-    # 4. the main path and the dense path, on one FASTA
+    # 4. the main path, the dense path and the streaming path, on one FASTA
     t = time.perf_counter()
     records = smoke_records(args.bases)
     tmp = tempfile.TemporaryDirectory(prefix="kmer_smoke_")
+    refs: dict = {}
     try:
         path = Path(tmp.name) / "smoke.fasta"
         write_fasta(path, *records)
@@ -933,11 +1195,12 @@ def main() -> int:
         log(f"fasta: {lengths.size} records, {int(lengths.sum())} bases, "
             f"{int((stream == INVALID).sum()) - lengths.size + 1} N, "
             f"{path.stat().st_size} bytes, written in {time.perf_counter() - t:.1f} s")
-        launches = phase_main_path(records, path, dev, card)
-        dense_launches = phase_dense_path(records, path, dev, card)
+        launches = phase_main_path(records, path, dev, card, refs)
+        dense_launches = phase_dense_path(records, path, dev, card, refs)
+        stream_launches = phase_stream_path(records, path, dev, card, refs)
     finally:
         tmp.cleanup()
-    del records, stream
+    del records, stream, refs
 
     # 5-6. the distance kernels and the distance path
     t = time.perf_counter()
@@ -967,6 +1230,18 @@ def main() -> int:
         "plain_ms": plain_ms,
         "bound_ms": k1_bound[0],
         "bound_by": k1_bound[1],
+        "library_ms": None,
+    }, {
+        "name": "encode_stream",
+        "route": "cuda",
+        "source": "dna_kmeres_parallel_tpu_torch/csrc/encode_stream.cu",
+        "replaces": "dna_kmeres_parallel_tpu/ops/encode_pallas.py:221",
+        "launches": stream_launches[STREAM_MAIN]["encode_stream"],
+        "max_abs_err": k9["max_abs_err"],
+        "ms": k9["ms"],
+        "plain_ms": k9["plain_ms"],
+        "bound_ms": k9["bound"][0],
+        "bound_by": k9["bound"][1],
         "library_ms": None,
     }]
     for name, src, replaces, run in (

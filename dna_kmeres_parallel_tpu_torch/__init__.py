@@ -21,17 +21,20 @@ easy to find)
                first use.
 - ``models/``  batch staging and the dense counting and distance engine
                (``engine``),
-               the sparse counting engine (``sparse_engine``) and the
+               the sparse counting engine (``sparse_engine``), the
+               resumable streaming counter (``pipeline``) and the
                resumable distance-CSV writer (``distance_stream``).
 - ``native/``  the C++ host library (parse, pack, radix compaction, merge,
                ``%f`` formatting), built with g++ at first use.
 - ``utils/``   codec, configuration, FASTA parsing, packed-triangle
-               indexing, CSV writers, the checkpoint file.
+               indexing, CSV writers, the checkpoint files, run metrics,
+               profiler traces.
 
 What is ported: exact k-mer counting, k = 1..31, canonical or not, as a
 dense histogram where 4^k <= dense_bins_limit (k <= 12 by default) and as
-a sorted sparse table above; dense pairwise k-mer distances, k <= 8, in
-memory or streamed to the reference's CSV. Every public entry takes an explicit ``device``:
+a sorted sparse table above, in one shot or streamed with checkpoint and
+resume (``models.pipeline.StreamingCounter``); dense pairwise k-mer
+distances, k <= 8, in memory or streamed to the reference's CSV. Every public entry takes an explicit ``device``:
 ``"cuda"`` runs the hand-written kernels and raises where CUDA is missing;
 ``"cpu"`` runs the kernels' plain PyTorch versions.
 """

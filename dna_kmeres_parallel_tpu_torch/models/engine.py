@@ -44,12 +44,34 @@ def batch_plan(total: int, k: int, batch_bases: int) -> tuple[int, int]:
     return batch, _round_up(batch + k - 1, _LANE)
 
 
-def host_to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A NumPy array as a tensor on ``device``; to the card it goes through
-    pinned host memory, without waiting for the copy."""
-    t = torch.from_numpy(a)
+def host_tensor(a) -> torch.Tensor:
+    """A NumPy array as a CPU tensor sharing its memory (u32 viewed as
+    int32, which holds the same bits); a tensor as it is."""
+    if isinstance(a, torch.Tensor):
+        return a
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(a)
+
+
+def pin_host(host: tuple, device: torch.device) -> tuple[torch.Tensor, ...]:
+    """The host half of a batch as CPU tensors, in pinned memory when they
+    are bound for the card (the streaming counter's prefetch thread pins
+    a batch while the main thread ships the one before)."""
+    out = tuple(host_tensor(a) for a in host)
     if device.type == "cuda":
-        t = t.pin_memory().to(device, non_blocking=True)
+        out = tuple(t.pin_memory() for t in out)
+    return out
+
+
+def host_to_device(a, device: torch.device) -> torch.Tensor:
+    """A NumPy array or CPU tensor as a tensor on ``device``; to the card
+    it goes through pinned host memory, without waiting for the copy."""
+    t = host_tensor(a)
+    if device.type == "cuda":
+        if not t.is_pinned():
+            t = t.pin_memory()
+        t = t.to(device, non_blocking=True)
     return t
 
 
@@ -61,18 +83,12 @@ def pack_planes_np(flat_u8: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return host_planes_from_packfmt(data, mask)
 
 
-def planes_to_device(
-    planes: tuple[np.ndarray, np.ndarray], device: torch.device
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """u32 NumPy planes -> int32 tensors on ``device`` with the same bits."""
-    return tuple(host_to_device(plane.view(np.int32), device) for plane in planes)
-
-
 def stage_batch_planes(
     padded: np.ndarray, device: torch.device
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Planes of a padded batch on ``device``: 0.5 B per base."""
-    return planes_to_device(pack_planes_np(padded), device)
+    """Planes of a padded batch on ``device`` (int32 tensors holding the u32
+    bits): 0.5 B per base."""
+    return tuple(host_to_device(plane, device) for plane in pack_planes_np(padded))
 
 
 # ---------------------------------------------------------------------------
@@ -218,16 +234,14 @@ class KmerEngine:
         return (padded,)
 
     def _ship_and_count(self, host: tuple, n_own: int, acc: torch.Tensor):
-        """The device half of a batch: copy what ``_stage`` made to the
-        device and add its histogram into ``acc``. Returns the event marks
-        before the copy, after it and after the kernel."""
+        """The device half of a batch: copy what ``_stage`` made (NumPy
+        arrays, or their tensors from ``pin_host``) to the device and add
+        its histogram into ``acc``. Returns the event marks before the
+        copy, after it and after the kernel."""
         cfg, dev = self.config, self.device
         planes = cfg.pack_input and cfg.k >= 4
         m0 = runtime.mark(dev)
-        if planes:
-            staged = planes_to_device(host, dev)
-        else:
-            staged = tuple(host_to_device(a, dev) for a in host)
+        staged = tuple(host_to_device(a, dev) for a in host)
         m1 = runtime.mark(dev)
         if planes:
             histogram_cuda.histogram_planes(*staged, n_own, cfg.k, cfg.canonical, acc)

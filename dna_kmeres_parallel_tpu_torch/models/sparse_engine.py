@@ -3,14 +3,15 @@ the host.
 
 The port of ``dna_kmeres_parallel_tpu/models/sparse_engine.py``'s
 single-host counting route. Each batch of the flat base stream (plus a
-k-1 base halo) is packed into u32 planes on the host, encoded into split
-window words by K1 on the device, copied back, and turned into a sorted
-(code, count) table by the native MSD+LSD radix compactor; a merge ladder
-folds the batch tables into one. Counts are exact integers.
+k-1 base halo) is staged on the host (u32 planes with ``pack_input``, the
+padded u8 bases without it), encoded into split window words on the
+device (K1 from planes, K9 from bases), copied back, and turned into a
+sorted (code, count) table by the native MSD+LSD radix compactor; a merge
+ladder folds the batch tables into one. Counts are exact integers.
 
-The JAX engine has more routes (a device sort, host-only and super-k-mer
-compaction); the port has this one, and ``KmerConfig.device_sort`` /
-``compact`` values that would select another raise.
+The JAX engine also has a device-sort route; ``device_sort=True`` raises
+here. ``compact`` belongs to the streaming counter (``models/pipeline``)
+and is ignored here, as the JAX engine ignores it.
 """
 
 from __future__ import annotations
@@ -25,8 +26,8 @@ import torch
 from dna_kmeres_parallel_tpu_torch import native
 from dna_kmeres_parallel_tpu_torch.models.engine import (
     batch_plan,
+    host_to_device,
     pack_planes_np,
-    planes_to_device,
 )
 from dna_kmeres_parallel_tpu_torch.ops import runtime
 from dna_kmeres_parallel_tpu_torch.ops import sparse as sparse_ops
@@ -52,9 +53,26 @@ def dense_from_sparse(sp: "SparseCountResult", bins: int) -> np.ndarray:
     return hist
 
 
-def words_to_host(words) -> tuple[np.ndarray, ...]:
-    """Device word planes -> NumPy arrays viewed as the unsigned words they
-    hold (int32 -> u32, int16 -> u16)."""
+def stage_words(padded: np.ndarray, pack_input: bool) -> tuple[np.ndarray, ...]:
+    """The host half of a sparse batch, as the JAX engine stages it: the
+    encoder's u32 planes with ``pack_input`` (0.5 B per base, K1), else
+    the padded u8 bases themselves (1 B per base, K9)."""
+    return pack_planes_np(padded) if pack_input else (padded,)
+
+
+def encode_staged(staged: tuple, n_own: int, k: int, canonical: bool):
+    """Encode what ``stage_words`` made, once on the device: planes with
+    ``sparse.encode_words_planes`` (K1), u8 bases with
+    ``sparse.encode_words`` (K9). Returns the word tuple."""
+    if len(staged) == 2:
+        return sparse_ops.encode_words_planes(*staged, n_own, k, canonical)
+    return sparse_ops.encode_words(staged[0], n_own, k, canonical)
+
+
+def fetch_words(words) -> tuple[np.ndarray, ...]:
+    """Word planes (on the device, or already copied to the host) -> NumPy
+    arrays viewed as the unsigned words they hold (int32 -> u32, int16 ->
+    u16). A plane on the card is copied, which waits for the device."""
     out = []
     for w in words:
         a = w.cpu().numpy()
@@ -126,6 +144,13 @@ class MergeLadder:
         self._collapse()
         return merge_sparse_tables(self._stack)
 
+    def reset_to(self, table: tuple[np.ndarray, np.ndarray]) -> None:
+        """Replace all pending state with one merged table (a checkpoint's
+        snapshot becomes the sole base run)."""
+        self._stack = []
+        self._buffer = []
+        self.push(table)
+
 
 @dataclass
 class SparseCountResult:
@@ -174,12 +199,7 @@ class SparseKmerEngine:
             )
         if self.config.device_sort:
             raise NotImplementedError(
-                "device_sort=True is not ported yet (ROADMAP items 7 and 11)"
-            )
-        if self.config.compact != "auto":
-            raise NotImplementedError(
-                f"compact={self.config.compact!r} is not ported yet "
-                "(ROADMAP items 7 and 11)"
+                "device_sort=True is not ported yet (ROADMAP item 14, with K11)"
             )
         self.device = runtime.resolve_device(device)
         require_native()
@@ -210,16 +230,14 @@ class SparseKmerEngine:
                 seg = flat[start : min(end + cfg.k - 1, total)]
                 padded = np.full(T, codec.INVALID_BASE, dtype=np.uint8)
                 padded[: seg.shape[0]] = seg
-                planes = pack_planes_np(padded)
+                host = stage_words(padded, cfg.pack_input)
                 lap("staging")
                 m0 = runtime.mark(dev)
-                staged = planes_to_device(planes, dev)
+                staged = tuple(host_to_device(a, dev) for a in host)
                 m1 = runtime.mark(dev)
-                words = sparse_ops.encode_words_planes(
-                    *staged, end - start, cfg.k, cfg.canonical
-                )
+                words = encode_staged(staged, end - start, cfg.k, cfg.canonical)
                 m2 = runtime.mark(dev)
-                host = words_to_host(words)  # waits for the device
+                host = fetch_words(words)  # waits for the device
                 h2d, kernel = runtime.span_s(m0, m1), runtime.span_s(m1, m2)
                 phases["h2d"] += h2d
                 phases["kernel"] += kernel

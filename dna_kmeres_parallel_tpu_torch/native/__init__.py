@@ -8,7 +8,7 @@ built for one CPU is never loaded on another: a checkout carried to a
 machine with another CPU builds its own.
 
 Entries: the FASTA parse, the 2-bit pack, the radix compactor of unsorted
-window words, the k-way merge of sorted (code, count) tables and the
+window words, the host-only sparse counter, the k-way merge of sorted (code, count) tables and the
 ``%f`` CSV formatter. Nothing falls back: a failed build raises with the
 compiler's output.
 """
@@ -113,6 +113,10 @@ def load() -> ctypes.CDLL:
     lib.kp_count_valid.argtypes = [vp, ci, vp, i64, ci]
     lib.kp_compact_unsorted.restype = i64
     lib.kp_compact_unsorted.argtypes = [vp, ci, vp, i64, ci, vp, vp]
+    lib.kp_count_windows_valid.restype = i64
+    lib.kp_count_windows_valid.argtypes = [vp, i64, ci]
+    lib.kp_count_sparse_host.restype = i64
+    lib.kp_count_sparse_host.argtypes = [vp, i64, ci, ci, vp, vp]
     lib.kp_merge_tables.restype = i64
     lib.kp_merge_tables.argtypes = [i64, vp, vp, vp, vp, vp]
     lib.kp_format_f6.restype = i64
@@ -210,6 +214,30 @@ def compact_unsorted_native(
     out_cnt = np.zeros(cap, dtype=np.int64)
     w = lib.kp_compact_unsorted(
         hi_ptr, hi_width, _ptr(lo), n, kbits, _ptr(out_code), _ptr(out_cnt)
+    )
+    if w < 0:
+        raise MemoryError("native radix compactor: scratch allocation failed")
+    return out_code[:w].copy(), out_cnt[:w].copy()
+
+
+def count_sparse_host_native(
+    stream: np.ndarray, k: int, canonical: bool = False
+) -> tuple[np.ndarray, np.ndarray]:
+    """Host-only sparse k-mer count: u8 base stream (0..3 codes, 0xFF
+    separators) -> sorted-unique (codes_u64, counts_i64), by a rolling
+    encoder (forward and reverse complement in O(1) per base) fused into
+    the radix compactor. Nothing goes to a device; the tables equal the
+    device route's."""
+    lib = load()
+    if not (1 <= k <= 31):
+        raise ValueError(f"k must be in [1, 31], got {k}")
+    stream = np.ascontiguousarray(stream, dtype=np.uint8)
+    n = stream.shape[0]
+    cap = lib.kp_count_windows_valid(_ptr(stream), n, k)
+    out_code = np.zeros(cap, dtype=np.uint64)
+    out_cnt = np.zeros(cap, dtype=np.int64)
+    w = lib.kp_count_sparse_host(
+        _ptr(stream), n, k, int(bool(canonical)), _ptr(out_code), _ptr(out_cnt)
     )
     if w < 0:
         raise MemoryError("native radix compactor: scratch allocation failed")

@@ -1,6 +1,7 @@
 // The port's C++ host library: FASTA parse, 2-bit pack, the MSD+LSD
-// radix compactor of unsorted window words, the k-way merge of sorted
-// (code, count) tables, and the "%f" CSV formatter.
+// radix compactor of unsorted window words, the host-only sparse counter
+// (a rolling encoder fused into the same radix core), the k-way merge of
+// sorted (code, count) tables, and the "%f" CSV formatter.
 //
 // A copy of the entries of the JAX package's native/fastaparse.cpp that
 // the port calls, so that the port builds and loads its own library and
@@ -731,9 +732,94 @@ int64_t radix_compact(const void* hi, const uint32_t* lo, int64_t n,
   return radix_compact_core<T>(for_range, n, kbits, out_code, out_cnt);
 }
 
+// Rolling 2k-bit window codes over a u8 base stream (0..3 valid; anything
+// else, the 0xFF record separator included, breaks the window run): the
+// code source of the host-only sparse counter.
+struct RollingWindows {
+  const uint8_t* s;
+  int k;
+  bool canonical;
+  uint64_t mask;
+  int rc_shift;
+
+  RollingWindows(const uint8_t* stream, int kk, bool canon)
+      : s(stream), k(kk), canonical(canon) {
+    mask = (k >= 32) ? ~uint64_t(0) : ((uint64_t(1) << (2 * k)) - 1);
+    rc_shift = 2 * (k - 1);
+  }
+
+  // Enumerate the valid windows STARTING in [a, b), calling f(code) in
+  // order; reads bases [a, b + k - 1).
+  template <class F>
+  void for_range(int64_t a, int64_t b, F&& f) const {
+    uint64_t fwd = 0, rc = 0;
+    int run = 0;
+    for (int64_t j = a; j < b + k - 1; j++) {
+      const uint8_t base = s[j];
+      if (base > 3) {
+        run = 0;
+        continue;
+      }
+      fwd = ((fwd << 2) | base) & mask;
+      rc = (rc >> 2) | (uint64_t(3 - base) << rc_shift);
+      run = run < k ? run + 1 : k;
+      if (run >= k) {
+        const int64_t start = j - k + 1;
+        if (start >= a && start < b) f(canonical ? std::min(fwd, rc) : fwd);
+      }
+    }
+  }
+};
+
 }  // namespace
 
 extern "C" {
+
+// Valid windows (k consecutive valid bases) in a u8 base stream: sizes
+// the output of kp_count_sparse_host.
+int64_t kp_count_windows_valid(const uint8_t* stream, int64_t n, int k) {
+  const int64_t nw = n - k + 1;
+  if (nw <= 0) return 0;
+  const int nt = num_threads(nw, 1 << 20);
+  std::vector<int64_t> counts(nt, 0);
+  std::vector<std::thread> ths;
+  for (int t = 0; t < nt; t++)
+    ths.emplace_back([&, t] {
+      int64_t a = nw * t / nt, b = nw * (t + 1) / nt, c = 0;
+      int run = 0;
+      for (int64_t j = a; j < b + k - 1; j++) {
+        run = stream[j] > 3 ? 0 : (run < k ? run + 1 : k);
+        if (run >= k && j - k + 1 >= a) c++;
+      }
+      counts[t] = c;
+    });
+  for (auto& th : ths) th.join();
+  int64_t total = 0;
+  for (int64_t c : counts) total += c;
+  return total;
+}
+
+// Host-only sparse k-mer counter: u8 base stream (0..3; 0xFF separators)
+// -> sorted-unique (code u64, count i64) table, the rolling encoder fused
+// into the MSD+LSD radix core. The same index space and canonical form as
+// the device encoders, so its tables equal the device route's. out arrays
+// must hold kp_count_windows_valid(...) entries; returns entries written
+// (-1 if scratch allocation failed).
+int64_t kp_count_sparse_host(const uint8_t* stream, int64_t n, int k,
+                             int canonical, uint64_t* out_code,
+                             int64_t* out_cnt) {
+  const int64_t nw = n - k + 1;
+  if (nw <= 0 || k < 1 || k > 31) return 0;
+  RollingWindows rw(stream, k, canonical != 0);
+  auto for_range = [&rw](int64_t a, int64_t b, auto&& f) {
+    rw.for_range(a, b, f);
+  };
+  if (2 * k <= 32)
+    return radix_compact_core<uint32_t>(for_range, nw, 2 * k, out_code,
+                                        out_cnt);
+  return radix_compact_core<uint64_t>(for_range, nw, 2 * k, out_code,
+                                      out_cnt);
+}
 
 // Valid (non-sentinel) words in an UNSORTED window-word stream: counts
 // codes < 2^kbits. Sizes the output of kp_compact_unsorted.

@@ -1,13 +1,20 @@
-"""K1, the packed-plane window encoder: CUDA wrapper, plain PyTorch
-version, and the host-side plane construction.
+"""The window encoders: CUDA wrappers, plain PyTorch versions, and the
+host-side plane construction.
 
-The kernel (``csrc/encode_packed.cu``) replaces the TPU kernel
+K1, the packed-plane encoder (``csrc/encode_packed.cu``), replaces the TPU
+kernel
 ``dna_kmeres_parallel_tpu/ops/encode_pallas.py::rolling_codes_split_packed_pallas``
 (``words_le=True``). It emits windows in natural stream order (slot p is
 the window that starts at base p), where the TPU kernel emits a
 residue-permuted order; the consumers only read the multiset of valid
 codes, and natural order lets the kernel and its plain version be
 compared slot by slot.
+
+K9, the u8-stream encoder (``csrc/encode_stream.cu``), replaces
+``dna_kmeres_parallel_tpu/ops/encode_pallas.py::rolling_codes_split_pallas``:
+the same split words from one byte per base, in stream order over the
+stream's T slots (the TPU kernel pads its output to a tile span with
+sentinels).
 
 Planes are int32 tensors holding u32 bits (torch's uint32 arithmetic is
 partial on the CPU); outputs are int32 ``lo`` and int16 or int32 ``hi``
@@ -23,9 +30,12 @@ import torch
 from dna_kmeres_parallel_tpu_torch.ops import encode as encode_ops
 from dna_kmeres_parallel_tpu_torch.ops import sparse as sparse_ops
 
-#: Kernel launches since the count was last reset; the wrapper adds one
-#: per launch and nothing else touches it except a caller's reset.
+#: Kernel launches since the count was last reset; each wrapper adds one
+#: per launch of its kernel and nothing else touches it except a caller's
+#: reset. K1:
 LAUNCHES = 0
+#: K9:
+STREAM_LAUNCHES = 0
 
 
 def check_planes(words_le: torch.Tensor, inval_be: torch.Tensor, k: int):
@@ -97,22 +107,15 @@ def _to_i32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
-def encode_packed_reference(
-    words_le: torch.Tensor,
-    inval_be: torch.Tensor,
-    n_own: int,
-    k: int,
-    canonical: bool = False,
+def _encode_bases_reference(
+    bases: torch.Tensor, n_own: int, k: int, canonical: bool
 ) -> tuple[torch.Tensor | None, torch.Tensor]:
-    """Plain PyTorch version of :func:`encode_packed`: the same planes in
-    the same order, on whatever device the planes lie, in int64 ops.
-
-    Unpacks the planes (``encode.planes_to_stream``), rolls over the k window offsets
-    (``sparse.rolling_codes_split``), then ``sparse.canonicalize_split``."""
-    check_planes(words_le, inval_be, k)
-    dev = words_le.device
-    T = 16 * words_le.shape[0]
-    bases = encode_ops.planes_to_stream(words_le, inval_be)
+    """The plain encode of a base-code stream [T] (0..3 valid) into the
+    kernels' planes over its T window starts: rolls over the k window
+    offsets (``sparse.rolling_codes_split``), masks the windows at or past
+    n_own, then ``sparse.canonicalize_split``, in int64 ops."""
+    dev = bases.device
+    T = bases.shape[0]
     lo_full = torch.full((T,), -1, dtype=torch.int64, device=dev)
     hi_full = torch.full((T,), -1, dtype=torch.int64, device=dev)
     n = T - k + 1
@@ -126,6 +129,83 @@ def encode_packed_reference(
     hi_dt = sparse_ops.hi_dtype(k)
     hi_out = None if hi_dt is None else _to_i32(hi_full).to(hi_dt)
     return hi_out, _to_i32(lo_full)
+
+
+def encode_packed_reference(
+    words_le: torch.Tensor,
+    inval_be: torch.Tensor,
+    n_own: int,
+    k: int,
+    canonical: bool = False,
+) -> tuple[torch.Tensor | None, torch.Tensor]:
+    """Plain PyTorch version of :func:`encode_packed`: the same planes in
+    the same order, on whatever device the planes lie, in int64 ops.
+
+    Unpacks the planes (``encode.planes_to_stream``), then encodes the
+    bases as :func:`encode_stream_reference` does."""
+    check_planes(words_le, inval_be, k)
+    bases = encode_ops.planes_to_stream(words_le, inval_be)
+    return _encode_bases_reference(bases, n_own, k, canonical)
+
+
+def check_stream(bases: torch.Tensor, k: int) -> None:
+    if not (1 <= k <= sparse_ops.MAX_SPARSE_K):
+        raise ValueError(f"k must be in [1, {sparse_ops.MAX_SPARSE_K}], got {k}")
+    if bases.dtype != torch.uint8 or bases.dim() != 1:
+        raise ValueError(
+            "bases must be a 1-D uint8 tensor of base codes, got "
+            f"{bases.dtype} {tuple(bases.shape)}"
+        )
+
+
+def encode_stream(
+    bases: torch.Tensor, n_own: int, k: int, canonical: bool = False
+) -> tuple[torch.Tensor | None, torch.Tensor]:
+    """Launch K9: a u8 base stream [T] on the card -> (hi, lo) window
+    planes [T] on the card (hi is None for k <= 15). Raises on anything
+    the kernel does not take, and if the launch fails."""
+    global STREAM_LAUNCHES
+    check_stream(bases, k)
+    if bases.device.type != "cuda":
+        raise ValueError(f"encode_stream needs a CUDA tensor, got {bases.device}")
+    if not bases.is_contiguous():
+        raise ValueError("encode_stream needs a contiguous stream")
+    T = bases.shape[0]
+    if T == 0:
+        raise ValueError("encode_stream needs at least one base")
+    from dna_kmeres_parallel_tpu_torch.ops import kernels
+
+    lib = kernels.load()
+    dev = bases.device
+    lo = torch.empty(T, dtype=torch.int32, device=dev)
+    hi_dt = sparse_ops.hi_dtype(k)
+    hi = None if hi_dt is None else torch.empty(T, dtype=hi_dt, device=dev)
+    hi_bytes = 0 if hi_dt is None else hi_dt.itemsize
+    with torch.cuda.device(dev):
+        rc = lib.kp_encode_stream(
+            bases.data_ptr(),
+            T,
+            int(n_own),
+            k,
+            int(bool(canonical)),
+            lo.data_ptr(),
+            None if hi is None else hi.data_ptr(),
+            hi_bytes,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"kp_encode_stream launch failed: cudaError_t {rc}")
+    STREAM_LAUNCHES += 1
+    return hi, lo
+
+
+def encode_stream_reference(
+    bases: torch.Tensor, n_own: int, k: int, canonical: bool = False
+) -> tuple[torch.Tensor | None, torch.Tensor]:
+    """Plain PyTorch version of :func:`encode_stream`: the same planes in
+    the same order, on whatever device the stream lies, in int64 ops."""
+    check_stream(bases, k)
+    return _encode_bases_reference(bases, n_own, k, canonical)
 
 
 def rev16_digits_np(x: np.ndarray) -> np.ndarray:

@@ -113,6 +113,8 @@ def load() -> ctypes.CDLL:
     lib.kp_encode_packed.argtypes = [
         vp, vp, ll, ll, ci, ci, vp, vp, ci, vp,
     ]
+    lib.kp_encode_stream.restype = ci
+    lib.kp_encode_stream.argtypes = [vp, ll, ll, ci, ci, vp, vp, ci, vp]
     lib.kp_counts_matrix.restype = ci
     lib.kp_counts_matrix.argtypes = [vp, ll, ll, ci, ci, ci, vp, vp]
     lib.kp_min_sum_tri.restype = ci

@@ -133,3 +133,24 @@ def encode_words_planes(
     else:
         raise ValueError(f"no encoder for device {words_le.device}")
     return narrow_words(hi, lo, k)
+
+
+def encode_words(
+    bases: torch.Tensor, n_own: int, k: int, canonical: bool = False
+):
+    """A staged u8 base stream [T] -> the adaptive UNSORTED word tuple over
+    its T window starts, natural order, all-ones sentinels.
+
+    The stream's device picks the route and nothing else does: on the
+    card the hand-written kernel (``encode_cuda.encode_stream``, K9), on
+    the CPU its plain version."""
+    from dna_kmeres_parallel_tpu_torch.ops import encode_cuda
+
+    dev = bases.device.type
+    if dev == "cuda":
+        hi, lo = encode_cuda.encode_stream(bases, n_own, k, canonical)
+    elif dev == "cpu":
+        hi, lo = encode_cuda.encode_stream_reference(bases, n_own, k, canonical)
+    else:
+        raise ValueError(f"no encoder for device {bases.device}")
+    return narrow_words(hi, lo, k)

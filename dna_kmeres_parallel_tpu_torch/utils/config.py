@@ -32,9 +32,17 @@ class KmerConfig:
          packed bytes and validity bits for k <= 3, unpacked on the
          device) instead of 1 B per base (K6, K7).
       device_sort: sparse counter: whether the device sorts the window
-         words. Only None (no device sort) is ported.
-      compact: sparse counter: where each batch's table is built. Only
-         "auto" (device encode, host radix compaction) is ported.
+         words. Only None (no device sort) is ported; True raises.
+      compact: streaming sparse counter (``models/pipeline.py``): where
+         each batch's table is built. Ported: "device" (encode on the
+         card, words to the host, radix compaction there), "host" (the
+         native engine counts the host-resident stream; nothing crosses
+         the link) and "auto" (races the two and keeps re-checking the
+         loser). "device-rle" and "device-super" raise there (ROADMAP
+         items 14 and 11). The one-shot engines ignore it, as the JAX
+         package's do.
+      mesh_shape: the device mesh of a data-parallel stream; a mesh of
+         more than one device is not ported (ROADMAP item 10).
     """
 
     k: int = 3
@@ -46,12 +54,20 @@ class KmerConfig:
     pack_input: bool = True
     device_sort: bool | None = None
     compact: str = "auto"
+    mesh_shape: tuple[int, ...] = ()
 
     def __post_init__(self):
         if not (1 <= self.k <= 31):
             raise ValueError(f"k must be in [1, 31], got {self.k}")
         if self.parser_variant not in ("modern", "blank_line", "no_blank_line"):
             raise ValueError(f"bad parser_variant {self.parser_variant!r}")
+        if self.compact == "device-super" and self.k < 9:
+            # compact modes serve the streamed sparse path (k >= 9); a
+            # dense k <= 8 run would ignore the setting silently.
+            raise ValueError(
+                f"compact='device-super' serves the sparse stream "
+                f"(k >= 9), got k={self.k}"
+            )
         if self.compact not in _COMPACT_MODES:
             raise ValueError(f"bad compact {self.compact!r}")
 

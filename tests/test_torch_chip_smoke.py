@@ -1,7 +1,7 @@
 """``chip_smoke.py``'s own parts, on the CPU: the seeded records, their
 FASTA, the plain reference table the counting path is held against on
-the card, and rehearsals of the dense counting path and of the distance
-path at a small size (the kernels' plain versions standing in for the
+the card, and rehearsals of the dense counting path, the streaming path
+and the distance path at a small size (the kernels' plain versions standing in for the
 kernels, counted as they would be). Exact integers and float32 bits: the tolerance is zero."""
 
 import re
@@ -177,7 +177,8 @@ def test_distance_path_rehearsal(tmp_path, monkeypatch, counted_plain_versions):
 def counted_dense_plain_versions(monkeypatch):
     """Route the dense path's kernel entries to their plain versions on the
     CPU, each adding to the launch count of the kernel the card would run
-    (``u8_route`` for a u8 stream; K1 for the k=9 encode)."""
+    (``u8_route`` for a u8 stream; K1 for the planes' encode, K9 for the
+    u8 stream's)."""
     from dna_kmeres_parallel_tpu_torch.ops import encode_cuda, histogram_cuda
 
     counters = {"small": "SMALL_LAUNCHES", "u8": "U8_LAUNCHES", "any": "ANY_LAUNCHES"}
@@ -196,9 +197,16 @@ def counted_dense_plain_versions(monkeypatch):
         encode_cuda.LAUNCHES += 1
         return plain_encode(*a, **kw)
 
+    plain_stream_encode = encode_cuda.encode_stream_reference
+
+    def stream_encode(*a, **kw):
+        encode_cuda.STREAM_LAUNCHES += 1
+        return plain_stream_encode(*a, **kw)
+
     monkeypatch.setattr(histogram_cuda, "histogram_planes", planes)
     monkeypatch.setattr(histogram_cuda, "histogram_stream", stream)
     monkeypatch.setattr(encode_cuda, "encode_packed_reference", encode)
+    monkeypatch.setattr(encode_cuda, "encode_stream_reference", stream_encode)
 
 
 def test_dense_path_rehearsal(records, tmp_path, counted_dense_plain_versions):
@@ -212,3 +220,25 @@ def test_dense_path_rehearsal(records, tmp_path, counted_dense_plain_versions):
         assert {n: c for n, c in launches[name].items() if c} == {kernel: 1}, name
     assert {n: c for n, c in launches[chip_smoke.ANY_RUN[0]].items() if c} == {"hist_u8_any": 1}
     assert set(chip_smoke.DENSE_MAIN.values()) <= set(launches)
+
+
+def test_stream_path_rehearsal(records, tmp_path, monkeypatch, counted_dense_plain_versions):
+    # The main path's two records in 32 kbase batches (16 per run), a
+    # checkpoint every two batches; the killed child runs on the CPU too.
+    monkeypatch.setattr(chip_smoke, "STREAM_BATCH_BASES", 1 << 15)
+    monkeypatch.setattr(chip_smoke, "STREAM_CKPT_BASES", 1 << 16)
+    path = tmp_path / "smoke.fasta"
+    chip_smoke.write_fasta(path, *records)
+    refs: dict = {}
+    launches = chip_smoke.phase_stream_path(records, path, CPU, "cpu", refs)
+    n = -(-records[0].size // (1 << 15))
+    assert n >= 8 and len(launches) == 8
+    fired = {name: {k: c for k, c in got.items() if c} for name, got in launches.items()}
+    assert fired[chip_smoke.STREAM_MAIN] == {"encode_stream": n}
+    assert fired["StreamingCounter(k=21, compact=device)"] == {"encode_packed": n}
+    assert fired["StreamingCounter(k=21, compact=host)"] == {}
+    assert fired["count_file(k=21, pack_input=False)"] == {"encode_stream": n}
+    # One reference per (kind, k, canonical): the k=11 histogram is the
+    # densified k=11 table.
+    assert set(refs) == {("table", 21, False), ("table", 11, True), ("hist", 8, False)}
+    assert not list(tmp_path.glob("*.npz*"))

@@ -287,3 +287,120 @@ def test_dense_count_on_card_equals_cpu(cuda_device):
         got = port.count_sequences(seqs, device="cuda", **kw)
         want = port.count_sequences(seqs, device="cpu", **kw)
         assert np.array_equal(got.hist, want.hist), (k, canonical, pack)
+
+
+# ---------------------------------------------------------------------------
+# K9: the u8-stream encoder, and the streaming counter on the card
+# ---------------------------------------------------------------------------
+
+
+def stream_kernel_and_plain(b: torch.Tensor, n_own: int, k: int, canonical: bool):
+    launches = encode_cuda.STREAM_LAUNCHES
+    got = sparse_ops.encode_words(b, n_own, k, canonical)
+    assert encode_cuda.STREAM_LAUNCHES == launches + 1
+    ref = sparse_ops.narrow_words(
+        *encode_cuda.encode_stream_reference(b, n_own, k, canonical), k
+    )
+    torch.cuda.synchronize()
+    return got, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("canonical", [False, True])
+@pytest.mark.parametrize("k", KS)
+def test_stream_kernel_matches_plain_on_card(cuda_device, k, canonical):
+    # 3% N, an N run and a 64-base all-T run; T not a multiple of the
+    # kernel's tile; several n_own.
+    b = torch.from_numpy(stream(8192, 300 + k)[:7001]).to(cuda_device)
+    for n_own in (0, 1, 7001 // 2, 7001 - k + 1, 10**12):
+        got, ref = stream_kernel_and_plain(b, n_own, k, canonical)
+        assert len(got) == sparse_ops.key_words(k)
+        for g, r in zip(got, ref, strict=True):
+            assert g.device.type == "cuda" and g.dtype == r.dtype and g.shape == (7001,)
+            assert torch.equal(g, r), n_own
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "n,k", [(1, 1), (5, 21), (20, 21), (21, 21), (2048, 16), (2049, 31), (4097, 13)]
+)
+def test_stream_kernel_edges_on_card(cuda_device, n, k):
+    # Streams shorter than k, exactly k, and one past a tile; an unaligned
+    # view of a longer stream takes the byte loads.
+    full = torch.from_numpy(stream(max(16, -(-(n + 3) // 16) * 16), n + k)).to(cuda_device)
+    for b in (full[:n], full[3 : n + 3]):
+        got, ref = stream_kernel_and_plain(b, n, k, True)
+        for g, r in zip(got, ref, strict=True):
+            assert torch.equal(g, r)
+        assert int((got[-1] != -1).sum()) <= max(0, n - k + 1)
+
+
+@pytest.mark.cuda
+def test_stream_kernel_all_t_16mer(cuda_device):
+    # k=16: the all-T window has lo == 0xFFFFFFFF and is valid (hi == 0);
+    # canonical folds it onto all-A.
+    b = torch.full((100,), 3, dtype=torch.uint8, device=cuda_device)
+    hi, lo = sparse_ops.encode_words(b, 100, 16, False)
+    assert int((lo[:85] == -1).sum()) == 85 and int((hi[:85] == 0).sum()) == 85
+    assert int((hi[85:] == -1).sum()) == 15
+    hi, lo = sparse_ops.encode_words(b, 100, 16, True)
+    assert int((lo[:85] == 0).sum()) == 85
+
+
+@pytest.mark.cuda
+def test_stream_kernel_refuses_bad_input(cuda_device):
+    b = torch.zeros(64, dtype=torch.uint8, device=cuda_device)
+    launches = encode_cuda.STREAM_LAUNCHES
+    for bad in (b.to(torch.int32), b[::2], b[:0], b.reshape(8, 8)):
+        with pytest.raises(ValueError):
+            encode_cuda.encode_stream(bad, 64, 21)
+    assert encode_cuda.STREAM_LAUNCHES == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "k,canonical,pack,compact",
+    [(21, False, False, "device"), (21, True, True, "device"), (21, False, False, "auto"),
+     (11, True, False, "device"), (9, False, True, "auto"), (8, False, True, "auto"),
+     (5, True, False, "auto"), (3, False, True, "auto")],
+)
+def test_streaming_counter_on_card_equals_cpu(cuda_device, tmp_path, k, canonical, pack, compact):
+    # The streaming counter end to end on the card against its CPU route,
+    # over several batches, with a checkpoint every two batches.
+    from dna_kmeres_parallel_tpu_torch import KmerConfig
+    from dna_kmeres_parallel_tpu_torch.models.pipeline import StreamingCounter
+
+    rng = np.random.default_rng(k)
+    path = tmp_path / "s.fasta"
+    with open(path, "w") as f:
+        for i, n in enumerate((5000, 3, 12000, 700, 9000)):
+            s = "".join(rng.choice(list("ACGTN"), size=n, p=[0.24] * 4 + [0.04]))
+            f.write(f">r{i}\n{s}\n")
+    cfg = KmerConfig(k=k, canonical=canonical, pack_input=pack, compact=compact,
+                     batch_bases=2048)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        sc = StreamingCounter(cfg, device=dev, checkpoint_path=str(tmp_path / f"{dev}.npz"),
+                              checkpoint_every_bases=4096)
+        out[dev] = sc.run(str(path))
+        assert sc.metrics.counters["checkpoints"] >= 5
+    if hasattr(out["cpu"], "hist"):
+        assert np.array_equal(out["cuda"].hist, out["cpu"].hist)
+    else:
+        assert np.array_equal(out["cuda"].codes, out["cpu"].codes)
+        assert np.array_equal(out["cuda"].counts, out["cpu"].counts)
+
+
+@pytest.mark.cuda
+def test_streaming_counter_trace_shows_the_kernel(cuda_device, tmp_path):
+    # trace_dir: the torch.profiler trace holds K9's launches on the card.
+    from dna_kmeres_parallel_tpu_torch import KmerConfig
+    from dna_kmeres_parallel_tpu_torch.models.pipeline import StreamingCounter
+
+    path = tmp_path / "t.fasta"
+    path.write_text(">r\n" + "ACGTTGCAAC" * 3000 + "\n")
+    cfg = KmerConfig(k=21, pack_input=False, compact="device", batch_bases=4096)
+    sc = StreamingCounter(cfg, device="cuda", trace_dir=str(tmp_path / "trace"))
+    res = sc.run(str(path))
+    assert res.total_kmers == 30000 - 20
+    assert "encode_stream_kernel" in (tmp_path / "trace" / "trace.json").read_text()

@@ -48,12 +48,27 @@ dense = {
 }
 dist = port.distance_sequences(seqs, k=3, device="cpu")
 io.write_distances_csv(sys.argv[2], dist.packed)
+
+# The streaming counter (its metrics, trace and checkpoint) and K9's
+# plain version, through pack_input=False.
+from dna_kmeres_parallel_tpu_torch.models.pipeline import StreamingCounter
+
+fasta_path, ckpt, trace_dir = sys.argv[3:6]
+streamed = {}
+for k, kw in ((5, {}), (21, {"pack_input": False, "compact": "device"}),
+              (21, {"compact": "host"}), (21, {"compact": "auto"})):
+    sc = StreamingCounter(port.KmerConfig(k=k, batch_bases=128, **kw), device="cpu",
+                          checkpoint_path=ckpt, trace_dir=trace_dir)
+    streamed[f"{k} {sorted(kw.items())}"] = sc.run(fasta_path).table()
+    assert sc.metrics.counters["checkpoints"] >= 1
+    json.loads(sc.metrics.json())
 banned = [
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "dna_kmeres_parallel_tpu")
 ]
 assert not banned, banned
-print(json.dumps({"table": res.table(), "dense": dense, "bits": dist.packed.view("u4").tolist()}))
+print(json.dumps({"table": res.table(), "dense": dense, "streamed": streamed,
+                  "bits": dist.packed.view("u4").tolist()}))
 """
 
 SEQS = ["ACGTTGCANNACGTACGTTTTTTTTTTTTTTTTTTTTTTTTGCA" * 7, "GATTACA" * 40, "ACGTAC"]
@@ -66,8 +81,11 @@ def test_port_runs_with_jax_refused(tmp_path):
         [str(REPO)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p]
     )
     csv = tmp_path / "d.csv"
+    fasta_path = tmp_path / "in.fasta"
+    fasta_path.write_text("".join(f">s{i}\n{s}\n" for i, s in enumerate(SEQS)))
+    args = [str(csv), str(fasta_path), str(tmp_path / "c.npz"), str(tmp_path / "trace")]
     proc = subprocess.run(
-        [sys.executable, "-c", _NO_JAX_RUN, json.dumps(SEQS), str(csv)],
+        [sys.executable, "-c", _NO_JAX_RUN, json.dumps(SEQS), *args],
         capture_output=True, text=True, timeout=300, env=env, cwd=str(REPO),
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -75,6 +93,10 @@ def test_port_runs_with_jax_refused(tmp_path):
     assert out["table"] == oracle.count_table_any_k(SEQS, 21)
     for k, table in out["dense"].items():
         assert table == oracle.count_table_any_k(SEQS, int(k)), k
+    assert len(out["streamed"]) == 4
+    for key, table in out["streamed"].items():
+        assert table == oracle.count_table_any_k(SEQS, int(key.split()[0])), key
+    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
     want = oracle.distance_matrix_packed(SEQS, 3)
     assert out["bits"] == want.view(np.uint32).tolist()
     assert csv.read_bytes() == "".join("%f\n" % v for v in want).encode()

@@ -75,11 +75,80 @@ def test_count_sequences_short_and_empty_streams():
 
 
 @pytest.mark.parametrize(
-    "kw", [{"device_sort": True}, {"compact": "host"}, {"compact": "device-rle"}]
+    "kw", [{"device_sort": True}, {"compact": "device-super"}, {"compact": "device-rle"}]
 )
-def test_unported_routes_raise(kw):
+def test_unported_routes_raise(tmp_path, kw):
+    # The engine refuses the device-sort route; the compact modes belong to
+    # the streaming counter, which refuses the unported ones.
+    from dna_kmeres_parallel_tpu_torch.models.pipeline import StreamingCounter
+
+    cfg = port.KmerConfig(k=21, **kw)
+    path = tmp_path / "in.fasta"
+    fasta.write_fasta(path, [(">r", "ACGT" * 30)])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SparseKmerEngine(KmerConfig(k=21, **kw), device="cpu")
+        StreamingCounter(cfg, device="cpu").run(str(path))
+    if "device_sort" in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            SparseKmerEngine(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("compact", ["auto", "device", "host", "device-rle", "device-super"])
+def test_engine_ignores_compact(tmp_path, compact):
+    # compact belongs to the streaming counter: the one-shot engine counts
+    # the same table whatever it says, as the JAX engine does.
+    path = tmp_path / "in.fasta"
+    datagen.random_fasta(str(path), 4, (300, 700), seed=3, invalid_frac=0.02)
+    got = port.count_file(str(path), k=21, compact=compact, device="cpu", batch_bases=512)
+    ref = JaxSparseKmerEngine(KmerConfig(k=21, compact=compact, batch_bases=512)).count_file(
+        str(path)
+    )
+    assert np.array_equal(got.codes, ref.codes) and np.array_equal(got.counts, ref.counts)
+
+
+@pytest.fixture
+def encoder_calls(monkeypatch):
+    """Count the calls of the two encode entries of ``ops/sparse``: the u8
+    stream's (K9) and the planes' (K1)."""
+    from dna_kmeres_parallel_tpu_torch.ops import sparse as sparse_ops
+
+    calls = {"encode_words": 0, "encode_words_planes": 0}
+    for name in calls:
+        real = getattr(sparse_ops, name)
+
+        def counted(*a, _name=name, _real=real, **kw):
+            calls[_name] += 1
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(sparse_ops, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("pack_input", [True, False])
+@pytest.mark.parametrize("k,canonical", [(21, False), (13, True), (31, True)])
+def test_pack_input_picks_the_encoder(monkeypatch, encoder_calls, k, canonical, pack_input):
+    # pack_input=False ships the padded u8 batch and encodes it with K9, as
+    # the JAX engine does; pack_input=True ships planes to K1.
+    monkeypatch.setenv("KMER_TPU_PALLAS_INTERPRET", "1")
+    seqs = seqs_for(k)
+    cfg = KmerConfig(k=k, canonical=canonical, batch_bases=2048, pack_input=pack_input)
+    got = SparseKmerEngine(cfg, device="cpu").count_sequences(seqs)
+    ref = JaxSparseKmerEngine(cfg).count_sequences(seqs)
+    assert np.array_equal(got.codes, ref.codes) and np.array_equal(got.counts, ref.counts)
+    used = "encode_words_planes" if pack_input else "encode_words"
+    assert encoder_calls == {**dict.fromkeys(encoder_calls, 0), used: 3}
+
+
+@pytest.mark.parametrize("pack_input", [True, False])
+def test_dense_k10_via_sparse_picks_the_encoder(encoder_calls, pack_input):
+    # k = 9..12 count through the sparse engine: with pack_input=False
+    # that is K9 too.
+    seqs = seqs_for(10)
+    res = port.count_sequences(seqs, k=10, device="cpu", pack_input=pack_input,
+                               batch_bases=2048)
+    want = sum(oracle.count_vector(s, 10).astype(np.int64) for s in seqs)
+    assert np.array_equal(res.hist, want)
+    used = "encode_words_planes" if pack_input else "encode_words"
+    assert encoder_calls == {**dict.fromkeys(encoder_calls, 0), used: 3}
 
 
 def test_merge_ladder_sums_counts_across_runs():
