@@ -52,7 +52,20 @@ exits nonzero:
    ``torch.minimum(...).sum``, a NumPy float32 finish): counts and
    min-sums exactly, distances bit for bit, sampled CSV lines byte for
    byte. Every kernel's launch count is checked against what the run
-   implies.
+   implies;
+7. the bucketed exchange (BASELINE config 5): K1m (K1 with its minimizer
+   plane), K10 (owner segments) and P1 (the row roll) against their plain
+   versions on edge cases, then timed at the config-5 shapes (one 64 Mbase
+   shard at k=31, m=7; K10 over [32768, 2048] x 2 planes at D=4; P1 at
+   [32768, 2048]); then ``count_bucket_auto`` on the main path's FASTA
+   (parsed by the port's native parser) on a local mesh of 4 shards on the
+   card: k=31 with minimizer owners (config 5), the same canonical, and
+   prefix owners, each against ``reference_table``, with its launches and
+   phase split, and the row route timed against the global sort at one
+   shard; then, on the first 16 Mbase, the global route, the aggregated and
+   super-k-mer exchanges, k=21, a mesh of 5, a homopolymer-rich stream
+   on which auto falls back to the aggregated exchange, and a 1-rank NCCL
+   process group, each against its reference.
 
 The script imports the port and nothing of JAX or of the JAX package.
 
@@ -136,6 +149,20 @@ STREAM_BATCH_BASES = None
 STREAM_CKPT_BASES = 64 << 20
 #: the streaming run whose launches the kernels line reports for K9
 STREAM_MAIN = "StreamingCounter(k=21, compact=device, pack_input=False)"
+#: K1m's check: every m of {7, 11, 15} below k, for k in {17, 21, 31}
+MIN_CASES = [(k, m) for k in (17, 21, 31) for m in (7, 11, 15) if m < k]
+#: the bucketed path (config 5): shards on the card, k, minimizer length
+BUCKET_D = 4
+BUCKET_K = 31
+BUCKET_M = 7
+#: the bucketed path's smaller runs: the first bases of the main FASTA
+BUCKET_SMALL_BASES = 16 << 20
+#: K10's and P1's timed shape: the row route's rows of one 64 Mbase shard
+SEG_ROWS = 32768
+ROW_W = 2048
+#: the config-5 run, whose launches the kernels line reports for K1m, K10
+#: and P1
+BUCKET_MAIN = f"count_bucket_auto(k={BUCKET_K}, minimizer, D={BUCKET_D})"
 
 
 def log(msg: str) -> None:
@@ -771,6 +798,265 @@ def phase_stream_path(records, path: Path, dev, card: str, refs: dict | None = N
     return launches
 
 
+def seg_rows(n_rows: int, D: int, seed: int, dev):
+    """Row-sorted int32 planes [n_rows, ROW_W] (two) grouped by a seeded
+    owner, and their starts [n_rows, D+1], on ``dev``: row 0 one owner for
+    the whole row (cut at any row_cap below ROW_W), row 1 all sentinels
+    (every segment empty), and no owner in every seventh column."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    owner = torch.randint(0, D, (n_rows, ROW_W), generator=g)
+    owner[0] = D - 1
+    owner[1] = D
+    owner[2:, ::7] = D
+    words = torch.randint(-(2**31), 2**31 - 1, (2, n_rows, ROW_W), generator=g,
+                          dtype=torch.int64).to(torch.int32)
+    key, order = torch.sort(owner.to(dev), dim=1)
+    planes = tuple(w.to(dev).gather(1, order).contiguous() for w in words)
+    th = torch.arange(D + 1, device=dev).expand(n_rows, D + 1).contiguous()
+    return planes, torch.searchsorted(key, th, out_int32=True)
+
+
+def phase_bucket_kernels(dev, card: str, shard_bases: int) -> dict:
+    """K1m, K10 and P1 against their plain versions, element for element,
+    then each timed at the config-5 shapes beside its plain version.
+    Returns each kernel's record."""
+    import numpy as np
+    import torch
+
+    from dna_kmeres_parallel_tpu_torch.models.engine import stage_batch_planes
+    from dna_kmeres_parallel_tpu_torch.ops import encode_cuda, sort_cuda
+    from dna_kmeres_parallel_tpu_torch.parallel import bucketed
+
+    worst = dict.fromkeys(("encode_packed_minimizer", "owner_segments", "row_roll"), 0)
+
+    def check(name, got, ref, what):
+        torch.cuda.synchronize()
+        err = max_abs_err(got, ref)
+        worst[name] = max(worst[name], err)
+        if err:
+            raise AssertionError(f"{name} disagrees with plain at {what}")
+
+    rng = np.random.default_rng(6)
+    planes = stage_batch_planes(check_stream(rng, CHECK_BASES), dev)
+    owns = (0, 1, CHECK_BASES // 2 + 5, CHECK_BASES)
+    for k, m in MIN_CASES:
+        for canonical in (False, True):
+            for n_own in owns:
+                what = f"k={k} m={m} canonical={canonical} n_own={n_own}"
+                got = encode_cuda.encode_packed(*planes, n_own, k, canonical, minimizer_m=m)
+                check("encode_packed_minimizer", got, encode_cuda.encode_packed_reference(
+                    *planes, n_own, k, canonical, minimizer_m=m), what)
+                check("encode_packed_minimizer", got[:2],
+                      encode_cuda.encode_packed(*planes, n_own, k, canonical),
+                      what + ": words with the plane against K1's without it")
+            n_valid = int((got[0] != -1).sum())
+        log(f"kernel check encode_packed_minimizer k={k} m={m}: {CHECK_BASES} windows, "
+            f"n_own in {owns}, canonical and not: equal to plain, words equal K1's; "
+            f"{n_valid} valid windows at full n_own")
+
+    for D in (1, 4, 5, 8):
+        planes2, starts = seg_rows(333, D, D, dev)
+        for canonical in (False, True):
+            row_cap = bucketed.row_capacity(ROW_W, D, canonical)
+            for n_planes in (1, 2):
+                what = f"D={D} row_cap={row_cap} planes={n_planes}"
+                got = sort_cuda.extract_owner_segments(planes2[:n_planes], starts, row_cap, D)
+                check("owner_segments", got, sort_cuda.owner_segments_reference(
+                    planes2[:n_planes], starts, row_cap, D), what)
+        lens = (starts[:, 1:] - starts[:, :-1]).cpu()
+        log(f"kernel check owner_segments D={D}: [333, {ROW_W}] rows, 1 and 2 planes, "
+            f"row_cap at 2x and 4x: equal to plain; {int((lens == 0).sum())} empty "
+            f"segments, longest {int(lens.max())}")
+
+    x = torch.arange(8 * 256, dtype=torch.int32, device=dev).reshape(8, 256)
+    s = torch.arange(8, dtype=torch.int32, device=dev) * 3 + 1
+    want = np.stack([np.roll(np.arange(8 * 256).reshape(8, 256)[r], -(3 * r + 1))
+                     for r in range(8)])
+    check("row_roll", (sort_cuda.row_roll(x, s),), (torch.from_numpy(want).to(torch.int32)
+                                                     .to(dev),), "the probe's [8, 256] tile")
+    g = torch.Generator().manual_seed(9)
+    xr = torch.randint(-(2**31), 2**31 - 1, (SEG_ROWS, ROW_W), generator=g,
+                       dtype=torch.int64).to(torch.int32).to(dev)
+    sr = torch.randint(-3 * ROW_W, 3 * ROW_W, (SEG_ROWS,), generator=g).to(torch.int32).to(dev)
+    check("row_roll", (sort_cuda.row_roll(xr, sr),), (sort_cuda.row_roll_reference(xr, sr),),
+          f"[{SEG_ROWS}, {ROW_W}]")
+    log(f"kernel check row_roll: the probe's [8, 256] tile equals np.roll, [{SEG_ROWS}, "
+        f"{ROW_W}] with shifts in [-{3 * ROW_W}, {3 * ROW_W}) equals plain")
+
+    rec = {}
+    # K1m at one config-5 shard: 64 Mbase owned + a (k-1) halo, in planes.
+    k, m, T = BUCKET_K, BUCKET_M, -(-(shard_bases + BUCKET_K - 1) // 16) * 16
+    planes = stage_batch_planes(check_stream(rng, T), dev)
+    check("encode_packed_minimizer",
+          encode_cuda.encode_packed(*planes, shard_bases, k, False, minimizer_m=m),
+          encode_cuda.encode_packed_reference(*planes, shard_bases, k, False, minimizer_m=m),
+          f"T={T}")
+    rec["encode_packed_minimizer"] = dict(
+        ms=time_ms(lambda: encode_cuda.encode_packed(*planes, shard_bases, k, False,
+                                                     minimizer_m=m), 20),
+        plain_ms=time_ms(lambda: encode_cuda.encode_packed_reference(
+            *planes, shard_bases, k, False, minimizer_m=m), 3),
+        # planes read (0.5 B per base); lo, hi and the minimizer stored
+        bound=bound_ms(T // 2 + 12 * T, 0),
+        shape=f"k={k} m={m} T={T}",
+    )
+    del planes
+    torch.cuda.empty_cache()
+    D = BUCKET_D
+    row_cap = bucketed.row_capacity(ROW_W, D, False)
+    planes2, starts = seg_rows(SEG_ROWS, D, 11, dev)
+    check("owner_segments", sort_cuda.extract_owner_segments(planes2, starts, row_cap, D),
+          sort_cuda.owner_segments_reference(planes2, starts, row_cap, D),
+          f"[{SEG_ROWS}, {ROW_W}] D={D}")
+    rec["owner_segments"] = dict(
+        ms=time_ms(lambda: sort_cuda.extract_owner_segments(planes2, starts, row_cap, D), 20),
+        plain_ms=time_ms(lambda: sort_cuda.owner_segments_reference(planes2, starts,
+                                                                    row_cap, D), 3),
+        # both planes read, both planes' send slots written, the starts read
+        bound=bound_ms(2 * 4 * SEG_ROWS * (ROW_W + D * row_cap) + 4 * SEG_ROWS * (D + 1), 0),
+        shape=f"[{SEG_ROWS}, {ROW_W}] x 2 planes, D={D}, row_cap={row_cap}",
+    )
+    del planes2, starts
+    rec["row_roll"] = dict(
+        ms=time_ms(lambda: sort_cuda.row_roll(xr, sr), 20),
+        plain_ms=time_ms(lambda: sort_cuda.row_roll_reference(xr, sr), 3),
+        bound=bound_ms(2 * 4 * SEG_ROWS * ROW_W + 4 * SEG_ROWS, 0),
+        shape=f"[{SEG_ROWS}, {ROW_W}]",
+    )
+    del xr, sr
+    torch.cuda.empty_cache()
+    for name, r in rec.items():
+        r["max_abs_err"] = worst[name]
+        r["library_ms"] = None
+        log(f"kernel time {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), "
+            f"max_abs_err={worst[name]} [{card}]")
+    return rec
+
+
+def phase_bucket_path(records, path: Path, dev, card: str, refs: dict | None = None) -> dict:
+    """The bucketed exchange on the main path's FASTA: config 5 and its
+    variants at full size, then the smaller runs (see the module
+    docstring), each table against ``reference_table`` and each run's
+    launches against its route. Returns each run's launch counts."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from dna_kmeres_parallel_tpu_torch import native
+    from dna_kmeres_parallel_tpu_torch.ops import sort_cuda
+    from dna_kmeres_parallel_tpu_torch.parallel import bucketed
+    from dna_kmeres_parallel_tpu_torch.parallel.mesh import LocalMesh, ProcessGroupMesh
+    from dna_kmeres_parallel_tpu_torch.parallel.sharded_sparse import stage_shard_planes
+
+    stream = records[0]
+    refs = {} if refs is None else refs
+    none = dict.fromkeys(read_launches(), 0)
+    launches = {}
+    k, m, D = BUCKET_K, BUCKET_M, BUCKET_D
+
+    t = time.perf_counter()
+    flat = native.parse_fasta_native(str(path)).stream
+    parse_s = time.perf_counter() - t
+    if not np.array_equal(flat, stream):
+        raise AssertionError("the parsed stream differs from the generated records")
+    log(f"bucketed path: parsed {flat.size} stream bases in {parse_s:.3f} s [{card}]")
+
+    def run(name, data, ref_key, k, canonical, mesh, want, parse=None, **kw):
+        ref = cached(refs, ref_key, lambda: reference_table(data, k, canonical, dev))
+        torch.cuda.empty_cache()
+        phases = {} if parse is None else {"parse": parse}
+        reset_launches()
+        t = time.perf_counter()
+        table = bucketed.count_bucket_auto(data, k, canonical, mesh, phases=phases, **kw)
+        wall = time.perf_counter() - t + (parse or 0.0)
+        launches[name] = expect_launches(name, {**none, **want})
+        if not (np.array_equal(table[0], ref[0]) and np.array_equal(table[1], ref[1])):
+            raise AssertionError(f"{name}: table differs from the reference")
+        torch.cuda.empty_cache()
+        split = " ".join(f"{p}={s:.3f}" for p, s in phases.items())
+        fired = {n: c for n, c in launches[name].items() if c}
+        log(f"{name}: {table[0].size} distinct, {int(table[1].sum())} k-mers, equal to the "
+            f"reference; wall {wall:.3f} s{' with the parse' if parse else ''}, "
+            f"{data.size / wall / 1e9:.4f} Gbase/s; phases s: {split or 'none (not raw)'}; "
+            f"launches {fired or 'none'} [{card}]")
+        return table
+
+    mesh = LocalMesh(D, dev)
+    # The config-5 run probes the card with P1 before its first K10 launch,
+    # as a fresh process does.
+    sort_cuda._PROBED.discard(str(dev))
+    run(BUCKET_MAIN, flat, ("table", k, False), k, False, mesh,
+        {"encode_packed_minimizer": D, "owner_segments": D, "row_roll": 1}, parse_s,
+        owner_mode="minimizer", minimizer_m=m)
+    run(f"count_bucket_auto(k={k}, canonical, minimizer, D={D})", flat, ("table", k, True), k,
+        True, mesh, {"encode_packed_minimizer": D, "owner_segments": D}, parse_s,
+        owner_mode="minimizer", minimizer_m=m)
+    run(f"count_bucket_auto(k={k}, prefix, D={D})", flat, ("table", k, False), k, False, mesh,
+        {"encode_packed": D, "owner_segments": D}, parse_s)
+
+    # The row route against the global sort, at one config-5 shard.
+    shards, n_own = bucketed.shard_stream_with_halo(flat, k, mesh)
+    planes = stage_shard_planes(shards[:1])
+    inp = tuple(torch.from_numpy(p[0].view(np.int32)).to(dev) for p in planes)
+    n_windows = planes[0].shape[1] * 16 - k + 1
+    del shards, planes
+    ms = {}
+    for row in (True, False, False, True):
+        fn = bucketed.raw_shard_fn(n_windows, k, False, D, "minimizer", m, row_partition=row)
+        if dev.type == "cuda":
+            ms.setdefault(row, []).append(time_ms(lambda: fn(inp, int(n_own[0])), 3))
+        else:  # a rehearsal: the host clock
+            t = time.perf_counter()
+            fn(inp, int(n_own[0]))
+            ms.setdefault(row, []).append((time.perf_counter() - t) * 1e3)
+    del inp
+    torch.cuda.empty_cache()
+    log(f"route timing, one shard of config 5 ({n_windows} windows, k={k}, m={m}, D={D}): "
+        f"row route (K1m, row sorts, K10) {ms[True][0]:.3f} / {ms[True][1]:.3f} ms, global "
+        f"route (K1m, one sort, slot gather) {ms[False][0]:.3f} / {ms[False][1]:.3f} ms "
+        f"[{card}]")
+
+    small = flat[:BUCKET_SMALL_BASES]
+    tag = f"{BUCKET_SMALL_BASES / 2**20:g} Mbase"
+    mins = {"encode_packed_minimizer": D}
+    local = run(f"{tag}: global route (row_partition=False)", small, ("small", k, False), k,
+                False, mesh, mins, owner_mode="minimizer", row_partition=False)
+    run(f"{tag}: exchange=agg", small, ("small", k, False), k, False, mesh, mins,
+        owner_mode="minimizer", exchange="agg")
+    run(f"{tag}: exchange=super", small, ("small", k, False), k, False, mesh, {},
+        minimizer_m=m, exchange="super")
+    run(f"{tag}: k=21, minimizer", small, ("small", 21, False), 21, False, mesh,
+        {**mins, "owner_segments": D}, owner_mode="minimizer")
+    run(f"{tag}: D=5", small, ("small", k, False), k, False, LocalMesh(5, dev),
+        {"encode_packed_minimizer": 5, "owner_segments": 5}, owner_mode="minimizer")
+    # Shards 1 and 2 all A: one minimizer, one owner. The row route and the
+    # global route overflow, and auto counts through the aggregated
+    # exchange: three K1m launches per shard, K10 on the row route only.
+    skew = small.copy()
+    skew[small.size // 4 : 3 * small.size // 4] = 0
+    run(f"{tag}, half of it one homopolymer: auto falls back to agg", skew, ("skew", k, False),
+        k, False, mesh, {"encode_packed_minimizer": 3 * D, "owner_segments": D},
+        owner_mode="minimizer")
+    with tempfile.TemporaryDirectory(prefix="kmer_pg_") as tmp:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group(backend, init_method=f"file://{tmp}/pg", rank=0, world_size=1)
+        try:
+            pg = run(f"{tag}: a 1-rank {backend} process group", small, ("small", k, False), k,
+                     False, ProcessGroupMesh(dev),
+                     {"encode_packed_minimizer": 1, "owner_segments": 1},
+                     owner_mode="minimizer")
+        finally:
+            dist.destroy_process_group()
+    if not (np.array_equal(pg[0], local[0]) and np.array_equal(pg[1], local[1])):
+        raise AssertionError("the process group's table differs from the local mesh's")
+    return launches
+
+
 #: every kernel's launch counter: (module, attribute) by kernel name
 COUNTERS = {
     "encode_packed": ("encode_cuda", "LAUNCHES"),
@@ -782,6 +1068,9 @@ COUNTERS = {
     "hist_u8": ("histogram_cuda", "U8_LAUNCHES"),
     "hist_u8_small": ("histogram_cuda", "SMALL_LAUNCHES"),
     "hist_u8_any": ("histogram_cuda", "ANY_LAUNCHES"),
+    "encode_packed_minimizer": ("encode_cuda", "MIN_LAUNCHES"),
+    "owner_segments": ("sort_cuda", "OWNER_LAUNCHES"),
+    "row_roll": ("sort_cuda", "ROLL_LAUNCHES"),
 }
 
 
@@ -1198,6 +1487,8 @@ def main() -> int:
         launches = phase_main_path(records, path, dev, card, refs)
         dense_launches = phase_dense_path(records, path, dev, card, refs)
         stream_launches = phase_stream_path(records, path, dev, card, refs)
+        bucket = phase_bucket_kernels(dev, card, -(-stream.size // BUCKET_D))
+        bucket_launches = phase_bucket_path(records, path, dev, card, refs)
     finally:
         tmp.cleanup()
     del records, stream, refs
@@ -1277,6 +1568,26 @@ def main() -> int:
             "source": "dna_kmeres_parallel_tpu_torch/csrc/histogram.cu",
             "replaces": f"dna_kmeres_parallel_tpu/ops/{replaces}",
             "launches": dense_launches[DENSE_MAIN[name]][name],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1],
+            "library_ms": r["library_ms"],
+        })
+    for name, src, replaces in (
+        ("encode_packed_minimizer", "encode_packed.cu",
+         "dna_kmeres_parallel_tpu/ops/encode_pallas.py:490"),
+        ("owner_segments", "owner_segments.cu", "dna_kmeres_parallel_tpu/ops/sort_pallas.py:143"),
+        ("row_roll", "owner_segments.cu", "scripts/dynroll_probe.py:37"),
+    ):
+        r = bucket[name]
+        kernels_json.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"dna_kmeres_parallel_tpu_torch/csrc/{src}",
+            "replaces": replaces,
+            "launches": bucket_launches[BUCKET_MAIN][name],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],

@@ -15,10 +15,14 @@ easy to find)
                product and the distance finish (``distance``); the
                hand-written CUDA kernels' wrappers beside their plain
                PyTorch versions (``encode_cuda``, ``histogram_cuda``,
-               ``distance_cuda``); the kernel build (``kernels``) and
-               device resolution (``runtime``).
+               ``distance_cuda``, ``sort_cuda``); the kernel build
+               (``kernels``) and device resolution (``runtime``).
 - ``csrc/``    CUDA C++ sources for Hopper (``sm_90a``), built with nvcc at
                first use.
+- ``parallel/`` meshes (``mesh``: D shards on one device, or one per rank
+               of a ``torch.distributed`` group), the bucket-sharded count
+               (``bucketed``) and its shards' staging
+               (``sharded_sparse``).
 - ``models/``  batch staging and the dense counting and distance engine
                (``engine``),
                the sparse counting engine (``sparse_engine``), the
@@ -33,7 +37,8 @@ easy to find)
 What is ported: exact k-mer counting, k = 1..31, canonical or not, as a
 dense histogram where 4^k <= dense_bins_limit (k <= 12 by default) and as
 a sorted sparse table above, in one shot or streamed with checkpoint and
-resume (``models.pipeline.StreamingCounter``); dense pairwise k-mer
+resume (``models.pipeline.StreamingCounter``), and bucket-sharded over a
+mesh (``parallel.bucketed.count_bucket_auto``); dense pairwise k-mer
 distances, k <= 8, in memory or streamed to the reference's CSV. Every public entry takes an explicit ``device``:
 ``"cuda"`` runs the hand-written kernels and raises where CUDA is missing;
 ``"cpu"`` runs the kernels' plain PyTorch versions.

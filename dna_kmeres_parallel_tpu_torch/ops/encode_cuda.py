@@ -8,7 +8,9 @@ kernel
 the window that starts at base p), where the TPU kernel emits a
 residue-permuted order; the consumers only read the multiset of valid
 codes, and natural order lets the kernel and its plain version be
-compared slot by slot.
+compared slot by slot. With ``minimizer_m`` it also emits the TPU
+kernel's minimizer plane (K1m): each window's smallest forward m-mer
+code, in the same order, INT32_MAX at invalid windows.
 
 K9, the u8-stream encoder (``csrc/encode_stream.cu``), replaces
 ``dna_kmeres_parallel_tpu/ops/encode_pallas.py::rolling_codes_split_pallas``:
@@ -36,6 +38,11 @@ from dna_kmeres_parallel_tpu_torch.ops import sparse as sparse_ops
 LAUNCHES = 0
 #: K9:
 STREAM_LAUNCHES = 0
+#: K1 with its minimizer plane (K1m), counted apart from K1:
+MIN_LAUNCHES = 0
+
+#: the minimizer plane's value at an invalid window
+MIN_SENTINEL = 2**31 - 1
 
 
 def check_planes(words_le: torch.Tensor, inval_be: torch.Tensor, k: int):
@@ -55,18 +62,30 @@ def check_planes(words_le: torch.Tensor, inval_be: torch.Tensor, k: int):
         )
 
 
+def check_minimizer(k: int, minimizer_m: int | None) -> None:
+    """The JAX kernel's check on m: 1 <= m < min(k, 16)."""
+    if minimizer_m is not None and not (1 <= minimizer_m < min(k, 16)):
+        raise ValueError(
+            f"minimizer_m must satisfy 1 <= m < min(k, 16), got {minimizer_m} (k={k})"
+        )
+
+
 def encode_packed(
     words_le: torch.Tensor,
     inval_be: torch.Tensor,
     n_own: int,
     k: int,
     canonical: bool = False,
-) -> tuple[torch.Tensor | None, torch.Tensor]:
+    minimizer_m: int | None = None,
+):
     """Launch the CUDA kernel: planes [Tw] on the card -> (hi, lo) window
-    planes [16*Tw] on the card (hi is None for k <= 15). Raises on
-    anything the kernel does not take, and if the launch fails."""
-    global LAUNCHES
+    planes [16*Tw] on the card (hi is None for k <= 15), or (hi, lo, mins)
+    with ``minimizer_m``. Raises on anything the kernel does not take, and
+    if the launch fails. Counts a launch in LAUNCHES, or in MIN_LAUNCHES
+    with the minimizer plane."""
+    global LAUNCHES, MIN_LAUNCHES
     check_planes(words_le, inval_be, k)
+    check_minimizer(k, minimizer_m)
     if words_le.device.type != "cuda":
         raise ValueError(f"encode_packed needs CUDA tensors, got {words_le.device}")
     if not (words_le.is_contiguous() and inval_be.is_contiguous()):
@@ -83,6 +102,7 @@ def encode_packed(
     hi_dt = sparse_ops.hi_dtype(k)
     hi = None if hi_dt is None else torch.empty(T, dtype=hi_dt, device=dev)
     hi_bytes = 0 if hi_dt is None else hi_dt.itemsize
+    mins = None if minimizer_m is None else torch.empty(T, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.kp_encode_packed(
             words_le.data_ptr(),
@@ -94,12 +114,17 @@ def encode_packed(
             lo.data_ptr(),
             None if hi is None else hi.data_ptr(),
             hi_bytes,
+            minimizer_m or 0,
+            None if mins is None else mins.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"kp_encode_packed launch failed: cudaError_t {rc}")
-    LAUNCHES += 1
-    return hi, lo
+    if mins is None:
+        LAUNCHES += 1
+        return hi, lo
+    MIN_LAUNCHES += 1
+    return hi, lo, mins
 
 
 def _to_i32(x: torch.Tensor) -> torch.Tensor:
@@ -131,21 +156,45 @@ def _encode_bases_reference(
     return hi_out, _to_i32(lo_full)
 
 
+def minimizers_reference(bases: torch.Tensor, hi, lo, k: int, m: int) -> torch.Tensor:
+    """The minimizer plane of a base stream [T] whose window planes are
+    (hi, lo): the min of the k-m+1 forward m-mer codes of each window
+    (``encode.rolling_codes``), INT32_MAX where the window is invalid or
+    unowned (its words are sentinels)."""
+    T = bases.shape[0]
+    mins = torch.full((T,), MIN_SENTINEL, dtype=torch.int32, device=bases.device)
+    n = T - k + 1
+    if n > 0:
+        mcodes, _ = encode_ops.rolling_codes(bases, m)
+        win = mcodes[:n].clone()
+        for j in range(1, k - m + 1):
+            win = torch.minimum(win, mcodes[j : j + n])
+        valid = (lo if hi is None else hi)[:n] != -1
+        mins[:n] = torch.where(valid, win, MIN_SENTINEL)
+    return mins
+
+
 def encode_packed_reference(
     words_le: torch.Tensor,
     inval_be: torch.Tensor,
     n_own: int,
     k: int,
     canonical: bool = False,
-) -> tuple[torch.Tensor | None, torch.Tensor]:
+    minimizer_m: int | None = None,
+):
     """Plain PyTorch version of :func:`encode_packed`: the same planes in
     the same order, on whatever device the planes lie, in int64 ops.
 
     Unpacks the planes (``encode.planes_to_stream``), then encodes the
-    bases as :func:`encode_stream_reference` does."""
+    bases as :func:`encode_stream_reference` does; with ``minimizer_m``
+    adds :func:`minimizers_reference`'s plane."""
     check_planes(words_le, inval_be, k)
+    check_minimizer(k, minimizer_m)
     bases = encode_ops.planes_to_stream(words_le, inval_be)
-    return _encode_bases_reference(bases, n_own, k, canonical)
+    hi, lo = _encode_bases_reference(bases, n_own, k, canonical)
+    if minimizer_m is None:
+        return hi, lo
+    return hi, lo, minimizers_reference(bases, hi, lo, k, minimizer_m)
 
 
 def check_stream(bases: torch.Tensor, k: int) -> None:

@@ -111,8 +111,12 @@ def load() -> ctypes.CDLL:
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.kp_encode_packed.restype = ci
     lib.kp_encode_packed.argtypes = [
-        vp, vp, ll, ll, ci, ci, vp, vp, ci, vp,
+        vp, vp, ll, ll, ci, ci, vp, vp, ci, ci, vp, vp,
     ]
+    lib.kp_owner_segments.restype = ci
+    lib.kp_owner_segments.argtypes = [vp, vp, vp, ll, ci, ci, ci, vp, vp, vp]
+    lib.kp_row_roll.restype = ci
+    lib.kp_row_roll.argtypes = [vp, vp, ll, ci, vp, vp]
     lib.kp_encode_stream.restype = ci
     lib.kp_encode_stream.argtypes = [vp, ll, ll, ci, ci, vp, vp, ci, vp]
     lib.kp_counts_matrix.restype = ci

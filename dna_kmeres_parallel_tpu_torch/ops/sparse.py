@@ -114,9 +114,11 @@ def encode_words_planes(
     n_own: int,
     k: int,
     canonical: bool = False,
+    minimizer_m: int | None = None,
 ):
     """Staged u32 planes [Tw] -> the adaptive UNSORTED word tuple over the
-    16*Tw window starts, natural order, all-ones sentinels.
+    16*Tw window starts, natural order, all-ones sentinels; with
+    ``minimizer_m``, (word tuple, int32 minimizer plane in the same order).
 
     The planes' device picks the route and nothing else does: on the card
     the hand-written kernel (``encode_cuda.encode_packed``), on the CPU
@@ -124,15 +126,15 @@ def encode_words_planes(
     from dna_kmeres_parallel_tpu_torch.ops import encode_cuda
 
     dev = words_le.device.type
+    args = (words_le, inval_be, n_own, k, canonical, minimizer_m)
     if dev == "cuda":
-        hi, lo = encode_cuda.encode_packed(words_le, inval_be, n_own, k, canonical)
+        out = encode_cuda.encode_packed(*args)
     elif dev == "cpu":
-        hi, lo = encode_cuda.encode_packed_reference(
-            words_le, inval_be, n_own, k, canonical
-        )
+        out = encode_cuda.encode_packed_reference(*args)
     else:
         raise ValueError(f"no encoder for device {words_le.device}")
-    return narrow_words(hi, lo, k)
+    words = narrow_words(out[0], out[1], k)
+    return words if minimizer_m is None else (words, out[2])
 
 
 def encode_words(

@@ -1,7 +1,7 @@
 """``chip_smoke.py``'s own parts, on the CPU: the seeded records, their
 FASTA, the plain reference table the counting path is held against on
-the card, and rehearsals of the dense counting path, the streaming path
-and the distance path at a small size (the kernels' plain versions standing in for the
+the card, and rehearsals of the dense counting path, the streaming path,
+the distance path and the bucketed path at a small size (the kernels' plain versions standing in for the
 kernels, counted as they would be). Exact integers and float32 bits: the tolerance is zero."""
 
 import re
@@ -242,3 +242,60 @@ def test_stream_path_rehearsal(records, tmp_path, monkeypatch, counted_dense_pla
     # densified k=11 table.
     assert set(refs) == {("table", 21, False), ("table", 11, True), ("hist", 8, False)}
     assert not list(tmp_path.glob("*.npz*"))
+
+
+@pytest.fixture
+def counted_bucket_plain_versions(monkeypatch):
+    """Route the bucketed path's kernels to their plain versions on the
+    CPU, each adding to the launch count of the kernel the card would run:
+    K1, or K1m with a minimizer plane, for the planes' encode; K10; P1."""
+    from dna_kmeres_parallel_tpu_torch.ops import encode_cuda, sort_cuda
+
+    plain_encode = encode_cuda.encode_packed_reference
+    plain_segments = sort_cuda.owner_segments_reference
+    plain_roll = sort_cuda.row_roll_reference
+
+    def encode(*a, **kw):
+        if (a[5] if len(a) > 5 else kw.get("minimizer_m")) is None:
+            encode_cuda.LAUNCHES += 1
+        else:
+            encode_cuda.MIN_LAUNCHES += 1
+        return plain_encode(*a, **kw)
+
+    def segments(*a, **kw):
+        sort_cuda.OWNER_LAUNCHES += 1
+        return plain_segments(*a, **kw)
+
+    def roll(*a, **kw):
+        sort_cuda.ROLL_LAUNCHES += 1
+        return plain_roll(*a, **kw)
+
+    monkeypatch.setattr(encode_cuda, "encode_packed_reference", encode)
+    monkeypatch.setattr(sort_cuda, "owner_segments_reference", segments)
+    monkeypatch.setattr(sort_cuda, "row_roll_reference", roll)
+    monkeypatch.setattr(sort_cuda, "_PROBED", set())
+
+
+def test_bucket_path_rehearsal(records, tmp_path, monkeypatch, counted_bucket_plain_versions):
+    # The main path's two records (about 500 kbase) for config 5 and its
+    # variants; the smaller runs on their first 64 kbase; a 1-rank gloo
+    # process group in place of NCCL.
+    monkeypatch.setattr(chip_smoke, "BUCKET_SMALL_BASES", 1 << 16)
+    path = tmp_path / "smoke.fasta"
+    chip_smoke.write_fasta(path, *records)
+    refs: dict = {}
+    launches = chip_smoke.phase_bucket_path(records, path, CPU, "cpu", refs)
+    fired = {name: {k: c for k, c in got.items() if c} for name, got in launches.items()}
+    D = chip_smoke.BUCKET_D
+    names = list(fired)
+    assert len(names) == 10 and names[0] == chip_smoke.BUCKET_MAIN
+    assert fired[names[0]] == {"encode_packed_minimizer": D, "owner_segments": D, "row_roll": 1}
+    assert fired[names[1]] == {"encode_packed_minimizer": D, "owner_segments": D}
+    assert fired[names[2]] == {"encode_packed": D, "owner_segments": D}
+    assert fired[names[3]] == fired[names[4]] == {"encode_packed_minimizer": D}
+    assert fired[names[5]] == {} and "super" in names[5]
+    assert fired[names[7]] == {"encode_packed_minimizer": 5, "owner_segments": 5}
+    assert fired[names[8]] == {"encode_packed_minimizer": 3 * D, "owner_segments": D}
+    assert fired[names[9]] == {"encode_packed_minimizer": 1, "owner_segments": 1}
+    assert set(refs) == {("table", 31, False), ("table", 31, True), ("small", 31, False),
+                         ("small", 21, False), ("skew", 31, False)}

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
-the card: K1 (encode), K2 (counts matrix), K3 and K4 ((min,+) products),
-K5-K8 (dense histograms).
+the card: K1 (encode) and its minimizer plane K1m, K2 (counts matrix), K3
+and K4 ((min,+) products), K5-K8 (dense histograms), K9 (u8 encode), K10
+(owner segments) and P1 (row roll); and the paths that run them.
 Every test here needs an NVIDIA card and skips without one.
 
 The file imports no JAX, so it also runs where JAX is not installed (as on
@@ -404,3 +405,170 @@ def test_streaming_counter_trace_shows_the_kernel(cuda_device, tmp_path):
     res = sc.run(str(path))
     assert res.total_kmers == 30000 - 20
     assert "encode_stream_kernel" in (tmp_path / "trace" / "trace.json").read_text()
+
+
+# ---------------------------------------------------------------------------
+# The bucketed exchange: K1m (K1's minimizer plane), K10, P1, and the path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("canonical", [False, True])
+@pytest.mark.parametrize("k,m", [(13, 7), (17, 7), (17, 11), (17, 15), (21, 7), (21, 11),
+                                 (21, 15), (24, 9), (31, 7), (31, 11), (31, 15)])
+def test_minimizer_kernel_matches_plain_on_card(cuda_device, k, m, canonical):
+    planes = engine.stage_batch_planes(stream(4096, 500 + k), cuda_device)
+    for n_own in (0, 1, 2048, 4096 - 200, 10**9):
+        launches = (encode_cuda.LAUNCHES, encode_cuda.MIN_LAUNCHES)
+        got = encode_cuda.encode_packed(*planes, n_own, k, canonical, minimizer_m=m)
+        assert (encode_cuda.LAUNCHES, encode_cuda.MIN_LAUNCHES) == (launches[0], launches[1] + 1)
+        ref = encode_cuda.encode_packed_reference(*planes, n_own, k, canonical, minimizer_m=m)
+        plain = encode_cuda.encode_packed(*planes, n_own, k, canonical)
+        torch.cuda.synchronize()
+        assert len(got) == 3
+        for g, r in zip(got, ref, strict=True):
+            if r is None:
+                assert g is None
+                continue
+            assert g.device.type == "cuda" and g.dtype == r.dtype and torch.equal(g, r), n_own
+        for g, p in zip(got[:2], plain, strict=True):
+            assert (g is None and p is None) or torch.equal(g, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,m", [(16, 16, 7), (32, 21, 11), (48, 31, 15), (16, 13, 1)])
+def test_minimizer_kernel_edges_on_card(cuda_device, n, k, m):
+    planes = engine.stage_batch_planes(stream(n, n + k), cuda_device)
+    got = encode_cuda.encode_packed(*planes, n, k, True, minimizer_m=m)
+    ref = encode_cuda.encode_packed_reference(*planes, n, k, True, minimizer_m=m)
+    torch.cuda.synchronize()
+    assert torch.equal(got[2], ref[2]) and torch.equal(got[1], ref[1])
+
+
+def sorted_rows_on(dev, n_rows, row_w, D, seed):
+    """Row-sorted int32 planes [n_rows, row_w] (2) grouped by owner and
+    their starts [n_rows, D+1]: row 0 one owner, row 1 all sentinels."""
+    g = torch.Generator().manual_seed(seed)
+    owner = torch.randint(0, D, (n_rows, row_w), generator=g)
+    owner[0] = D - 1
+    owner[1] = D
+    owner[2:, ::7] = D
+    words = torch.randint(-(2**31), 2**31 - 1, (2, n_rows, row_w), generator=g,
+                          dtype=torch.int64).to(torch.int32)
+    key, order = torch.sort(owner, dim=1)
+    planes = tuple(w.gather(1, order).contiguous().to(dev) for w in words)
+    starts = torch.stack([(key < d).sum(1) for d in range(D + 1)], 1).to(torch.int32)
+    return planes, starts.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_planes", [1, 2])
+@pytest.mark.parametrize("D,row_w,row_cap", [(1, 2048, 2048), (4, 2048, 1024), (4, 2048, 2048),
+                                             (5, 2048, 896), (8, 2048, 512), (8, 300, 128)])
+def test_owner_segments_kernel_matches_plain_on_card(cuda_device, D, row_w, row_cap, n_planes):
+    from dna_kmeres_parallel_tpu_torch.ops import sort_cuda
+
+    planes, starts = sorted_rows_on(cuda_device, 333, row_w, D, D * row_cap)
+    planes = planes[:n_planes]
+    launches = sort_cuda.OWNER_LAUNCHES
+    got = sort_cuda.extract_owner_segments(planes, starts, row_cap, D)
+    assert sort_cuda.OWNER_LAUNCHES == launches + 1
+    ref = sort_cuda.owner_segments_reference(planes, starts, row_cap, D)
+    torch.cuda.synchronize()
+    assert len(got) == n_planes
+    for g, r in zip(got, ref, strict=True):
+        assert g.shape == (333, D * row_cap) and torch.equal(g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,W", [(8, 256), (333, 1000), (4096, 2048), (1, 1)])
+def test_row_roll_kernel_matches_plain_on_card(cuda_device, R, W):
+    from dna_kmeres_parallel_tpu_torch.ops import sort_cuda
+
+    g = torch.Generator().manual_seed(R + W)
+    x = torch.randint(-(2**31), 2**31 - 1, (R, W), generator=g, dtype=torch.int64)
+    x = x.to(torch.int32).to(cuda_device)
+    s = torch.randint(-3 * W, 3 * W, (R,), generator=g).to(torch.int32).to(cuda_device)
+    launches = sort_cuda.ROLL_LAUNCHES
+    got = sort_cuda.row_roll(x, s)
+    assert sort_cuda.ROLL_LAUNCHES == launches + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, sort_cuda.row_roll_reference(x, s))
+
+
+def bucket_stream(n: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    b = rng.integers(0, 4, n).astype(np.uint8)
+    b[rng.random(n) < 0.01] = codec.INVALID_BASE
+    b[n // 3 : n // 3 + 50] = codec.INVALID_BASE
+    return b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "k,canonical,owner_mode,exchange,D",
+    [(31, False, "minimizer", "auto", 4), (31, True, "minimizer", "auto", 4),
+     (31, False, "prefix", "raw", 4), (21, False, "prefix", "auto", 5),
+     (16, True, "prefix", "raw", 8), (23, False, "minimizer", "raw", 3),
+     (13, False, "prefix", "raw", 4), (21, True, "minimizer", "agg", 4),
+     (31, False, "minimizer", "super", 4)],
+)
+def test_bucketed_on_card_equals_cpu(cuda_device, k, canonical, owner_mode, exchange, D):
+    from dna_kmeres_parallel_tpu_torch import native
+    from dna_kmeres_parallel_tpu_torch.ops import sort_cuda
+    from dna_kmeres_parallel_tpu_torch.parallel import bucketed
+    from dna_kmeres_parallel_tpu_torch.parallel.mesh import LocalMesh
+
+    flat = bucket_stream(300_000, k * D)
+    want = native.count_sparse_host_native(flat, k, canonical)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        launches = (sort_cuda.OWNER_LAUNCHES, encode_cuda.MIN_LAUNCHES)
+        out[dev] = bucketed.count_bucket_auto(flat, k, canonical, LocalMesh(D, dev),
+                                              owner_mode=owner_mode, exchange=exchange)
+        if dev == "cuda" and exchange in ("auto", "raw"):
+            # No fallback: one K10 launch per shard where the row route
+            # runs, and one K1m per shard in minimizer mode.
+            row = owner_mode == "minimizer" or k <= 15 or bucketed._owner_bits(k, D)[2]
+            assert sort_cuda.OWNER_LAUNCHES == launches[0] + (D if row else 0)
+            mins = D if owner_mode == "minimizer" else 0
+            assert encode_cuda.MIN_LAUNCHES == launches[1] + mins
+    for got in out.values():
+        assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_bucketed_skew_falls_back_on_card(cuda_device):
+    from dna_kmeres_parallel_tpu_torch.ops import sort_cuda
+    from dna_kmeres_parallel_tpu_torch.parallel import bucketed
+    from dna_kmeres_parallel_tpu_torch.parallel.mesh import LocalMesh
+
+    flat = np.zeros(40_000, np.uint8)
+    mesh = LocalMesh(4, cuda_device)
+    with pytest.raises(OverflowError):
+        bucketed.count_bucket_sharded_raw(flat, 21, False, mesh)
+    launches = (encode_cuda.LAUNCHES, sort_cuda.OWNER_LAUNCHES)
+    codes, counts = bucketed.count_bucket_auto(flat, 21, False, mesh)
+    # Row route, global route, then the aggregated exchange.
+    assert (encode_cuda.LAUNCHES - launches[0], sort_cuda.OWNER_LAUNCHES - launches[1]) == (12, 4)
+    assert codes.tolist() == [0] and counts.tolist() == [40_000 - 20]
+
+
+@pytest.mark.cuda
+def test_bucketed_nccl_one_rank_equals_local_mesh(cuda_device, tmp_path):
+    import torch.distributed as dist
+
+    from dna_kmeres_parallel_tpu_torch.parallel import bucketed
+    from dna_kmeres_parallel_tpu_torch.parallel.mesh import LocalMesh, ProcessGroupMesh
+
+    flat = bucket_stream(200_000, 7)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'pg'}", rank=0,
+                            world_size=1)
+    try:
+        got = bucketed.count_bucket_auto(flat, 31, False, ProcessGroupMesh("cuda"),
+                                         owner_mode="minimizer")
+    finally:
+        dist.destroy_process_group()
+    want = bucketed.count_bucket_auto(flat, 31, False, LocalMesh(1, "cuda"),
+                                      owner_mode="minimizer")
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])

@@ -62,13 +62,26 @@ for k, kw in ((5, {}), (21, {"pack_input": False, "compact": "device"}),
     streamed[f"{k} {sorted(kw.items())}"] = sc.run(fasta_path).table()
     assert sc.metrics.counters["checkpoints"] >= 1
     json.loads(sc.metrics.json())
+# The bucketed exchange on a local mesh of 4 CPU shards: the raw exchange
+# with minimizer owners (K1m's, K10's and P1's plain versions), then the
+# aggregated and super-k-mer exchanges.
+from dna_kmeres_parallel_tpu_torch.parallel import bucketed
+from dna_kmeres_parallel_tpu_torch.parallel.mesh import LocalMesh
+from dna_kmeres_parallel_tpu_torch.utils import codec
+
+flat = codec.concat_with_sentinels(seqs)
+bucket = {}
+for name, kw in (("raw", {"owner_mode": "minimizer", "exchange": "raw"}),
+                 ("agg", {"exchange": "agg"}), ("super", {"exchange": "super"})):
+    codes, counts = bucketed.count_bucket_auto(flat, 21, False, LocalMesh(4, "cpu"), **kw)
+    bucket[name] = {codec.code_to_kmer(int(c), 21): int(n) for c, n in zip(codes, counts)}
 banned = [
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "dna_kmeres_parallel_tpu")
 ]
 assert not banned, banned
 print(json.dumps({"table": res.table(), "dense": dense, "streamed": streamed,
-                  "bits": dist.packed.view("u4").tolist()}))
+                  "bucket": bucket, "bits": dist.packed.view("u4").tolist()}))
 """
 
 SEQS = ["ACGTTGCANNACGTACGTTTTTTTTTTTTTTTTTTTTTTTTGCA" * 7, "GATTACA" * 40, "ACGTAC"]
@@ -97,6 +110,9 @@ def test_port_runs_with_jax_refused(tmp_path):
     for key, table in out["streamed"].items():
         assert table == oracle.count_table_any_k(SEQS, int(key.split()[0])), key
     assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+    assert len(out["bucket"]) == 3
+    for name, table in out["bucket"].items():
+        assert table == oracle.count_table_any_k(SEQS, 21), name
     want = oracle.distance_matrix_packed(SEQS, 3)
     assert out["bits"] == want.view(np.uint32).tolist()
     assert csv.read_bytes() == "".join("%f\n" % v for v in want).encode()
