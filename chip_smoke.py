@@ -65,7 +65,20 @@ exits nonzero:
    shard; then, on the first 16 Mbase, the global route, the aggregated and
    super-k-mer exchanges, k=21, a mesh of 5, a homopolymer-rich stream
    on which auto falls back to the aggregated exchange, and a 1-rank NCCL
-   process group, each against its reference.
+   process group, each against its reference;
+8. the device-sort route: K11 (the row sort) against its plain version at
+   row lengths 128, 512, 2048 and 32768 (random u32 with top-bit values,
+   sentinel tails), then timed at the route's [8192, 2048] rows of one
+   16 Mbase batch beside its plain version and ``torch.sort(dim=-1)``;
+   then ``SparseKmerEngine`` on the main path's FASTA in paired,
+   alternating order: at k=21 no device sort, ``device_sort`` rows
+   (``torch.sort``) and one flat sort; at canonical k=11 no device sort,
+   ``torch.sort`` rows and K11 rows (``pallas_sort``, one launch per
+   batch); ``StreamingCounter(compact="device-rle")`` at k=21 on the FASTA
+   and on two duplicated inputs (the records of its first 16 Mbase four
+   times, of its first 4 Mbase sixteen times); and the aggregated
+   exchange on a one-shard mesh at k=13. Each table against
+   its reference, each run's launches against its route.
 
 The script imports the port and nothing of JAX or of the JAX package.
 
@@ -163,6 +176,22 @@ ROW_W = 2048
 #: the config-5 run, whose launches the kernels line reports for K1m, K10
 #: and P1
 BUCKET_MAIN = f"count_bucket_auto(k={BUCKET_K}, minimizer, D={BUCKET_D})"
+#: K11's check: (row length, rows), one per word-per-thread instantiation
+#: and the widest row; then timed at the device-sort route's rows of one
+#: 16 Mbase batch (16,777,216 windows as [8192, 2048])
+SORT_CHECKS = ((128, 1000), (512, 333), (2048, 129), (32768, 37))
+SORT_ROWS = 8192
+#: the device-sort path's batch (None: KmerConfig's 16 Mbase), and its
+#: duplicated inputs, (bases, copies): the records starting in the first
+#: bases of the main FASTA, repeated. 16 Mbase x 4 repeats whole batches;
+#: 4 Mbase x 16 puts four copies in each batch, where the RLE collapses
+#: them on the card.
+SORT_BATCH_BASES = None
+SORT_DUPS = ((16 << 20, 4), (4 << 20, 16))
+#: the one-shard aggregated run's input: the main FASTA's first bases
+SORT_SMALL_BASES = 16 << 20
+#: the device-sort run whose launches the kernels line reports for K11
+SORT_MAIN = "SparseKmerEngine(k=11, canonical, device_sort, pallas_sort)"
 
 
 def log(msg: str) -> None:
@@ -1057,6 +1086,205 @@ def phase_bucket_path(records, path: Path, dev, card: str, refs: dict | None = N
     return launches
 
 
+def sort_rows_input(R: int, m: int, seed: int, dev):
+    """int32 [R, m] of seeded u32 bits (half with the top bit set), the
+    bias-order extremes in row 0, a sentinel tail in every third row and
+    one row all sentinels, on ``dev``."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randint(-(2**31), 2**31, (R, m), generator=g, dtype=torch.int64).to(torch.int32)
+    x[0, :4] = torch.tensor([0, -1, 2**31 - 1, -(2**31)], dtype=torch.int32)
+    x[::3, m - m // 3 :] = -1
+    x[R // 2] = -1
+    return x.to(dev)
+
+
+def phase_sort_kernel(dev, card: str) -> dict:
+    """K11 against its plain version, element for element, at each row
+    length of SORT_CHECKS; then timed at the route's [8192, 2048] rows of
+    K1's k=11 words (a 16 Mbase batch) beside its plain version and
+    ``torch.sort(dim=-1)`` of the biased keys (the library call). Returns
+    the kernel's record."""
+    import numpy as np
+    import torch
+
+    from dna_kmeres_parallel_tpu_torch import KmerConfig
+    from dna_kmeres_parallel_tpu_torch.models.engine import batch_plan, stage_batch_planes
+    from dna_kmeres_parallel_tpu_torch.ops import sort_cuda
+    from dna_kmeres_parallel_tpu_torch.ops import sparse as sparse_ops
+
+    worst = 0
+
+    def check(x, what) -> None:
+        nonlocal worst
+        got = sort_cuda.row_sort_u32(x)
+        torch.cuda.synchronize()
+        err = max_abs_err((got,), (sort_cuda.row_sort_u32_reference(x),))
+        if err:
+            raise AssertionError(f"row_sort disagrees with plain at {what}: max_abs_err={err}")
+        worst = max(worst, err)
+
+    for m, R in SORT_CHECKS:
+        check(sort_rows_input(R, m, m, dev), f"[{R}, {m}]")
+        log(f"kernel check row_sort [{R}, {m}]: random u32 with top-bit values, the bias-order "
+            f"extremes and sentinel tails: equal to plain")
+
+    m = KmerConfig().sort_row_len
+    batch, T = batch_plan(1 << 40, 11, SORT_ROWS * m)
+    planes = stage_batch_planes(check_stream(np.random.default_rng(8), T), dev)
+    x = sparse_ops.encode_words_planes(*planes, batch, 11, True)[0][:batch].reshape(SORT_ROWS, m)
+    x = x.contiguous()
+    del planes
+    check(x, f"K1's k=11 words as [{SORT_ROWS}, {m}]")
+    biased = x ^ sort_cuda.INT32_MIN
+    passes = m.bit_length() - 1
+    passes = passes * (passes + 1) // 2
+    rec = dict(
+        ms=time_ms(lambda: sort_cuda.row_sort_u32(x), 20),
+        plain_ms=time_ms(lambda: sort_cuda.row_sort_u32_reference(x), 3),
+        library_ms=time_ms(lambda: torch.sort(biased, dim=-1), 5),
+        # each word read and written once; one min or max per word per pass
+        bound=bound_ms(8 * x.numel(), passes * x.numel()),
+        max_abs_err=worst,
+        shape=f"[{SORT_ROWS}, {m}]",
+    )
+    log(f"kernel time row_sort {rec['shape']} (k=11 words, {passes} passes): kernel "
+        f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.3f} ms, torch.sort "
+        f"{rec['library_ms']:.4f} ms, bound {rec['bound'][0]:.4f} ms ({rec['bound'][1]}), "
+        f"max_abs_err={rec['max_abs_err']} [{card}]")
+    del x, biased
+    torch.cuda.empty_cache()
+    return rec
+
+
+def dup_records(records, n_bases: int, copies: int):
+    """The records starting in the first ``n_bases`` stream bases, repeated
+    ``copies`` times, as (stream, starts, lengths)."""
+    import numpy as np
+
+    stream, starts, lengths = records
+    keep = max(1, int((starts < n_bases).sum()))
+    starts, lengths = np.tile(starts[:keep], copies), np.tile(lengths[:keep], copies)
+    parts = [stream[s : s + n] for s, n in zip(starts, lengths)]
+    new_starts = np.concatenate([[0], np.cumsum(lengths + 1)[:-1]])
+    out = np.full(int(lengths.sum()) + lengths.size - 1, INVALID, np.uint8)
+    for s, part in zip(new_starts, parts):
+        out[s : s + part.size] = part
+    return out, new_starts, lengths
+
+
+def phase_sort_path(records, path: Path, dev, card: str, refs: dict | None = None) -> dict:
+    """The device-sort route on the main path's FASTA, each table against
+    the cached reference and each run's launches against its route, in
+    paired alternating order so the walls compare: at k=21 the default
+    route (no device sort), rows sorted by torch.sort and one flat sort
+    (default, rows, flat, flat, rows, default); at canonical k=11 the
+    default, torch.sort rows and K11 rows (``pallas_sort``); then
+    ``StreamingCounter(compact="device-rle")`` at k=21 on the FASTA and
+    on a duplicated input, and the aggregated exchange on a one-shard mesh
+    at k=13. Returns each run's launch counts."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from dna_kmeres_parallel_tpu_torch import KmerConfig
+    from dna_kmeres_parallel_tpu_torch.models.engine import batch_plan
+    from dna_kmeres_parallel_tpu_torch.models.pipeline import StreamingCounter
+    from dna_kmeres_parallel_tpu_torch.models.sparse_engine import SparseKmerEngine
+    from dna_kmeres_parallel_tpu_torch.parallel import bucketed
+    from dna_kmeres_parallel_tpu_torch.parallel.mesh import LocalMesh
+
+    stream, _, lengths = records
+    refs = {} if refs is None else refs
+    none = dict.fromkeys(read_launches(), 0)
+    size = {} if SORT_BATCH_BASES is None else {"batch_bases": SORT_BATCH_BASES}
+    launches, walls = {}, {}
+
+    def n_batches(data, k):
+        return math.ceil(data.size / batch_plan(data.size, k, KmerConfig(**size).batch_bases)[0])
+
+    def check(name, res, data, n_recs, ref_key, k, canonical, want, wall, phases):
+        launches[name] = expect_launches(name, {**none, **want})
+        ref = cached(refs, ref_key, lambda: reference_table(data, k, canonical, dev))
+        torch.cuda.empty_cache()
+        if res.n_seqs != n_recs:
+            raise AssertionError(f"{name}: {res.n_seqs} records, not {n_recs}")
+        if not (np.array_equal(res.codes, ref[0]) and np.array_equal(res.counts, ref[1])):
+            raise AssertionError(f"{name}: table differs from the reference")
+        split = " ".join(f"{p}={s:.3f}" for p, s in phases.items())
+        fired = {n: c for n, c in launches[name].items() if c}
+        log(f"{name}: {res.distinct_kmers} distinct, {res.total_kmers} k-mers, equal to the "
+            f"reference; wall {wall:.3f} s, {res.total_bases / wall / 1e9:.4f} Gbase/s; "
+            f"phases s: {split}; launches {fired} [{card}]")
+
+    def engine_run(label, k, canonical, kw, pallas_sort=False):
+        name = f"SparseKmerEngine(k={k}{', canonical' if canonical else ''}, {label})"
+        cfg = KmerConfig(k=k, canonical=canonical, **size, **kw)
+        n = n_batches(stream, k)
+        reset_launches()
+        t = time.perf_counter()
+        res = SparseKmerEngine(cfg, device=dev, pallas_sort=pallas_sort).count_file(str(path))
+        wall = time.perf_counter() - t
+        want = {"encode_packed": n, **({"row_sort": n} if pallas_sort else {})}
+        check(name, res, stream, lengths.size, ("table", k, canonical), k, canonical, want,
+              wall, res.phases)
+        walls.setdefault(name, []).append(wall)
+
+    routes21 = (("no device sort", {}), ("device_sort", {"device_sort": True}),
+                ("device_sort, sort_row_len=0", {"device_sort": True, "sort_row_len": 0}))
+    for label, kw in routes21 + routes21[::-1]:
+        engine_run(label, 21, False, kw)
+    # The K11 route's name is SORT_MAIN: each of its runs sets the counts
+    # to 0 before it and reads them after.
+    routes11 = (("no device sort", {}, False), ("device_sort", {"device_sort": True}, False),
+                ("device_sort, pallas_sort", {"device_sort": True}, True))
+    for label, kw, pallas_sort in routes11 + routes11[::-1]:
+        engine_run(label, 11, True, kw, pallas_sort)
+    log("device-sort route timing (paired, alternating; median wall s): " + "; ".join(
+        f"{name} {statistics.median(w):.3f} ({' / '.join(f'{x:.3f}' for x in w)})"
+        for name, w in walls.items()) + f" [{card}]")
+
+    def rle_run(name, data, fasta, n_recs, ref_key):
+        cfg = KmerConfig(k=21, compact="device-rle", **size)
+        sc = StreamingCounter(cfg, device=dev)
+        reset_launches()
+        t = time.perf_counter()
+        res = sc.run(str(fasta))
+        wall = time.perf_counter() - t
+        check(name, res, data, n_recs, ref_key, 21, False,
+              {"encode_packed": n_batches(data, 21)}, wall, sc.metrics.phase_seconds)
+
+    rle_run("StreamingCounter(k=21, compact=device-rle)", stream, path, lengths.size,
+            ("table", 21, False))
+    dup_path = path.with_name("dup.fasta")
+    for n_bases, copies in SORT_DUPS:
+        dup = dup_records(records, n_bases, copies)
+        write_fasta(dup_path, *dup)
+        rle_run(f"StreamingCounter(k=21, compact=device-rle) on the records of the first "
+                f"{n_bases} bases x {copies} ({dup[0].size} bases)", dup[0], dup_path,
+                dup[2].size, ("dup", n_bases, copies))
+        dup_path.unlink()
+        del dup
+
+    # The aggregated exchange on a one-shard mesh at k=13 (single-word
+    # keys): every window's owner is 0.
+    name = "count_bucket_auto(k=13, D=1, exchange=agg)"
+    small = stream[:SORT_SMALL_BASES]
+    ref = cached(refs, ("small", 13, False), lambda: reference_table(small, 13, False, dev))
+    reset_launches()
+    t = time.perf_counter()
+    table = bucketed.count_bucket_auto(small, 13, False, LocalMesh(1, dev), exchange="agg")
+    wall = time.perf_counter() - t
+    launches[name] = expect_launches(name, {**none, "encode_packed": 1})
+    if not (np.array_equal(table[0], ref[0]) and np.array_equal(table[1], ref[1])):
+        raise AssertionError(f"{name}: table differs from the reference")
+    log(f"{name}: {table[0].size} distinct, equal to the reference; wall {wall:.3f} s [{card}]")
+    torch.cuda.empty_cache()
+    return launches
+
+
 #: every kernel's launch counter: (module, attribute) by kernel name
 COUNTERS = {
     "encode_packed": ("encode_cuda", "LAUNCHES"),
@@ -1071,6 +1299,7 @@ COUNTERS = {
     "encode_packed_minimizer": ("encode_cuda", "MIN_LAUNCHES"),
     "owner_segments": ("sort_cuda", "OWNER_LAUNCHES"),
     "row_roll": ("sort_cuda", "ROLL_LAUNCHES"),
+    "row_sort": ("sort_cuda", "ROW_SORT_LAUNCHES"),
 }
 
 
@@ -1489,6 +1718,8 @@ def main() -> int:
         stream_launches = phase_stream_path(records, path, dev, card, refs)
         bucket = phase_bucket_kernels(dev, card, -(-stream.size // BUCKET_D))
         bucket_launches = phase_bucket_path(records, path, dev, card, refs)
+        row_sort = phase_sort_kernel(dev, card)
+        sort_launches = phase_sort_path(records, path, dev, card, refs)
     finally:
         tmp.cleanup()
     del records, stream, refs
@@ -1595,6 +1826,19 @@ def main() -> int:
             "bound_by": r["bound"][1],
             "library_ms": r["library_ms"],
         })
+    kernels_json.append({
+        "name": "row_sort",
+        "route": "cuda",
+        "source": "dna_kmeres_parallel_tpu_torch/csrc/row_sort.cu",
+        "replaces": "dna_kmeres_parallel_tpu/ops/sort_pallas.py:61",
+        "launches": sort_launches[SORT_MAIN]["row_sort"],
+        "max_abs_err": row_sort["max_abs_err"],
+        "ms": row_sort["ms"],
+        "plain_ms": row_sort["plain_ms"],
+        "bound_ms": row_sort["bound"][0],
+        "bound_by": row_sort["bound"][1],
+        "library_ms": row_sort["library_ms"],
+    })
     log(json.dumps({"kernels": kernels_json}))
     log(card)
     log(json.dumps({"ok": True, "device": {

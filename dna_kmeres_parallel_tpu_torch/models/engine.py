@@ -95,9 +95,24 @@ def stage_batch_planes(
 # Dense counting
 # ---------------------------------------------------------------------------
 
-#: windows the device accumulator takes before it is added into the host
-#: int64 histogram: well below 2^31, so the int32 counts never wrap
-FLUSH_WINDOWS = (1 << 31) - (1 << 27)
+#: the most windows the int32 device accumulator takes between two adds
+#: into the host int64 histogram: no count can then pass 2^31 - 1
+FLUSH_WINDOWS = (1 << 31) - 1
+
+
+def flush_first(acc_windows: int, batch_windows: int, batch_bases: int) -> bool:
+    """Whether the accumulator, holding ``acc_windows`` windows, must be
+    added into the host histogram before a batch of ``batch_windows``
+    windows is added to it: when the two together could pass
+    FLUSH_WINDOWS. A batch that could pass it alone raises ValueError: the
+    kernels add the whole batch into that int32."""
+    if batch_windows > FLUSH_WINDOWS:
+        raise ValueError(
+            f"batch_bases={batch_bases} makes batches of {batch_windows} windows, "
+            f"more than the {FLUSH_WINDOWS} an int32 accumulator takes; use a "
+            f"smaller batch_bases"
+        )
+    return acc_windows + batch_windows > FLUSH_WINDOWS
 
 #: Phases of CountResult.phases, in the order a batch runs them.
 COUNT_PHASES = ("parse", "staging", "h2d", "kernel", "d2h")
@@ -257,7 +272,8 @@ class KmerEngine:
         k-1 halo bases past it, padded with 0xFF to the batch length. The
         batches add into one int32 accumulator on the device, with no wait
         between them; it is added into the host int64 histogram at the end,
-        and before it has taken FLUSH_WINDOWS windows."""
+        and before any batch that could take it past FLUSH_WINDOWS
+        windows (``flush_first``)."""
         cfg, dev = self.config, self.device
         t0 = time.perf_counter()
         if cfg.bins > histogram_cuda.MAX_BINS:  # k = 9..12: count sparse, densify
@@ -291,8 +307,10 @@ class KmerEngine:
                 phases["d2h"] += time.perf_counter() - t
 
             for start in range(0, total, batch):
-                t = time.perf_counter()
                 end = min(start + batch, total)
+                if flush_first(acc_windows, end - start, cfg.batch_bases):
+                    drain()
+                t = time.perf_counter()
                 seg = flat[start : min(end + cfg.k - 1, total)]
                 padded = np.full(T, codec.INVALID_BASE, dtype=np.uint8)
                 padded[: seg.shape[0]] = seg
@@ -300,8 +318,6 @@ class KmerEngine:
                 phases["staging"] += time.perf_counter() - t
                 marks.append(self._ship_and_count(host, end - start, acc))
                 acc_windows += end - start
-                if acc_windows >= FLUSH_WINDOWS:
-                    drain()
             if acc_windows:
                 drain()
             for m0, m1, m2 in marks:

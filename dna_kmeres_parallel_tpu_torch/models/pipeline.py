@@ -15,25 +15,30 @@ a batch's H2D copy, its kernel and the D2H copy of its words; the
 prefetch thread never touches the card's streams.
 
 - Dense (4^k <= 65,536, k <= 8): one int32 accumulator on the device,
-  added into the host int64 histogram before ``engine.FLUSH_WINDOWS``
-  windows and at every checkpoint.
+  added into the host int64 histogram before a batch that could take it
+  past ``engine.FLUSH_WINDOWS`` windows (``engine.flush_first``) and at
+  every checkpoint.
 - k = 9..12: counted by the sparse arm and densified at the end, as the
   JAX counter does; its checkpoints are sparse tables.
 - Sparse: ``compact`` picks where each batch's table is built.
   ``"device"``: the card encodes (K1 from planes, K9 from u8 bases), the
   words come back into pinned memory, and the native radix compactor
   builds the table; batch t is drained only after batch t+1 has been
-  dispatched. ``"host"``: the native engine counts the host-resident
-  stream (nothing crosses the link). ``"auto"``: device batches 2-3 and
-  host batch 4 race, the faster route carries on, and every
-  ``_COMPACT_RECHECK``-th batch re-probes the loser, flipping when its
-  EWMA rate beats the winner's by ``_COMPACT_HYSTERESIS``.
+  dispatched. With ``device_sort=True`` the card also sorts the words
+  (rows of ``sort_row_len``, K11 for single-word rows with
+  ``pallas_sort``, or one flat sort) and the native compactor of sorted
+  words builds the table. ``"device-rle"``: the card sorts flat and
+  collapses the runs; only the distinct (code, count) prefix comes back.
+  ``"host"``: the native engine counts the host-resident stream (nothing
+  crosses the link). ``"auto"``: device batches 2-3 and host batch 4
+  race, the faster route carries on, and every ``_COMPACT_RECHECK``-th
+  batch re-probes the loser, flipping when its EWMA rate beats the
+  winner's by ``_COMPACT_HYSTERESIS``.
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-``compact="device-rle"`` and ``device_sort=True`` (the device-sort route,
-with K11), ``compact="device-super"`` (super-k-mer records), a mesh. The
-JAX counter's "auto" also probes the super-k-mer records as a sub-route
-of its device arm; that probe stays off here until ``device-super`` is
+``compact="device-super"`` (super-k-mer records) and a mesh. The JAX
+counter's "auto" also probes the super-k-mer records as a sub-route of
+its device arm; that probe stays off here until ``device-super`` is
 ported, which changes which route runs and never a table.
 """
 
@@ -52,10 +57,10 @@ import torch
 from dna_kmeres_parallel_tpu_torch import native
 from dna_kmeres_parallel_tpu_torch.models import sparse_engine
 from dna_kmeres_parallel_tpu_torch.models.engine import (
-    FLUSH_WINDOWS,
     CountResult,
     KmerEngine,
     batch_plan,
+    flush_first,
     host_to_device,
     pin_host,
 )
@@ -65,6 +70,7 @@ from dna_kmeres_parallel_tpu_torch.models.sparse_engine import (
     dense_from_sparse,
 )
 from dna_kmeres_parallel_tpu_torch.ops import histogram_cuda, runtime
+from dna_kmeres_parallel_tpu_torch.ops import sparse as sparse_ops
 from dna_kmeres_parallel_tpu_torch.utils import checkpoint as ckpt_mod
 from dna_kmeres_parallel_tpu_torch.utils import codec, fasta
 from dna_kmeres_parallel_tpu_torch.utils.config import KmerConfig
@@ -135,6 +141,7 @@ class StreamingCounter:
         max_batches: int | None = None,
         max_retries: int = 2,
         trace_dir: str | None = None,
+        pallas_sort: bool = False,
     ):
         """device: "cuda" (the kernels; raises without CUDA) or "cpu" (the
         kernels' plain versions). checkpoint_path: where the checkpoint is
@@ -143,7 +150,9 @@ class StreamingCounter:
         the progress (bounded work slices, and crash simulation in tests).
         max_retries: transient failures of a batch's device call are
         retried this many times before they surface. trace_dir: write a
-        ``torch.profiler`` trace of the run there."""
+        ``torch.profiler`` trace of the run there. pallas_sort: with
+        ``device_sort=True``, sort single-word rows with the row-sort
+        kernel K11 (``SparseKmerEngine``'s argument)."""
         self.config = config or KmerConfig()
         if math.prod(self.config.mesh_shape) > 1:
             raise NotImplementedError(
@@ -157,6 +166,7 @@ class StreamingCounter:
         self.max_batches = max_batches
         self.max_retries = max_retries
         self.trace_dir = trace_dir
+        self.pallas_sort = pallas_sort
         self.metrics = Metrics()
 
     def _with_retry(self, fn):
@@ -314,14 +324,14 @@ class StreamingCounter:
                 stopped = True
                 break
             done_batches += 1
+            if flush_first(acc_windows, end - start, cfg.batch_bases):
+                flush()
             with self.metrics.phase("device"):
                 self._with_retry(lambda: _count_batch(eng, staged, end - start, acc))
             self.metrics.count("bases", end - start)
             self.metrics.count("batches")
             since_ckpt += end - start
             acc_windows += end - start
-            if acc_windows >= FLUSH_WINDOWS:
-                flush()
             if since_ckpt >= self.checkpoint_every_bases:
                 flush()
                 self._save(end, total_bases, hist=hist)
@@ -342,16 +352,6 @@ class StreamingCounter:
         """KmerConfig.compact -> host_mode: True counts on the host, False
         on the device, None is undecided ('auto': race, then re-check)."""
         cfg = self.config
-        if cfg.device_sort:
-            raise NotImplementedError(
-                "device_sort=True (the device-sort route) is not ported yet "
-                "(ROADMAP item 14, with K11)"
-            )
-        if cfg.compact == "device-rle":
-            raise NotImplementedError(
-                "compact='device-rle' (device sort + run-length records) is "
-                "not ported yet (ROADMAP item 14, with K11)"
-            )
         if cfg.compact == "device-super":
             raise NotImplementedError(
                 "compact='device-super' (super-k-mer records) is not ported "
@@ -359,7 +359,7 @@ class StreamingCounter:
             )
         if cfg.compact == "host":
             return True
-        if cfg.compact == "device":
+        if cfg.compact in ("device", "device-rle"):
             return False
         return None
 
@@ -399,7 +399,13 @@ class StreamingCounter:
             # stage a batch or two that the host route then never ships.
             return None if host_mode is True else stage(*bounds)
 
-        # Software pipelining: batch t is drained (words to the host, radix
+        # The device arm's output: "words" (unsorted, radix compaction),
+        # "sorted" (device_sort: the compactor of sorted words or rows) or
+        # "rle" (distinct codes and counts, fetched by their count).
+        kind = "rle" if cfg.compact == "device-rle" else (
+            "sorted" if cfg.device_sort else "words")
+
+        # Software pipelining: batch t is drained (words to the host,
         # compaction) only after batch t+1 has been dispatched.
         pending = None  # (words, ready event, start, end, batch number)
 
@@ -435,8 +441,15 @@ class StreamingCounter:
                 with self.metrics.phase("fetch"):
                     if ready is not None:
                         ready.synchronize()
-                    host = sparse_engine.fetch_words(words)
-                tables.push(sparse_engine.compact_unsorted(host, k))
+                    if kind == "rle":
+                        table = sparse_engine.table_from_rle(*words)
+                    else:
+                        host = sparse_engine.fetch_words(words)
+                if kind == "sorted":
+                    table = sparse_engine.compact_table(host)
+                elif kind == "words":
+                    table = sparse_engine.compact_unsorted(host, k)
+                tables.push(table)
             if adaptive and p_idx >= 2:
                 # The device route's whole cost per batch in the pipelined
                 # steady state: the wait for the device and the D2H copy,
@@ -498,7 +511,14 @@ class StreamingCounter:
                         tuple(host_to_device(a, dev) for a in staged), n_own, k, canonical
                     )
                 )
-                words, ready = _start_fetch(words)
+                if kind == "sorted":
+                    words = sparse_ops.sort_encoded(
+                        words, n_own, cfg.sort_row_len, self.pallas_sort)
+                if kind == "rle":
+                    words = sparse_ops.rle_sorted(sparse_ops.sort_encoded(words, n_own, 0))
+                    ready = None  # the drain waits on n_distinct
+                else:
+                    words, ready = _start_fetch(words)
             if pending is not None:
                 drain(pending)
             pending = (words, ready, start, end, done_batches)

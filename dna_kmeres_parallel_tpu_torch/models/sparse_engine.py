@@ -9,9 +9,12 @@ device (K1 from planes, K9 from bases), copied back, and turned into a
 sorted (code, count) table by the native MSD+LSD radix compactor; a merge
 ladder folds the batch tables into one. Counts are exact integers.
 
-The JAX engine also has a device-sort route; ``device_sort=True`` raises
-here. ``compact`` belongs to the streaming counter (``models/pipeline``)
-and is ignored here, as the JAX engine ignores it.
+With ``device_sort=True`` the device also sorts each batch's words:
+``sort_row_len`` rows sorted independently (K11 for single-word keys
+with ``pallas_sort``, else ``torch.sort``) and merged on the host by the
+native row compactor, or one flat sort (``sort_row_len=0``) compacted by
+neighbour compares. ``compact`` belongs to the streaming counter
+(``models/pipeline``) and is ignored here, as the JAX engine ignores it.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from dna_kmeres_parallel_tpu_torch.utils import codec, fasta
 from dna_kmeres_parallel_tpu_torch.utils.config import KmerConfig
 
 #: Phases of SparseCountResult.phases, in the order a batch runs them.
-PHASES = ("parse", "staging", "h2d", "kernel", "d2h", "compact", "merge")
+PHASES = ("parse", "staging", "h2d", "kernel", "d2h", "compact", "merge", "sort")
 
 
 def require_native() -> None:
@@ -86,6 +89,43 @@ def compact_unsorted(words, k: int) -> tuple[np.ndarray, np.ndarray]:
     return native.compact_unsorted_native(
         tuple(w.reshape(-1) for w in words), 2 * k
     )
+
+
+def compact_table(words) -> tuple[np.ndarray, np.ndarray]:
+    """Sorted host word planes -> sorted-unique (codes_u64, counts_i64).
+    Flat words (one ascending sort, sentinel tail) go to the native
+    neighbour-compare compactor, [rows, m] words (each row ascending with
+    its sentinel tail) to the native row merge."""
+    if words[-1].ndim == 2:
+        return native.compact_rows_native(words)
+    return native.compact_sorted_native(words)
+
+
+def compact_starts(words, starts) -> tuple[np.ndarray, np.ndarray]:
+    """Flat sorted host word planes and their run-start flags ->
+    (codes_u64, counts_i64), run lengths from consecutive starts."""
+    return native.compact_starts_native(words, np.asarray(starts))
+
+
+def compact_rle(hi, lo, counts, starts) -> tuple[np.ndarray, np.ndarray]:
+    """Masked RLE output with device-computed counts (``sparse
+    .sort_unique_counts``, as host arrays) -> (codes_u64, counts_i64)."""
+    return native.compact_rle_native(hi, lo, counts, starts)
+
+
+def table_from_rle(words_c, counts, n_distinct) -> tuple[np.ndarray, np.ndarray]:
+    """Device RLE output (``sparse.rle_sorted``) -> sorted-unique
+    (codes_u64, counts_i64). ``n_distinct`` comes to the host first (the
+    wait for the device), then exactly that prefix of the words and
+    counts; the table is sorted-unique already, so no compaction runs."""
+    m = int(n_distinct)
+    if m == 0:
+        return np.zeros(0, np.uint64), np.zeros(0, np.int64)
+    planes = fetch_words(tuple(w[:m] for w in words_c))
+    cnt = counts[:m].cpu().numpy().astype(np.int64)
+    if len(planes) == 1:
+        return planes[0].astype(np.uint64), cnt
+    return sparse_ops.merged_code64(*planes), cnt
 
 
 def merge_sparse_tables(
@@ -161,10 +201,11 @@ class SparseCountResult:
     n_seqs: int
     total_bases: int
     elapsed_s: float = 0.0
-    #: seconds per phase (PHASES), summed over batches. On the card h2d
-    #: and kernel are device-timeline spans (CUDA events), and d2h is the
-    #: rest of the host wall from the end of staging to the words' arrival
-    #: on the host; the other phases are host-clock spans.
+    #: seconds per phase (PHASES), summed over batches. On the card h2d,
+    #: kernel (the encode) and sort (the device sort, 0 without
+    #: ``device_sort``) are device-timeline spans (CUDA events), and d2h is
+    #: the rest of the host wall from the end of staging to the words'
+    #: arrival on the host; the other phases are host-clock spans.
     phases: dict[str, float] = field(default_factory=dict)
 
     @property
@@ -183,12 +224,19 @@ class SparseCountResult:
 
 
 class SparseKmerEngine:
-    """Single-device sparse engine over any k in 1..31."""
+    """Single-device sparse engine over any k in 1..31.
+
+    pallas_sort: on the device-sort route (``device_sort=True`` with
+    ``sort_row_len``), sort single-word rows (k <= 15, a row length that
+    is a power of two from 128 to 32,768) with the row-sort kernel K11,
+    as the JAX package's ``KMER_TPU_PALLAS_SORT=1`` does; otherwise rows
+    sort with ``torch.sort``."""
 
     def __init__(
         self,
         config: KmerConfig | None = None,
         device: str | torch.device = "cuda",
+        pallas_sort: bool = False,
         **kw,
     ):
         cfg = config or KmerConfig()
@@ -197,11 +245,8 @@ class SparseKmerEngine:
             raise ValueError(
                 f"sparse engine supports k <= {sparse_ops.MAX_SPARSE_K}"
             )
-        if self.config.device_sort:
-            raise NotImplementedError(
-                "device_sort=True is not ported yet (ROADMAP item 14, with K11)"
-            )
         self.device = runtime.resolve_device(device)
+        self.pallas_sort = pallas_sort
         require_native()
 
     def count_stream(
@@ -237,13 +282,26 @@ class SparseKmerEngine:
                 m1 = runtime.mark(dev)
                 words = encode_staged(staged, end - start, cfg.k, cfg.canonical)
                 m2 = runtime.mark(dev)
+                if cfg.device_sort:
+                    words = sparse_ops.sort_encoded(
+                        words, end - start, cfg.sort_row_len, self.pallas_sort
+                    )
+                m3 = runtime.mark(dev)
                 host = fetch_words(words)  # waits for the device
-                h2d, kernel = runtime.span_s(m0, m1), runtime.span_s(m1, m2)
-                phases["h2d"] += h2d
-                phases["kernel"] += kernel
+                del words
+                spans = {
+                    "h2d": runtime.span_s(m0, m1),
+                    "kernel": runtime.span_s(m1, m2),
+                    "sort": runtime.span_s(m2, m3),
+                }
+                for name, span in spans.items():
+                    phases[name] += span
                 lap("d2h")
-                phases["d2h"] -= h2d + kernel
-                table = compact_unsorted(host, cfg.k)
+                phases["d2h"] -= sum(spans.values())
+                if cfg.device_sort:
+                    table = compact_table(host)
+                else:
+                    table = compact_unsorted(host, cfg.k)
                 lap("compact")
                 ladder.push(table)
                 lap("merge")

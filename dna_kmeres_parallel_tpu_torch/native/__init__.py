@@ -8,7 +8,9 @@ built for one CPU is never loaded on another: a checkout carried to a
 machine with another CPU builds its own.
 
 Entries: the FASTA parse, the 2-bit pack, the radix compactor of unsorted
-window words, the host-only sparse counter, the k-way merge of sorted (code, count) tables and the
+window words, the compactors of sorted words, row-sorted words, run-start
+flags and RLE records (the device-sort route's host half), the host-only
+sparse counter, the k-way merge of sorted (code, count) tables and the
 ``%f`` CSV formatter. Nothing falls back: a failed build raises with the
 compiler's output.
 """
@@ -121,6 +123,20 @@ def load() -> ctypes.CDLL:
     lib.kp_merge_tables.argtypes = [i64, vp, vp, vp, vp, vp]
     lib.kp_format_f6.restype = i64
     lib.kp_format_f6.argtypes = [vp, i64, ctypes.c_char_p, i64]
+    lib.kp_count_starts.restype = i64
+    lib.kp_count_starts.argtypes = [vp, i64]
+    lib.kp_compact_rle.restype = i64
+    lib.kp_compact_rle.argtypes = [vp, vp, vp, vp, i64, vp, vp]
+    lib.kp_compact_starts.restype = i64
+    lib.kp_compact_starts.argtypes = [vp, ci, vp, vp, i64, vp, vp]
+    lib.kp_count_distinct.restype = i64
+    lib.kp_count_distinct.argtypes = [vp, ci, vp, i64]
+    lib.kp_compact_sorted.restype = i64
+    lib.kp_compact_sorted.argtypes = [vp, ci, vp, i64, vp, vp]
+    lib.kp_rows_valid.restype = i64
+    lib.kp_rows_valid.argtypes = [vp, ci, vp, i64, i64]
+    lib.kp_compact_rows.restype = i64
+    lib.kp_compact_rows.argtypes = [vp, ci, vp, i64, i64, vp, vp]
     return lib
 
 
@@ -191,6 +207,101 @@ def pack_2bit_native(bases: np.ndarray) -> tuple[np.ndarray, np.ndarray, int]:
     return data, mask, n
 
 
+def _hi_layout(words: tuple[np.ndarray, ...]):
+    """(hi or None, hi_width, lo) of a word tuple (lo_u32,) or (hi_u16 |
+    hi_u32, lo_u32), each contiguous; hi_width is 0, 2 or 4 bytes. The
+    caller keeps the returned arrays alive while the library reads them."""
+    lo = np.ascontiguousarray(words[-1], dtype=np.uint32)
+    if len(words) == 1:
+        return None, 0, lo
+    hi = np.ascontiguousarray(words[0])
+    widths = {np.dtype(np.uint16): 2, np.dtype(np.uint32): 4}
+    if hi.dtype not in widths:
+        raise ValueError(f"hi word dtype {hi.dtype} unsupported")
+    if hi.shape != lo.shape:
+        raise ValueError(f"hi {hi.shape} and lo {lo.shape} words differ in shape")
+    return hi, widths[hi.dtype], lo
+
+
+def compact_sorted_native(words: tuple[np.ndarray, ...]) -> tuple[np.ndarray, np.ndarray]:
+    """Flat sorted window words (ascending, all-ones sentinel tail) ->
+    sorted-unique (codes_u64, counts_i64); run boundaries and lengths come
+    from neighbour compares, with no device-side flags."""
+    lib = load()
+    hi, hi_width, lo = _hi_layout(words)
+    hi_ptr = None if hi is None else _ptr(hi)
+    n = lo.size
+    m = lib.kp_count_distinct(hi_ptr, hi_width, _ptr(lo), n)
+    out_code = np.zeros(m, dtype=np.uint64)
+    out_cnt = np.zeros(m, dtype=np.int64)
+    w = lib.kp_compact_sorted(hi_ptr, hi_width, _ptr(lo), n, _ptr(out_code), _ptr(out_cnt))
+    if w != m:
+        raise RuntimeError(f"kp_compact_sorted wrote {w} entries, sized for {m}")
+    return out_code, out_cnt
+
+
+def compact_rows_native(words: tuple[np.ndarray, ...]) -> tuple[np.ndarray, np.ndarray]:
+    """Row-sorted window words [rows, m] (each row ascending with an
+    all-ones sentinel tail) -> ONE sorted-unique (codes_u64, counts_i64)
+    table: the R-way merge the device skipped, in one pass partitioned by
+    code range over threads."""
+    lib = load()
+    hi, hi_width, lo = _hi_layout(words)
+    if lo.ndim != 2:
+        raise ValueError(f"compact_rows_native expects [rows, m] words, got {lo.shape}")
+    rows, m = lo.shape
+    hi_ptr = None if hi is None else _ptr(hi)
+    cap = lib.kp_rows_valid(hi_ptr, hi_width, _ptr(lo), rows, m)
+    out_code = np.zeros(cap, dtype=np.uint64)
+    out_cnt = np.zeros(cap, dtype=np.int64)
+    w = lib.kp_compact_rows(hi_ptr, hi_width, _ptr(lo), rows, m, _ptr(out_code),
+                            _ptr(out_cnt))
+    return out_code[:w].copy(), out_cnt[:w].copy()
+
+
+def compact_starts_native(
+    words: tuple[np.ndarray, ...], starts: np.ndarray
+) -> tuple[np.ndarray, np.ndarray]:
+    """Flat sorted window words + run-start flags -> (codes_u64,
+    counts_i64): run lengths are the distances between consecutive starts,
+    the last run closed by the sentinel tail."""
+    lib = load()
+    hi, hi_width, lo = _hi_layout(words)
+    starts_u8 = np.ascontiguousarray(starts, dtype=np.uint8)
+    if starts_u8.shape != lo.shape:
+        raise ValueError(f"starts {starts_u8.shape} and words {lo.shape} differ in shape")
+    n = lo.size
+    m = lib.kp_count_starts(_ptr(starts_u8), n)
+    out_code = np.zeros(m, dtype=np.uint64)
+    out_cnt = np.zeros(m, dtype=np.int64)
+    w = lib.kp_compact_starts(None if hi is None else _ptr(hi), hi_width, _ptr(lo),
+                              _ptr(starts_u8), n, _ptr(out_code), _ptr(out_cnt))
+    if w != m:
+        raise RuntimeError(f"kp_compact_starts wrote {w} entries, sized for {m}")
+    return out_code, out_cnt
+
+
+def compact_rle_native(
+    hi: np.ndarray, lo: np.ndarray, counts: np.ndarray, starts: np.ndarray
+) -> tuple[np.ndarray, np.ndarray]:
+    """Masked device RLE output (u32 hi and lo words, int32 counts, run
+    starts) -> (codes_u64, counts_i64) of the entries whose start is set."""
+    lib = load()
+    hi = np.ascontiguousarray(hi, dtype=np.uint32)
+    lo = np.ascontiguousarray(lo, dtype=np.uint32)
+    counts = np.ascontiguousarray(counts, dtype=np.int32)
+    starts_u8 = np.ascontiguousarray(starts, dtype=np.uint8)
+    n = lo.size
+    if not hi.size == counts.size == starts_u8.size == n:
+        raise ValueError("hi, lo, counts and starts must have one length")
+    m = lib.kp_count_starts(_ptr(starts_u8), n)
+    out_code = np.zeros(m, dtype=np.uint64)
+    out_cnt = np.zeros(m, dtype=np.int64)
+    lib.kp_compact_rle(_ptr(hi), _ptr(lo), _ptr(counts), _ptr(starts_u8), n,
+                       _ptr(out_code), _ptr(out_cnt))
+    return out_code, out_cnt
+
+
 def compact_unsorted_native(
     words: tuple[np.ndarray, ...], kbits: int
 ) -> tuple[np.ndarray, np.ndarray]:
@@ -198,16 +309,8 @@ def compact_unsorted_native(
     sorted-unique (codes_u64, counts_i64) by the MSD+LSD radix compactor.
     ``words`` is (lo_u32,) or (hi_u16|hi_u32, lo_u32); kbits = 2k."""
     lib = load()
-    lo = np.ascontiguousarray(np.asarray(words[-1]).reshape(-1), dtype=np.uint32)
+    hi, hi_width, lo = _hi_layout(tuple(np.asarray(w).reshape(-1) for w in words))
     n = lo.shape[0]
-    if len(words) == 1:
-        hi, hi_width = None, 0
-    else:
-        hi = np.ascontiguousarray(np.asarray(words[0]).reshape(-1))
-        widths = {np.dtype(np.uint16): 2, np.dtype(np.uint32): 4}
-        if hi.dtype not in widths:
-            raise ValueError(f"hi word dtype {hi.dtype} unsupported")
-        hi_width = widths[hi.dtype]
     hi_ptr = None if hi is None else _ptr(hi)
     cap = lib.kp_count_valid(hi_ptr, hi_width, _ptr(lo), n, kbits)
     out_code = np.zeros(cap, dtype=np.uint64)

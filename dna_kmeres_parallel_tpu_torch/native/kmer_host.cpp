@@ -1,7 +1,9 @@
 // The port's C++ host library: FASTA parse, 2-bit pack, the MSD+LSD
 // radix compactor of unsorted window words, the host-only sparse counter
-// (a rolling encoder fused into the same radix core), the k-way merge of
-// sorted (code, count) tables, and the "%f" CSV formatter.
+// (a rolling encoder fused into the same radix core), the compactors of
+// the device-sort route (sorted words, row-sorted words merged by a loser
+// tree or an AVX-512 merge ladder, run-start flags, RLE records), the
+// k-way merge of sorted (code, count) tables, and the "%f" CSV formatter.
 //
 // A copy of the entries of the JAX package's native/fastaparse.cpp that
 // the port calls, so that the port builds and loads its own library and
@@ -390,6 +392,27 @@ inline uint64_t word_code(const void* hi, int hi_width, const uint32_t* lo,
          lo[i];
 }
 
+
+// First index whose MAJOR sort word equals the all-ones sentinel (the
+// invalid-window tail); the words are sorted ascending so binary search.
+int64_t sentinel_begin(const void* hi, int hi_width, const uint32_t* lo,
+                       int64_t n) {
+  int64_t a = 0, b = n;
+  auto is_sent = [&](int64_t i) {
+    if (hi_width == 0) return lo[i] == 0xFFFFFFFFu;
+    if (hi_width == 2) return static_cast<const uint16_t*>(hi)[i] == 0xFFFFu;
+    return static_cast<const uint32_t*>(hi)[i] == 0xFFFFFFFFu;
+  };
+  while (a < b) {
+    int64_t m = a + (b - a) / 2;
+    if (is_sent(m))
+      b = m;
+    else
+      a = m + 1;
+  }
+  return a;
+}
+
 template <int HW>
 inline uint64_t code_hw(const void* hi, const uint32_t* lo, int64_t i) {
   if (HW == 0) return lo[i];
@@ -415,6 +438,390 @@ int64_t rle_run(const T* v, int64_t n, uint64_t* oc, int64_t* on) {
     }
   }
   return w + 1;
+}
+
+// ---------------------------------------------------------------------------
+// Loser-tree multiway merge over sorted streams of window codes.
+//
+// The R-way merge behind kp_compact_rows. A binary std::heap costs
+// 2*log2(R) branchy swaps through a 100+ KB array per element (measured
+// ~3.5 Melem/s/thread at R=8192); the loser tree costs log2(R) compares on
+// an L2-resident array, every stream read is sequential, and runs of equal
+// codes inside one stream drain in bulk without touching the tree.
+// Templated on the hi-word width so code assembly is branch-free.
+
+struct MergeStream {
+  int64_t pos;   // current absolute index into the word arrays
+  int64_t stop;  // absolute end of this stream's slice
+};
+
+// One loser-tree core over any stream type. A Stream provides:
+//   uint64_t head() const    — current key, UINT64_MAX when exhausted
+//   int64_t pop(uint64_t c)  — consume the current run of key c, return
+//                              its count contribution, advance
+// Valid codes are at most 2*31 bits (< 2^62), so UINT64_MAX marks
+// exhaustion unambiguously.
+template <class Stream>
+int64_t loser_tree_core(std::vector<Stream>& ss, uint64_t* oc, int64_t* on) {
+  const int S = static_cast<int>(ss.size());
+  if (S == 0) return 0;
+  int S2 = 1;
+  while (S2 < S) S2 <<= 1;
+  std::vector<uint64_t> key(S2, UINT64_MAX);
+  for (int s = 0; s < S; s++) key[s] = ss[s].head();
+  std::vector<int> ls(S2, 0);  // ls[1..S2-1] = losers; ls[0] = winner
+  {
+    std::vector<int> win(2 * S2);
+    for (int i = 0; i < S2; i++) win[S2 + i] = i;
+    for (int node = S2 - 1; node >= 1; node--) {
+      int a = win[2 * node], b = win[2 * node + 1];
+      int w = (key[a] <= key[b]) ? a : b;
+      ls[node] = (w == a) ? b : a;
+      win[node] = w;
+    }
+    ls[0] = win[1];
+  }
+  int64_t w = -1;
+  int wtr = ls[0];
+  while (key[wtr] != UINT64_MAX) {
+    const uint64_t c = key[wtr];
+    const int64_t cnt = ss[wtr].pop(c);
+    key[wtr] = ss[wtr].head();
+    if (w >= 0 && oc[w] == c) {
+      on[w] += cnt;
+    } else {
+      w++;
+      oc[w] = c;
+      on[w] = cnt;
+    }
+    // Replay from this leaf to the root. Branchless mask blends: the
+    // compare at each level is a ~50/50 coin flip, and the mispredict
+    // penalty (~17 cycles/level measured) dominates a branchy replay.
+    int winner = wtr;
+    uint64_t kwin = key[wtr];
+    for (int node = (S2 + wtr) >> 1; node >= 1; node >>= 1) {
+      const int l = ls[node];
+      const uint64_t kl = key[l];
+      const uint64_t msk = (uint64_t)0 - (uint64_t)(kl < kwin);
+      ls[node] = (int)(((uint64_t)winner & msk) | ((uint64_t)l & ~msk));
+      winner = (int)(((uint64_t)l & msk) | ((uint64_t)winner & ~msk));
+      kwin = (kl & msk) | (kwin & ~msk);
+    }
+    ls[0] = winner;
+    wtr = winner;
+  }
+  return w + 1;
+}
+
+// Stream of raw sorted window codes (duplicates adjacent; each counts 1).
+template <int HW>
+struct WindowStream {
+  const void* hi;
+  const uint32_t* lo;
+  int64_t pos, stop;
+  inline uint64_t head() const {
+    return pos < stop ? code_hw<HW>(hi, lo, pos) : UINT64_MAX;
+  }
+  inline int64_t pop(uint64_t c) {
+    int64_t cnt = 0;
+    do {  // drain this stream's run of equal codes without tree replays
+      cnt++;
+      pos++;
+    } while (pos < stop && code_hw<HW>(hi, lo, pos) == c);
+    if (pos + 16 < stop) __builtin_prefetch(lo + pos + 16);
+    return cnt;
+  }
+};
+
+// Stream of pre-aggregated (code, count) runs (codes unique within one).
+struct RunStream {
+  const uint64_t* c;
+  const int64_t* n;
+  int64_t pos, stop;
+  inline uint64_t head() const { return pos < stop ? c[pos] : UINT64_MAX; }
+  inline int64_t pop(uint64_t) {
+    const int64_t cnt = n[pos];
+    pos++;
+    if (pos + 8 < stop) __builtin_prefetch(c + pos + 8);
+    return cnt;
+  }
+};
+
+// Merge ss (sorted window-code slices) writing sorted-unique (code, count).
+template <int HW>
+int64_t loser_tree_merge(std::vector<MergeStream>& ss, const void* hi,
+                         const uint32_t* lo, uint64_t* oc, int64_t* on) {
+  if (ss.size() == 1) {
+    // Single stream: plain RLE walk.
+    int64_t w = -1;
+    for (int64_t i = ss[0].pos; i < ss[0].stop; i++) {
+      uint64_t c = code_hw<HW>(hi, lo, i);
+      if (w >= 0 && oc[w] == c)
+        on[w]++;
+      else {
+        w++;
+        oc[w] = c;
+        on[w] = 1;
+      }
+    }
+    return w + 1;
+  }
+  std::vector<WindowStream<HW>> ws;
+  ws.reserve(ss.size());
+  for (auto& st : ss) ws.push_back({hi, lo, st.pos, st.stop});
+  return loser_tree_core(ws, oc, on);
+}
+
+// Hierarchical (two-stage) merge for high fan-in: bundles of <= kGroup
+// streams merge through L1-resident trees into scratch (code, count) runs,
+// then one tree over the runs. One extra memory pass buys shallow trees
+// at both stages — ~2x the flat tree past a few hundred streams.
+constexpr int kGroup = 128;
+constexpr int kTwoStageMin = 384;
+
+template <int HW>
+int64_t merge_two_stage(std::vector<MergeStream>& ss, const void* hi,
+                        const uint32_t* lo, uint64_t* oc, int64_t* on) {
+  const int64_t S = static_cast<int64_t>(ss.size());
+  int64_t in_total = 0;
+  for (auto& st : ss) in_total += st.stop - st.pos;
+  std::vector<uint64_t> sc_c(in_total);
+  std::vector<int64_t> sc_n(in_total);
+  std::vector<RunStream> runs;
+  runs.reserve((S + kGroup - 1) / kGroup);
+  int64_t off = 0;
+  for (int64_t g = 0; g < S; g += kGroup) {
+    int64_t ge = std::min<int64_t>(g + kGroup, S);
+    std::vector<MergeStream> bundle(ss.begin() + g, ss.begin() + ge);
+    int64_t cap = 0;
+    for (auto& st : bundle) cap += st.stop - st.pos;
+    int64_t len =
+        loser_tree_merge<HW>(bundle, hi, lo, sc_c.data() + off, sc_n.data() + off);
+    runs.push_back({sc_c.data() + off, sc_n.data() + off, 0, len});
+    off += cap;
+  }
+  return loser_tree_core(runs, oc, on);
+}
+
+// ---------------------------------------------------------------------------
+// SIMD pairwise merge ladder (AVX-512) — the fast host half of the
+// row-sorted sparse path on real (server-core) hosts.
+//
+// The loser tree above costs log2(R) dependent compares per element; even
+// branchless, that is ~10 Melem/s/thread at R=8192. A pairwise merge
+// ladder instead does log2(R)+1 sequential passes, each a streaming 2-way
+// merge that the 8x/16x-lane bitonic-merge network below sustains at
+// hundreds of Melem/s. The ladder recurses depth-first with a
+// length-balanced split, so subtrees up to cache size merge entirely in
+// cache and only the top levels pay DRAM bandwidth. Codes travel in their
+// native width (u32 for hi_width 0, u64 otherwise); the final pass RLEs
+// the single sorted run into the (code u64, count i64) table.
+//
+// Selection: merge_ladder when compiled with AVX-512, else the loser tree
+// (two-stage past kTwoStageMin streams).
+
+#if defined(__AVX512F__)
+
+// Bitonic-merge two ascending 8-lane u64 vectors: a = low 8, b = high 8.
+inline __m512i bclean_u64(__m512i v) {
+  // Cleaner for an 8-lane bitonic sequence: compare-exchange at
+  // distances 4, 2, 1. mask_blend bit=1 selects the max operand.
+  __m512i u, mn, mx;
+  u = _mm512_permutexvar_epi64(_mm512_setr_epi64(4, 5, 6, 7, 0, 1, 2, 3), v);
+  mn = _mm512_min_epu64(v, u);
+  mx = _mm512_max_epu64(v, u);
+  v = _mm512_mask_blend_epi64(0xF0, mn, mx);
+  u = _mm512_permutexvar_epi64(_mm512_setr_epi64(2, 3, 0, 1, 6, 7, 4, 5), v);
+  mn = _mm512_min_epu64(v, u);
+  mx = _mm512_max_epu64(v, u);
+  v = _mm512_mask_blend_epi64(0xCC, mn, mx);
+  u = _mm512_permutexvar_epi64(_mm512_setr_epi64(1, 0, 3, 2, 5, 4, 7, 6), v);
+  mn = _mm512_min_epu64(v, u);
+  mx = _mm512_max_epu64(v, u);
+  return _mm512_mask_blend_epi64(0xAA, mn, mx);
+}
+
+inline __m512i bclean_u32(__m512i v) {
+  __m512i u, mn, mx;
+  u = _mm512_permutexvar_epi32(
+      _mm512_setr_epi32(8, 9, 10, 11, 12, 13, 14, 15, 0, 1, 2, 3, 4, 5, 6, 7),
+      v);
+  mn = _mm512_min_epu32(v, u);
+  mx = _mm512_max_epu32(v, u);
+  v = _mm512_mask_blend_epi32(0xFF00, mn, mx);
+  u = _mm512_permutexvar_epi32(
+      _mm512_setr_epi32(4, 5, 6, 7, 0, 1, 2, 3, 12, 13, 14, 15, 8, 9, 10, 11),
+      v);
+  mn = _mm512_min_epu32(v, u);
+  mx = _mm512_max_epu32(v, u);
+  v = _mm512_mask_blend_epi32(0xF0F0, mn, mx);
+  u = _mm512_permutexvar_epi32(
+      _mm512_setr_epi32(2, 3, 0, 1, 6, 7, 4, 5, 10, 11, 8, 9, 14, 15, 12, 13),
+      v);
+  mn = _mm512_min_epu32(v, u);
+  mx = _mm512_max_epu32(v, u);
+  v = _mm512_mask_blend_epi32(0xCCCC, mn, mx);
+  u = _mm512_permutexvar_epi32(
+      _mm512_setr_epi32(1, 0, 3, 2, 5, 4, 7, 6, 9, 8, 11, 10, 13, 12, 15, 14),
+      v);
+  mn = _mm512_min_epu32(v, u);
+  mx = _mm512_max_epu32(v, u);
+  return _mm512_mask_blend_epi32(0xAAAA, mn, mx);
+}
+
+template <class T>
+struct VecMerge;
+
+template <>
+struct VecMerge<uint64_t> {
+  static constexpr int64_t kLanes = 8;
+  static inline void merge(__m512i& a, __m512i& b) {
+    // [a, reverse(b)] is one bitonic 16-sequence; first exchange at
+    // distance 8, then clean each half.
+    __m512i br =
+        _mm512_permutexvar_epi64(_mm512_setr_epi64(7, 6, 5, 4, 3, 2, 1, 0), b);
+    __m512i lo = _mm512_min_epu64(a, br);
+    __m512i hi = _mm512_max_epu64(a, br);
+    a = bclean_u64(lo);
+    b = bclean_u64(hi);
+  }
+};
+
+template <>
+struct VecMerge<uint32_t> {
+  static constexpr int64_t kLanes = 16;
+  static inline void merge(__m512i& a, __m512i& b) {
+    __m512i br = _mm512_permutexvar_epi32(
+        _mm512_setr_epi32(15, 14, 13, 12, 11, 10, 9, 8, 7, 6, 5, 4, 3, 2, 1,
+                          0),
+        b);
+    __m512i lo = _mm512_min_epu32(a, br);
+    __m512i hi = _mm512_max_epu32(a, br);
+    a = bclean_u32(lo);
+    b = bclean_u32(hi);
+  }
+};
+
+// Branchless scalar 2-way merge (cmov advance; ~50/50 compares mispredict).
+template <class T>
+inline T* scalar_merge2(const T* a, const T* ae, const T* b, const T* be,
+                        T* o) {
+  while (a < ae && b < be) {
+    const T ca = *a, cb = *b;
+    const bool t = ca <= cb;
+    *o++ = t ? ca : cb;
+    a += t;
+    b += !t;
+  }
+  while (a < ae) *o++ = *a++;
+  while (b < be) *o++ = *b++;
+  return o;
+}
+
+// Streaming SIMD 2-way merge of two sorted arrays into out (size na+nb).
+template <class T>
+void simd_merge2(const T* A, int64_t na, const T* B, int64_t nb, T* out) {
+  constexpr int64_t L = VecMerge<T>::kLanes;
+  if (na < 2 * L || nb < 2 * L) {
+    scalar_merge2(A, A + na, B, B + nb, out);
+    return;
+  }
+  __m512i v = _mm512_loadu_si512(A);
+  __m512i w = _mm512_loadu_si512(B);
+  int64_t ia = L, ib = L;
+  for (;;) {
+    VecMerge<T>::merge(v, w);  // v = low L (final), w = high L (carry)
+    _mm512_storeu_si512(out, v);
+    out += L;
+    if (ia + L > na || ib + L > nb) break;
+    // Refill from the stream whose head is smaller — the carry covers
+    // everything below the other stream's head.
+    const bool takeA = A[ia] <= B[ib];
+    v = _mm512_loadu_si512(takeA ? A + ia : B + ib);
+    ia += takeA ? L : 0;
+    ib += takeA ? 0 : L;
+  }
+  // Spill the carry; merge it with the drained stream's tail (< L elems),
+  // then that small run with the surviving stream's tail.
+  T spill[L], tmp[3 * L];
+  _mm512_storeu_si512(spill, w);
+  const T* ta = A + ia;
+  const int64_t ra = na - ia;
+  const T* tb = B + ib;
+  const int64_t rb = nb - ib;
+  if (ra <= rb) {
+    T* te = scalar_merge2(spill, spill + L, ta, ta + ra, tmp);
+    scalar_merge2(tmp, te, tb, tb + rb, out);
+  } else {
+    T* te = scalar_merge2(spill, spill + L, tb, tb + rb, tmp);
+    scalar_merge2(tmp, te, ta, ta + ra, out);
+  }
+}
+
+// Depth-first merge ladder over the streams' (hi, lo) slices. Buffers dst
+// and scr are full-partition sized; subtree [a, b) occupies
+// [pre[a], pre[b]) in either buffer, children write to scr with dst as
+// their scratch, so the subtree's final run lands in dst.
+template <int HW>
+struct MergeLadder {
+  using T = typename std::conditional<HW == 0, uint32_t, uint64_t>::type;
+  const void* hi;
+  const uint32_t* lo;
+  const MergeStream* ss;
+  const int64_t* pre;  // pre[i] = total elements of streams [0, i)
+
+  void widen(int s, T* dst) const {
+    const int64_t p = ss[s].pos, e = ss[s].stop;
+    if (HW == 0) {
+      memcpy(dst, lo + p, static_cast<size_t>(e - p) * sizeof(uint32_t));
+    } else {
+      for (int64_t i = p; i < e; i++) *dst++ = code_hw<HW>(hi, lo, i);
+    }
+  }
+
+  void run(int a, int b, T* dst, T* scr) const {
+    if (b - a == 1) {
+      widen(a, dst + pre[a]);
+      return;
+    }
+    // Split at the length midpoint so both halves stream comparable
+    // volumes through simd_merge2.
+    const int64_t want = (pre[a] + pre[b]) / 2;
+    int mid = static_cast<int>(
+        std::upper_bound(pre + a + 1, pre + b, want) - pre);
+    if (mid >= b) mid = b - 1;
+    run(a, mid, scr, dst);
+    run(mid, b, scr, dst);
+    simd_merge2(scr + pre[a], pre[mid] - pre[a], scr + pre[mid],
+                pre[b] - pre[mid], dst + pre[a]);
+  }
+};
+
+template <int HW>
+int64_t merge_ladder(std::vector<MergeStream>& ss, const void* hi,
+                     const uint32_t* lo, uint64_t* oc, int64_t* on) {
+  using T = typename std::conditional<HW == 0, uint32_t, uint64_t>::type;
+  const int S = static_cast<int>(ss.size());
+  std::vector<int64_t> pre(S + 1, 0);
+  for (int i = 0; i < S; i++) pre[i + 1] = pre[i] + (ss[i].stop - ss[i].pos);
+  const int64_t total = pre[S];
+  if (total == 0) return 0;
+  std::vector<T> b0(total), b1(total);
+  MergeLadder<HW> ml{hi, lo, ss.data(), pre.data()};
+  ml.run(0, S, b0.data(), b1.data());
+  return rle_run(b0.data(), total, oc, on);
+}
+
+#endif  // __AVX512F__
+
+template <int HW>
+int64_t merge_streams(std::vector<MergeStream>& ss, const void* hi,
+                      const uint32_t* lo, uint64_t* oc, int64_t* on) {
+#if defined(__AVX512F__)
+  if (ss.size() > 1) return merge_ladder<HW>(ss, hi, lo, oc, on);
+#endif
+  if (ss.size() >= kTwoStageMin) return merge_two_stage<HW>(ss, hi, lo, oc, on);
+  return loser_tree_merge<HW>(ss, hi, lo, oc, on);
 }
 
 // ---------------------------------------------------------------------------
@@ -1067,4 +1474,289 @@ int64_t kp_format_f6(const float* v, int64_t n, char* out, int64_t out_cap) {
   return w;
 }
 
+// Compact masked RLE output (device sparse tables) into dense arrays.
+// starts: bool mask [n]; returns number of set entries written to
+// out_hi/out_lo/out_cnt (caller allocates capacity >= popcount(starts);
+// call kp_count_starts first to size them).
+int64_t kp_count_starts(const uint8_t* starts, int64_t n) {
+  int64_t c = 0;
+  for (int64_t i = 0; i < n; i++) c += (starts[i] != 0);
+  return c;
+}
+
+int64_t kp_compact_rle(const uint32_t* hi, const uint32_t* lo,
+                       const int32_t* cnt, const uint8_t* starts, int64_t n,
+                       uint64_t* out_code, int64_t* out_cnt) {
+  int64_t w = 0;
+  for (int64_t i = 0; i < n; i++) {
+    if (starts[i]) {
+      out_code[w] = (static_cast<uint64_t>(hi[i]) << 32) | lo[i];
+      out_cnt[w] = cnt[i];
+      w++;
+    }
+  }
+  return w;
+}
+
+// Compact sorted window codes + run-start flags into a (code, count) table.
+// Run lengths are implied by consecutive start indices (the device never
+// computes them): count(j) = idx(j+1) - idx(j), last run closed by the
+// sentinel tail. hi may be NULL (hi_width 0: code = lo; k <= 15), uint16
+// (hi_width 2) or uint32 (hi_width 4). Multithreaded two-pass
+// (count-prefix-fill). Returns entries written.
+int64_t kp_compact_starts(const void* hi, int hi_width, const uint32_t* lo,
+                          const uint8_t* starts, int64_t n,
+                          uint64_t* out_code, int64_t* out_cnt) {
+  const int64_t end = sentinel_begin(hi, hi_width, lo, n);
+  if (end == 0) return 0;
+  const int nt = num_threads(end, 1 << 20);
+  std::vector<int64_t> range_begin(nt + 1);
+  for (int t = 0; t <= nt; t++) range_begin[t] = end * t / nt;
+  std::vector<int64_t> nstarts(nt, 0);
+
+  {
+    std::vector<std::thread> ths;
+    for (int t = 0; t < nt; t++)
+      ths.emplace_back([&, t] {
+        int64_t c = 0;
+        for (int64_t i = range_begin[t]; i < range_begin[t + 1]; i++)
+          c += (starts[i] != 0);
+        nstarts[t] = c;
+      });
+    for (auto& th : ths) th.join();
+  }
+  std::vector<int64_t> out_off(nt + 1, 0);
+  for (int t = 0; t < nt; t++) out_off[t + 1] = out_off[t] + nstarts[t];
+
+  {
+    std::vector<std::thread> ths;
+    for (int t = 0; t < nt; t++)
+      ths.emplace_back([&, t] {
+        int64_t w = out_off[t];
+        int64_t prev = -1;  // index of the last start seen in this range
+        for (int64_t i = range_begin[t]; i < range_begin[t + 1]; i++) {
+          if (!starts[i]) continue;
+          if (prev >= 0) out_cnt[w - 1] = i - prev;
+          out_code[w] = word_code(hi, hi_width, lo, i);
+          prev = i;
+          w++;
+        }
+        if (prev >= 0) {
+          // Close the range's last run: next start at/after the range end
+          // (runs can span range boundaries), else the sentinel tail.
+          int64_t nxt = range_begin[t + 1];
+          while (nxt < end && !starts[nxt]) nxt++;
+          out_cnt[w - 1] = nxt - prev;
+        }
+      });
+    for (auto& th : ths) th.join();
+  }
+  return out_off[nt];
+}
+
+// Number of distinct codes before the sentinel tail (sizes the output of
+// kp_compact_sorted).
+int64_t kp_count_distinct(const void* hi, int hi_width, const uint32_t* lo,
+                          int64_t n) {
+  const int64_t end = sentinel_begin(hi, hi_width, lo, n);
+  if (end == 0) return 0;
+  const int nt = num_threads(end, 1 << 20);
+  std::vector<int64_t> counts(nt, 0);
+  std::vector<std::thread> ths;
+  for (int t = 0; t < nt; t++)
+    ths.emplace_back([&, t] {
+      int64_t a = end * t / nt, b = end * (t + 1) / nt;
+      int64_t c = 0;
+      for (int64_t i = a; i < b; i++)
+        c += (i == 0 || word_code(hi, hi_width, lo, i) !=
+                            word_code(hi, hi_width, lo, i - 1));
+      counts[t] = c;
+    });
+  for (auto& th : ths) th.join();
+  int64_t total = 0;
+  for (int64_t c : counts) total += c;
+  return total;
+}
+
+// Compact sorted window codes into a (code, count) table with NO
+// device-side run-start flags: run boundaries are neighbor compares of the
+// codes this pass walks anyway (saves a device pass and 1 B/window of
+// D2H). Same word layout as kp_compact_starts. Multithreaded two-pass.
+int64_t kp_compact_sorted(const void* hi, int hi_width, const uint32_t* lo,
+                          int64_t n, uint64_t* out_code, int64_t* out_cnt) {
+  const int64_t end = sentinel_begin(hi, hi_width, lo, n);
+  if (end == 0) return 0;
+  const int nt = num_threads(end, 1 << 20);
+  std::vector<int64_t> range_begin(nt + 1);
+  for (int t = 0; t <= nt; t++) range_begin[t] = end * t / nt;
+  std::vector<int64_t> nstarts(nt, 0);
+
+  auto is_start = [&](int64_t i) {
+    return i == 0 || word_code(hi, hi_width, lo, i) !=
+                         word_code(hi, hi_width, lo, i - 1);
+  };
+
+  {
+    std::vector<std::thread> ths;
+    for (int t = 0; t < nt; t++)
+      ths.emplace_back([&, t] {
+        int64_t c = 0;
+        for (int64_t i = range_begin[t]; i < range_begin[t + 1]; i++)
+          c += is_start(i);
+        nstarts[t] = c;
+      });
+    for (auto& th : ths) th.join();
+  }
+  std::vector<int64_t> out_off(nt + 1, 0);
+  for (int t = 0; t < nt; t++) out_off[t + 1] = out_off[t] + nstarts[t];
+
+  {
+    std::vector<std::thread> ths;
+    for (int t = 0; t < nt; t++)
+      ths.emplace_back([&, t] {
+        int64_t w = out_off[t];
+        int64_t prev = -1;
+        for (int64_t i = range_begin[t]; i < range_begin[t + 1]; i++) {
+          if (!is_start(i)) continue;
+          if (prev >= 0) out_cnt[w - 1] = i - prev;
+          out_code[w] = word_code(hi, hi_width, lo, i);
+          prev = i;
+          w++;
+        }
+        if (prev >= 0) {
+          int64_t nxt = range_begin[t + 1];
+          while (nxt < end && !is_start(nxt)) nxt++;
+          out_cnt[w - 1] = nxt - prev;
+        }
+      });
+    for (auto& th : ths) th.join();
+  }
+  return out_off[nt];
+}
+
+// Sum of per-row valid prefixes for the [rows, m] row-sorted word layout
+// (each row ascending with an all-ones-sentinel tail). Sizes the output of
+// kp_compact_rows: distinct codes <= valid windows.
+int64_t kp_rows_valid(const void* hi, int hi_width, const uint32_t* lo,
+                      int64_t rows, int64_t m) {
+  int64_t total = 0;
+  for (int64_t r = 0; r < rows; r++) {
+    const void* h =
+        hi == nullptr
+            ? nullptr
+            : static_cast<const void*>(static_cast<const uint8_t*>(hi) +
+                                       r * m * hi_width);
+    total += sentinel_begin(h, hi_width, lo + r * m, m);
+  }
+  return total;
+}
+
+// Merge-compact R independently sorted rows of window codes into ONE
+// sorted-unique (code, count) table in a single pass.
+//
+// This is the host half of the row-sorted sparse path: the device sorts
+// [R, m] rows independently and this function does the R-way merge the
+// device skipped. Multithreaded by sampled code-range partition; each
+// partition runs a multiway merge (merge_streams) over its row slices,
+// accumulating duplicate codes at the output cursor (rows carry raw
+// windows, so each element contributes count 1).
+//
+// Layout matches the device output: row r = lo[r*m .. r*m+m), optional hi
+// words parallel (hi_width 0 / 2 / 4), each row ascending with the
+// all-ones sentinel marking its invalid tail. out arrays must hold
+// kp_rows_valid(...) entries. Returns entries written.
+int64_t kp_compact_rows(const void* hi, int hi_width, const uint32_t* lo,
+                        int64_t rows, int64_t m, uint64_t* out_code,
+                        int64_t* out_cnt) {
+  // Per-row valid ends (absolute indices into the flat arrays).
+  std::vector<int64_t> row_beg(rows), row_end(rows);
+  int64_t total = 0;
+  for (int64_t r = 0; r < rows; r++) {
+    const void* h =
+        hi == nullptr
+            ? nullptr
+            : static_cast<const void*>(static_cast<const uint8_t*>(hi) +
+                                       r * m * hi_width);
+    row_beg[r] = r * m;
+    row_end[r] = r * m + sentinel_begin(h, hi_width, lo + r * m, m);
+    total += row_end[r] - row_beg[r];
+  }
+  if (total == 0) return 0;
+  const int nt = num_threads(total, 1 << 20);
+
+  auto code_at = [&](int64_t i) { return word_code(hi, hi_width, lo, i); };
+
+  // Sampled pivots across rows (rows are sorted, striding samples the
+  // distribution; robust to skew).
+  std::vector<uint64_t> samples;
+  samples.reserve(static_cast<size_t>(rows) * 8 + 8);
+  for (int64_t r = 0; r < rows; r++) {
+    int64_t n = row_end[r] - row_beg[r];
+    int64_t step = std::max<int64_t>(1, n / 8);
+    for (int64_t j = 0; j < n; j += step) samples.push_back(code_at(row_beg[r] + j));
+  }
+  std::sort(samples.begin(), samples.end());
+  std::vector<uint64_t> pivot(nt + 1);
+  pivot[0] = 0;
+  pivot[nt] = UINT64_MAX;
+  for (int t = 1; t < nt; t++) pivot[t] = samples[samples.size() * t / nt];
+
+  // Per (partition, row) slice starts via binary search on the code.
+  std::vector<std::vector<int64_t>> cut(nt + 1, std::vector<int64_t>(rows));
+  for (int64_t r = 0; r < rows; r++) {
+    cut[0][r] = row_beg[r];
+    cut[nt][r] = row_end[r];
+    for (int t = 1; t < nt; t++) {
+      int64_t a = row_beg[r], b = row_end[r];
+      while (a < b) {
+        int64_t mid = a + (b - a) / 2;
+        if (code_at(mid) < pivot[t])
+          a = mid + 1;
+        else
+          b = mid;
+      }
+      cut[t][r] = a;
+    }
+  }
+  std::vector<int64_t> part_cap(nt + 1, 0);
+  for (int t = 0; t < nt; t++) {
+    int64_t c = 0;
+    for (int64_t r = 0; r < rows; r++) c += cut[t + 1][r] - cut[t][r];
+    part_cap[t + 1] = part_cap[t] + c;
+  }
+
+  std::vector<int64_t> part_len(nt, 0);
+  {
+    std::vector<std::thread> ths;
+    for (int t = 0; t < nt; t++)
+      ths.emplace_back([&, t] {
+        uint64_t* oc = out_code + part_cap[t];
+        int64_t* on = out_cnt + part_cap[t];
+        std::vector<MergeStream> ss;
+        ss.reserve(rows);
+        for (int64_t r = 0; r < rows; r++)
+          if (cut[t][r] < cut[t + 1][r])
+            ss.push_back({cut[t][r], cut[t + 1][r]});
+        if (hi_width == 0)
+          part_len[t] = merge_streams<0>(ss, hi, lo, oc, on);
+        else if (hi_width == 2)
+          part_len[t] = merge_streams<2>(ss, hi, lo, oc, on);
+        else
+          part_len[t] = merge_streams<4>(ss, hi, lo, oc, on);
+      });
+    for (auto& th : ths) th.join();
+  }
+
+  int64_t w = part_len.empty() ? 0 : part_len[0];
+  for (int t = 1; t < nt; t++) {
+    if (part_cap[t] != w) {
+      memmove(out_code + w, out_code + part_cap[t],
+              part_len[t] * sizeof(uint64_t));
+      memmove(out_cnt + w, out_cnt + part_cap[t],
+              part_len[t] * sizeof(int64_t));
+    }
+    w += part_len[t];
+  }
+  return w;
+}
 }  // extern "C"

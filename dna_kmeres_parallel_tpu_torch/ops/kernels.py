@@ -117,6 +117,8 @@ def load() -> ctypes.CDLL:
     lib.kp_owner_segments.argtypes = [vp, vp, vp, ll, ci, ci, ci, vp, vp, vp]
     lib.kp_row_roll.restype = ci
     lib.kp_row_roll.argtypes = [vp, vp, ll, ci, vp, vp]
+    lib.kp_row_sort.restype = ci
+    lib.kp_row_sort.argtypes = [vp, ll, ci, vp, vp]
     lib.kp_encode_stream.restype = ci
     lib.kp_encode_stream.argtypes = [vp, ll, ll, ci, ci, vp, vp, ci, vp]
     lib.kp_counts_matrix.restype = ci

@@ -1,10 +1,10 @@
-"""Owner-segment extraction (K10) and its unit probe (P1): CUDA wrappers,
-launch counters and plain PyTorch versions.
+"""The row sort (K11), owner-segment extraction (K10) and its unit probe
+(P1): CUDA wrappers, launch counters and plain PyTorch versions.
 
-The counterpart of ``dna_kmeres_parallel_tpu/ops/sort_pallas.py``'s
-``extract_owner_segments`` and of the probe ``scripts/dynroll_probe.py``,
-both in ``csrc/owner_segments.cu``. K11, the same module's in-VMEM row
-sort, is not ported: the port sorts rows with ``torch.sort``.
+The counterparts of ``dna_kmeres_parallel_tpu/ops/sort_pallas.py``'s
+``row_sort_pallas_u32`` (``csrc/row_sort.cu``) and
+``extract_owner_segments``, and of the probe ``scripts/dynroll_probe.py``
+(both in ``csrc/owner_segments.cu``).
 
 Planes are int32 tensors holding u32 bits, with the all-ones sentinel -1.
 A tensor on the card goes to the kernel, a tensor on the CPU to the plain
@@ -21,6 +21,15 @@ import torch
 OWNER_LAUNCHES = 0
 #: P1:
 ROLL_LAUNCHES = 0
+#: K11:
+ROW_SORT_LAUNCHES = 0
+
+#: K11's row lengths: powers of two from 128 to 32,768 words (a row of
+#: 32,768 words fills 128 KB of the block's shared memory)
+MIN_ROW_SORT_M = 128
+MAX_ROW_SORT_M = 32768
+#: x ^ INT32_MIN maps unsigned order onto int32's signed order
+INT32_MIN = -(1 << 31)
 
 #: devices on which P1 has passed its probe in this process
 _PROBED: set[str] = set()
@@ -184,3 +193,62 @@ def probe_row_roll(device: torch.device) -> None:
     if not torch.equal(got, want):
         raise RuntimeError(f"the row-roll probe failed on {device}: rows {got[:, :4].tolist()}")
     _PROBED.add(key)
+
+
+def row_sort_fits(m: int) -> bool:
+    """Whether K11 sorts rows of m words: a power of two from
+    MIN_ROW_SORT_M to MAX_ROW_SORT_M (so a multiple of 128)."""
+    return MIN_ROW_SORT_M <= m <= MAX_ROW_SORT_M and m & (m - 1) == 0
+
+
+def check_row_sort(x: torch.Tensor) -> None:
+    """The shapes and types K11 takes: int32 [R, m], R >= 1, m a power of
+    two from 128 to 32,768."""
+    if x.dtype != torch.int32 or x.dim() != 2:
+        raise ValueError(f"x must be int32 [R, m], got {x.dtype} {tuple(x.shape)}")
+    R, m = x.shape
+    if R < 1 or not row_sort_fits(m):
+        raise ValueError(
+            f"row sort needs R >= 1 rows of m words, m a power of two in "
+            f"[{MIN_ROW_SORT_M}, {MAX_ROW_SORT_M}]; got [{R}, {m}]"
+        )
+
+
+def row_sort_u32_cuda(x: torch.Tensor) -> torch.Tensor:
+    """Launch K11 on the card: each row of x sorted ascending as u32."""
+    global ROW_SORT_LAUNCHES
+    check_row_sort(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"row_sort_u32_cuda needs a CUDA tensor, got {x.device}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("row_sort_u32_cuda needs a contiguous, 16-byte aligned tensor")
+    from dna_kmeres_parallel_tpu_torch.ops import kernels
+
+    lib = kernels.load()
+    R, m = x.shape
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = lib.kp_row_sort(
+            x.data_ptr(), R, m, out.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"kp_row_sort launch failed: cudaError_t {rc}")
+    ROW_SORT_LAUNCHES += 1
+    return out
+
+
+def row_sort_u32_reference(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K11: ``torch.sort`` of the biased keys
+    (x ^ INT32_MIN orders u32 bits as int32), unbiased again."""
+    check_row_sort(x)
+    return torch.sort(x ^ INT32_MIN, dim=-1).values ^ INT32_MIN
+
+
+def row_sort_u32(x: torch.Tensor) -> torch.Tensor:
+    """K11 on the card, its plain version on the CPU."""
+    if x.device.type == "cuda":
+        return row_sort_u32_cuda(x)
+    if x.device.type == "cpu":
+        return row_sort_u32_reference(x)
+    raise ValueError(f"no row sort for device {x.device}")

@@ -191,8 +191,11 @@ def _route_owner(b, hi, lo, valid, k, D, owner_mode, minimizer_m,
                               dtype=torch.int32, device=owner.device)
             owner = torch.cat([owner, tail])
     else:
-        # hi is None in the single-word band; there use_hi arises only at
-        # D=1, where every owner is 0 whatever the source word.
+        # hi is None in the single-word band, where use_hi arises only at
+        # D=1 and every owner must be 0. A caller that reads the owners
+        # passes hi widened to zeros there (_agg_shard); with hi None the
+        # owner falls back to lo, which is right only where the owners are
+        # not read (the raw exchange's prefix routes cut by the word).
         owner_src = hi if (use_hi and hi is not None) else lo
         owner = (((_unsigned(owner_src) >> shift) * D) >> t_bits).to(torch.int32)
     return torch.where(valid, owner, D)
@@ -519,9 +522,11 @@ def _agg_shard(inp, n_own, *, k, canonical, D, owner_mode, minimizer_m, cap):
     shift, t_bits, use_hi = _owner_bits(k, D)
     b, hi_n, lo, valid, mins = _encode_shard(inp, n_own, k, canonical, owner_mode,
                                              minimizer_m)
-    owner = _route_owner(b, hi_n, lo, valid, k, D, owner_mode, minimizer_m,
-                         shift, t_bits, use_hi, mins=mins)
+    # Route by hi widened to zeros in the single-word band, as the JAX
+    # path does: at D=1 the prefix owner of every window is then 0.
     hi = torch.zeros_like(lo) if hi_n is None else hi_n
+    owner = _route_owner(b, hi, lo, valid, k, D, owner_mode, minimizer_m,
+                         shift, t_bits, use_hi, mins=mins)
     code = torch.where(valid, (_unsigned(hi) << 32) | _unsigned(lo), _INT64_MAX)
     del b, hi_n, hi, lo, mins
     # Group by (owner, code): sort by code, then stably by owner. Invalid
@@ -745,6 +750,7 @@ def exchange_superkmers_bucket_sharded(
     D*cap] of packed record bases (u32 bits); meta: int32 [local shards,
     D*cap] run lengths in windows (0 = unused slot)."""
     D = mesh.size
+    superkmer_geometry(k, minimizer_m)  # raises unless 1 <= m < k, before the capacity
     shard_fn = functools.partial(
         _super_shard, k=k, D=D, minimizer_m=minimizer_m,
         cap=_superkmer_capacity(bases.shape[1] - k + 1, D, k, minimizer_m),

@@ -31,16 +31,25 @@ class KmerConfig:
          base: the encoder's u32 planes for k = 4..8, counted by K5; the
          packed bytes and validity bits for k <= 3, unpacked on the
          device) instead of 1 B per base (K6, K7).
+      sort_row_len: sparse counter with ``device_sort=True``: sort each
+         batch's window words as independent rows of this length (the
+         host's native row compactor merges the rows); 0 sorts them as one
+         flat array.
       device_sort: sparse counter: whether the device sorts the window
-         words. Only None (no device sort) is ported; True raises.
+         words. None (the default) and False: no device sort, the native
+         radix compactor builds each table from unsorted words (the port
+         always has its native library, so None never sorts). True: the
+         device sorts (``sort_row_len``) and the host compacts sorted
+         words.
       compact: streaming sparse counter (``models/pipeline.py``): where
          each batch's table is built. Ported: "device" (encode on the
          card, words to the host, radix compaction there), "host" (the
          native engine counts the host-resident stream; nothing crosses
-         the link) and "auto" (races the two and keeps re-checking the
-         loser). "device-rle" and "device-super" raise there (ROADMAP
-         items 14 and 11). The one-shot engines ignore it, as the JAX
-         package's do.
+         the link), "auto" (races the two and keeps re-checking the
+         loser) and "device-rle" (the card sorts each batch and collapses
+         its runs; only the distinct (code, count) pairs come back).
+         "device-super" raises there (ROADMAP item 11). The one-shot
+         engines ignore it, as the JAX package's do.
       mesh_shape: the device mesh of a data-parallel stream; a mesh of
          more than one device is not ported (ROADMAP item 10).
     """
@@ -52,6 +61,7 @@ class KmerConfig:
     dense_bins_limit: int = 1 << 24
     parser_variant: str = "modern"
     pack_input: bool = True
+    sort_row_len: int = 2048
     device_sort: bool | None = None
     compact: str = "auto"
     mesh_shape: tuple[int, ...] = ()
@@ -70,6 +80,8 @@ class KmerConfig:
             )
         if self.compact not in _COMPACT_MODES:
             raise ValueError(f"bad compact {self.compact!r}")
+        if self.sort_row_len < 0:
+            raise ValueError(f"sort_row_len must be >= 0, got {self.sort_row_len}")
 
     @property
     def bins(self) -> int:

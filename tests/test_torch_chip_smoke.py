@@ -1,8 +1,9 @@
 """``chip_smoke.py``'s own parts, on the CPU: the seeded records, their
 FASTA, the plain reference table the counting path is held against on
 the card, and rehearsals of the dense counting path, the streaming path,
-the distance path and the bucketed path at a small size (the kernels' plain versions standing in for the
-kernels, counted as they would be). Exact integers and float32 bits: the tolerance is zero."""
+the distance path, the bucketed path and the device-sort path at a small
+size (the kernels' plain versions standing in for the kernels, counted as
+they would be). Exact integers and float32 bits: the tolerance is zero."""
 
 import re
 import sys
@@ -299,3 +300,69 @@ def test_bucket_path_rehearsal(records, tmp_path, monkeypatch, counted_bucket_pl
     assert fired[names[9]] == {"encode_packed_minimizer": 1, "owner_segments": 1}
     assert set(refs) == {("table", 31, False), ("table", 31, True), ("small", 31, False),
                          ("small", 21, False), ("skew", 31, False)}
+
+
+def test_sort_rows_input_layout():
+    x = chip_smoke.sort_rows_input(9, 128, 1, CPU)
+    assert x.dtype == torch.int32 and x.shape == (9, 128)
+    assert x[0, :4].tolist() == [0, -1, 2**31 - 1, -(2**31)]
+    assert (x[4] == -1).all() and (x[3, -42:] == -1).all()
+    assert (x < 0).any() and (x > 0).any()
+
+
+def test_dup_records_repeat_the_first_records(records):
+    stream, starts, lengths = chip_smoke.dup_records(records, 1000, 3)
+    assert lengths.size == 3 and stream.size == 3 * lengths[0] + 2
+    first = records[0][: records[2][0]]
+    for s in starts:
+        assert np.array_equal(stream[s : s + lengths[0]], first)
+    assert np.all(stream[starts[1:] - 1] == chip_smoke.INVALID)
+
+
+@pytest.fixture
+def counted_sort_plain_versions(monkeypatch):
+    """Route the device-sort path's kernels to their plain versions on the
+    CPU, each adding to the launch count of the kernel the card would run:
+    K1 for the planes' encode, K11 for the row sort."""
+    from dna_kmeres_parallel_tpu_torch.ops import encode_cuda, sort_cuda
+
+    plain_encode = encode_cuda.encode_packed_reference
+    plain_sort = sort_cuda.row_sort_u32_reference
+
+    def encode(*a, **kw):
+        encode_cuda.LAUNCHES += 1
+        return plain_encode(*a, **kw)
+
+    def row_sort(x):
+        sort_cuda.ROW_SORT_LAUNCHES += 1
+        return plain_sort(x)
+
+    monkeypatch.setattr(encode_cuda, "encode_packed_reference", encode)
+    monkeypatch.setattr(sort_cuda, "row_sort_u32_reference", row_sort)
+
+
+def test_sort_path_rehearsal(records, tmp_path, monkeypatch, counted_sort_plain_versions):
+    # The main path's two records (about 500 kbase) in 64 kbase batches;
+    # the duplicated inputs are the first record three times and twice.
+    monkeypatch.setattr(chip_smoke, "SORT_BATCH_BASES", 1 << 16)
+    monkeypatch.setattr(chip_smoke, "SORT_DUPS", ((1 << 16, 3), (1, 2)))
+    monkeypatch.setattr(chip_smoke, "SORT_SMALL_BASES", 1 << 16)
+    path = tmp_path / "smoke.fasta"
+    chip_smoke.write_fasta(path, *records)
+    refs: dict = {}
+    launches = chip_smoke.phase_sort_path(records, path, CPU, "cpu", refs)
+    fired = {name: {k: c for k, c in got.items() if c} for name, got in launches.items()}
+    n = -(-records[0].size // (1 << 16))
+    names = list(fired)
+    assert len(names) == 10 and names[5] == chip_smoke.SORT_MAIN
+    assert fired[chip_smoke.SORT_MAIN] == {"encode_packed": n, "row_sort": n}
+    for name in names[:5]:
+        assert fired[name] == {"encode_packed": n}, name
+    assert fired[names[6]] == {"encode_packed": n}
+    for name, copies in zip(names[7:9], (3, 2)):
+        dup_batches = -(-(copies * (int(records[2][0]) + 1) - 1) // (1 << 16))
+        assert fired[name] == {"encode_packed": dup_batches}, name
+    assert fired[names[9]] == {"encode_packed": 1}
+    assert set(refs) == {("table", 21, False), ("table", 11, True), ("dup", 1 << 16, 3),
+                         ("dup", 1, 2), ("small", 13, False)}
+    assert not (tmp_path / "dup.fasta").exists()

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
 the card: K1 (encode) and its minimizer plane K1m, K2 (counts matrix), K3
 and K4 ((min,+) products), K5-K8 (dense histograms), K9 (u8 encode), K10
-(owner segments) and P1 (row roll); and the paths that run them.
+(owner segments), P1 (row roll) and K11 (row sort); and the paths that
+run them.
 Every test here needs an NVIDIA card and skips without one.
 
 The file imports no JAX, so it also runs where JAX is not installed (as on
@@ -572,3 +573,114 @@ def test_bucketed_nccl_one_rank_equals_local_mesh(cuda_device, tmp_path):
     want = bucketed.count_bucket_auto(flat, 31, False, LocalMesh(1, "cuda"),
                                       owner_mode="minimizer")
     assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+
+
+# ---------------------------------------------------------------------------
+# The device-sort route: K11 (the row sort) and the path
+
+
+def row_sort_input(R: int, m: int, seed: int) -> torch.Tensor:
+    """int32 [R, m] of random u32 bits, the bias-order extremes in row 0,
+    a sentinel tail in every third row and one row all sentinels."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randint(-(2**31), 2**31, (R, m), generator=g, dtype=torch.int64).to(torch.int32)
+    x[0, :4] = torch.tensor([0, -1, 2**31 - 1, -(2**31)], dtype=torch.int32)
+    x[::3, m // 2 :] = -1
+    x[R // 2] = -1
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768])
+@pytest.mark.parametrize("R", [1, 9, 37])
+def test_row_sort_kernel_matches_plain_on_card(cuda_device, R, m):
+    from dna_kmeres_parallel_tpu_torch.ops import sort_cuda
+
+    x = row_sort_input(R, m, R * m).to(cuda_device)
+    launches = sort_cuda.ROW_SORT_LAUNCHES
+    got = sort_cuda.row_sort_u32(x)
+    assert sort_cuda.ROW_SORT_LAUNCHES == launches + 1
+    torch.cuda.synchronize()
+    want = sort_cuda.row_sort_u32_reference(x)
+    assert torch.equal(got, want)
+    assert torch.equal(want.cpu(), sort_cuda.row_sort_u32(x.cpu()))
+    assert int(got[0, -1]) == -1  # the all-ones sentinel sorts last
+
+
+@pytest.mark.cuda
+def test_row_sort_kernel_refuses_bad_input(cuda_device):
+    from dna_kmeres_parallel_tpu_torch.ops import sort_cuda
+
+    for shape in ((4, 100), (4, 192), (4, 65536), (0, 128), (128,)):
+        with pytest.raises(ValueError):
+            sort_cuda.row_sort_u32(torch.zeros(shape, dtype=torch.int32, device=cuda_device))
+    with pytest.raises(ValueError):
+        sort_cuda.row_sort_u32(torch.zeros((4, 128), dtype=torch.int64, device=cuda_device))
+    flat = torch.zeros(4 * 128 + 1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        sort_cuda.row_sort_u32_cuda(flat[1:].view(4, 128))
+    with pytest.raises(ValueError, match="CUDA"):
+        sort_cuda.row_sort_u32_cuda(torch.zeros((4, 128), dtype=torch.int32))
+
+
+def sort_fasta(path, seed: int) -> None:
+    """Five records of about 27 kbase (4% N) with a duplicated stretch."""
+    rng = np.random.default_rng(seed)
+    core = "".join(rng.choice(list("ACGT"), size=3000))
+    with open(path, "w") as f:
+        for i, n in enumerate((5000, 3, 12000, 700, 9000)):
+            s = "".join(rng.choice(list("ACGTN"), size=n, p=[0.24] * 4 + [0.04]))
+            f.write(f">r{i}\n{s}{core}\n")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "k,canonical,pack,row_len,pallas_sort",
+    [(11, True, True, 2048, True), (13, False, False, 128, True), (15, False, True, 512, True),
+     (13, False, True, 2048, False), (16, False, True, 2048, True), (21, False, False, 2048, True),
+     (24, True, True, 128, False), (31, False, False, 0, False), (11, False, True, 0, True)],
+)
+def test_device_sort_on_card_equals_cpu(cuda_device, tmp_path, k, canonical, pack, row_len,
+                                        pallas_sort):
+    # The device-sort route on the card against its CPU route, through both
+    # entries: K11 runs once per batch where its gate holds (single-word
+    # keys, a row length it takes), and never otherwise.
+    from dna_kmeres_parallel_tpu_torch import KmerConfig
+    from dna_kmeres_parallel_tpu_torch.models.pipeline import StreamingCounter
+    from dna_kmeres_parallel_tpu_torch.models.sparse_engine import SparseKmerEngine
+    from dna_kmeres_parallel_tpu_torch.ops import sort_cuda
+
+    path = tmp_path / "s.fasta"
+    sort_fasta(path, k)
+    cfg = KmerConfig(k=k, canonical=canonical, pack_input=pack, device_sort=True,
+                     sort_row_len=row_len, batch_bases=8192, compact="device",
+                     dense_bins_limit=1)
+    gate = pallas_sort and k <= 15 and row_len >= 128
+    out = {}
+    for dev in ("cuda", "cpu"):
+        launches = sort_cuda.ROW_SORT_LAUNCHES
+        one = SparseKmerEngine(cfg, device=dev, pallas_sort=pallas_sort).count_file(str(path))
+        sc = StreamingCounter(cfg, device=dev, pallas_sort=pallas_sort)
+        out[dev] = (one, sc.run(str(path)))
+        if dev == "cuda":
+            batches = sc.metrics.counters["batches"]
+            assert batches >= 5
+            assert sort_cuda.ROW_SORT_LAUNCHES - launches == (2 * batches if gate else 0)
+    for a, b in zip(*out.values()):
+        assert np.array_equal(a.codes, b.codes) and np.array_equal(a.counts, b.counts)
+    assert np.array_equal(out["cpu"][0].codes, out["cpu"][1].codes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,pack", [(11, True), (21, False), (31, True)])
+def test_device_rle_on_card_equals_cpu(cuda_device, tmp_path, k, pack):
+    from dna_kmeres_parallel_tpu_torch import KmerConfig
+    from dna_kmeres_parallel_tpu_torch.models.pipeline import StreamingCounter
+
+    path = tmp_path / "s.fasta"
+    sort_fasta(path, k)
+    cfg = KmerConfig(k=k, pack_input=pack, compact="device-rle", batch_bases=8192,
+                     dense_bins_limit=1)
+    got = StreamingCounter(cfg, device="cuda").run(str(path))
+    want = StreamingCounter(cfg.replace(compact="host"), device="cpu").run(str(path))
+    assert np.array_equal(got.codes, want.codes) and np.array_equal(got.counts, want.counts)

@@ -237,7 +237,9 @@ def test_count_only_empty_records(k):
 
 @pytest.mark.parametrize("k", [3, 6])
 def test_flush_limit_keeps_the_histogram(monkeypatch, k):
-    # A flush every two 1,024-base batches gives the same counts.
+    # A flush every two 1,024-base batches gives the same counts: with a
+    # limit of 2,048 windows the accumulator flushes before each batch
+    # that could take it past the limit.
     seqs = fasta_records()
     want = port.count_sequences(seqs, k=k, device="cpu", batch_bases=BATCH).hist
     drains = []
@@ -247,12 +249,53 @@ def test_flush_limit_keeps_the_histogram(monkeypatch, k):
         drains.append(t.numel())
         return real_cpu(t)
 
-    monkeypatch.setattr(engine, "FLUSH_WINDOWS", 1500)
+    monkeypatch.setattr(engine, "FLUSH_WINDOWS", 2 * BATCH)
     monkeypatch.setattr(torch.Tensor, "cpu", counted_cpu)
     got = port.count_sequences(seqs, k=k, device="cpu", batch_bases=BATCH).hist
     monkeypatch.undo()
     assert np.array_equal(got, want)
-    assert drains.count(4**k) == 3  # after batches 2 and 4, and at the end
+    assert drains.count(4**k) == 3  # before batches 3 and 5, and at the end
+
+
+@pytest.mark.parametrize("entry", ["count_sequences", "stream"])
+def test_batch_past_the_limit_raises(monkeypatch, tmp_path, entry):
+    # With the limit set below one batch, both dense entries refuse it.
+    from dna_kmeres_parallel_tpu_torch.models.pipeline import StreamingCounter
+
+    monkeypatch.setattr(engine, "FLUSH_WINDOWS", BATCH - 1)
+    seqs = fasta_records()
+    with pytest.raises(ValueError, match=f"batch_bases={BATCH}"):
+        if entry == "count_sequences":
+            port.count_sequences(seqs, k=3, device="cpu", batch_bases=BATCH)
+        else:
+            path = tmp_path / "in.fasta"
+            path.write_text("".join(f">r{i}\n{r}\n" for i, r in enumerate(seqs)))
+            cfg = port.KmerConfig(k=3, batch_bases=BATCH)
+            StreamingCounter(cfg, device="cpu").run(str(path))
+
+
+@pytest.mark.parametrize("k", [3, 6])
+def test_streaming_flush_limit_keeps_the_histogram(monkeypatch, tmp_path, k):
+    # The streaming counter's dense arm flushes by the same rule.
+    from dna_kmeres_parallel_tpu_torch.models.pipeline import StreamingCounter
+
+    path = tmp_path / "in.fasta"
+    path.write_text("".join(f">r{i}\n{r}\n" for i, r in enumerate(fasta_records())))
+    cfg = port.KmerConfig(k=k, batch_bases=BATCH)
+    want = StreamingCounter(cfg, device="cpu").run(str(path)).hist
+    drains = []
+    real_cpu = torch.Tensor.cpu
+
+    def counted_cpu(t):
+        drains.append(t.numel())
+        return real_cpu(t)
+
+    monkeypatch.setattr(engine, "FLUSH_WINDOWS", 2 * BATCH)
+    monkeypatch.setattr(torch.Tensor, "cpu", counted_cpu)
+    got = StreamingCounter(cfg, device="cpu").run(str(path)).hist
+    monkeypatch.undo()
+    assert np.array_equal(got, want)
+    assert drains.count(4**k) == 3  # before batches 3 and 5, and at the end
 
 
 def test_count_result_table_and_totals():

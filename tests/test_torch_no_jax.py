@@ -75,13 +75,29 @@ for name, kw in (("raw", {"owner_mode": "minimizer", "exchange": "raw"}),
                  ("agg", {"exchange": "agg"}), ("super", {"exchange": "super"})):
     codes, counts = bucketed.count_bucket_auto(flat, 21, False, LocalMesh(4, "cpu"), **kw)
     bucket[name] = {codec.code_to_kmer(int(c), 21): int(n) for c, n in zip(codes, counts)}
+# The device-sort route: rows through K11's plain version (k=13 with
+# pallas_sort), rows and one flat sort through torch.sort (k=21), and the
+# streamed device-rle arm.
+from dna_kmeres_parallel_tpu_torch.models.sparse_engine import SparseKmerEngine
+
+device_sort = {}
+for name, k, kw, pallas_sort in (("k13 rows K11", 13, {"sort_row_len": 128}, True),
+                                 ("k21 rows", 21, {}, False),
+                                 ("k21 flat", 21, {"sort_row_len": 0}, False)):
+    cfg = port.KmerConfig(k=k, batch_bases=128, device_sort=True, **kw)
+    eng = SparseKmerEngine(cfg, device="cpu", pallas_sort=pallas_sort)
+    device_sort[name] = eng.count_sequences(seqs).table()
+sc = StreamingCounter(port.KmerConfig(k=21, batch_bases=128, compact="device-rle"),
+                      device="cpu")
+device_sort["k21 rle"] = sc.run(fasta_path).table()
 banned = [
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "dna_kmeres_parallel_tpu")
 ]
 assert not banned, banned
 print(json.dumps({"table": res.table(), "dense": dense, "streamed": streamed,
-                  "bucket": bucket, "bits": dist.packed.view("u4").tolist()}))
+                  "bucket": bucket, "device_sort": device_sort,
+                  "bits": dist.packed.view("u4").tolist()}))
 """
 
 SEQS = ["ACGTTGCANNACGTACGTTTTTTTTTTTTTTTTTTTTTTTTGCA" * 7, "GATTACA" * 40, "ACGTAC"]
@@ -113,6 +129,9 @@ def test_port_runs_with_jax_refused(tmp_path):
     assert len(out["bucket"]) == 3
     for name, table in out["bucket"].items():
         assert table == oracle.count_table_any_k(SEQS, 21), name
+    assert len(out["device_sort"]) == 4
+    for name, table in out["device_sort"].items():
+        assert table == oracle.count_table_any_k(SEQS, int(name[1:3])), name
     want = oracle.distance_matrix_packed(SEQS, 3)
     assert out["bits"] == want.view(np.uint32).tolist()
     assert csv.read_bytes() == "".join("%f\n" % v for v in want).encode()

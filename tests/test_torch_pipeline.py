@@ -323,11 +323,7 @@ def test_sparse_compact_auto_exact_on_coverage_data(tmp_path, make_dna):
     assert result.table() == oracle.count_table_any_k([s for _, s in reads], 21)
 
 
-@pytest.mark.parametrize(
-    "kw,item",
-    [({"compact": "device-rle"}, "14"), ({"compact": "device-super"}, "11"),
-     ({"device_sort": True}, "14")],
-)
+@pytest.mark.parametrize("kw,item", [({"compact": "device-super"}, "11")])
 def test_unported_sparse_routes_raise(fasta_file, kw, item):
     path, _ = fasta_file
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):

@@ -74,12 +74,10 @@ def test_count_sequences_short_and_empty_streams():
         assert res.table() == oracle.count_table_any_k(seqs, 21)
 
 
-@pytest.mark.parametrize(
-    "kw", [{"device_sort": True}, {"compact": "device-super"}, {"compact": "device-rle"}]
-)
+@pytest.mark.parametrize("kw", [{"compact": "device-super"}])
 def test_unported_routes_raise(tmp_path, kw):
-    # The engine refuses the device-sort route; the compact modes belong to
-    # the streaming counter, which refuses the unported ones.
+    # The compact modes belong to the streaming counter, which refuses the
+    # unported one.
     from dna_kmeres_parallel_tpu_torch.models.pipeline import StreamingCounter
 
     cfg = port.KmerConfig(k=21, **kw)
@@ -87,9 +85,6 @@ def test_unported_routes_raise(tmp_path, kw):
     fasta.write_fasta(path, [(">r", "ACGT" * 30)])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         StreamingCounter(cfg, device="cpu").run(str(path))
-    if "device_sort" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SparseKmerEngine(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("compact", ["auto", "device", "host", "device-rle", "device-super"])
