@@ -12,8 +12,11 @@ exits nonzero:
 3. K1 against its plain PyTorch version on the card, element for element,
    and both timed with CUDA events at the main path's batch; then the
    dense histogram kernels K5-K8 the same way: k in {1, 2, 3, 4, 6, 7, 8}
-   x canonical x four ``n_own`` on an N-rich stream, K8 at 1,000, 3,000
-   and 4^11 bins, each timed at one 16 Mbase batch; then K9 (the u8-stream
+   x canonical x four ``n_own`` on an N-rich stream (K6 at k=8 also in
+   clusters of 2 and 4 blocks), K8 at 1,000, 3,000, 65,535 and 4^11 bins,
+   each timed at one 16 Mbase batch, K6 also at k=5 and at k=8 in each
+   cluster size on the stream and on one half of whose windows lie in
+   one-base runs; then K9 (the u8-stream
    encoder) at every split-word width x canonical x four ``n_own``, on
    streams shorter than k and unaligned, and timed at the k=21 batch;
 4. the main path: exact k-mer counting of a seeded random FASTA of
@@ -69,7 +72,8 @@ exits nonzero:
 8. the device-sort route: K11 (the row sort) against its plain version at
    row lengths 128, 512, 2048 and 32768 (random u32 with top-bit values,
    sentinel tails), then timed at the route's [8192, 2048] rows of one
-   16 Mbase batch beside its plain version and ``torch.sort(dim=-1)``;
+   16 Mbase batch beside its plain version and ``torch.sort(dim=-1)``,
+   and so again as rows of 128 and 32,768 words and on random u32 rows;
    then ``SparseKmerEngine`` on the main path's FASTA in paired,
    alternating order: at k=21 no device sort, ``device_sort`` rows
    (``torch.sort``) and one flat sort; at canonical k=11 no device sort,
@@ -116,9 +120,12 @@ INVALID = 0xFF
 REF_CHUNK = 1 << 25
 #: k of the dense kernels' check, each with and without canonical
 DENSE_KS = (1, 2, 3, 4, 6, 7, 8)
-#: K8's (k, bins) checks: two bin counts that are not powers of two, and
-#: one above the shared-memory slices
-ANY_CASES = ((5, 1000), (6, 3000), (11, 4**11))
+#: K8's (k, bins) checks: bin counts that are not powers of two (65,535
+#: leaves a last slice of 3 bins), and one above the shared-memory slices
+ANY_CASES = ((5, 1000), (6, 3000), (8, 65535), (11, 4**11))
+#: K6's cluster sizes timed at 4^8 bins (the default is the faster,
+#: histogram_cuda.WIDE_CLUSTER)
+K6_CLUSTERS = (2, 4)
 #: the dense path's count_file runs: (name, k, canonical, pack_input, the
 #: kernel its route launches once per batch)
 DENSE_RUNS = (
@@ -181,6 +188,9 @@ BUCKET_MAIN = f"count_bucket_auto(k={BUCKET_K}, minimizer, D={BUCKET_D})"
 #: 16 Mbase batch (16,777,216 windows as [8192, 2048])
 SORT_CHECKS = ((128, 1000), (512, 333), (2048, 129), (32768, 37))
 SORT_ROWS = 8192
+#: K11's shortest and longest rows, timed on the same words
+MIN_SORT_M = 128
+MAX_SORT_M = 32768
 #: the device-sort path's batch (None: KmerConfig's 16 Mbase), and its
 #: duplicated inputs, (bases, copies): the records starting in the first
 #: bases of the main FASTA, repeated. 16 Mbase x 4 repeats whole batches;
@@ -216,6 +226,15 @@ def check_stream(rng, n_bases: int):
     for s in rng.integers(0, n_bases - 512, 5):
         b[s : s + int(rng.integers(20, 400))] = INVALID
     b[1000:1064] = 3
+    return b
+
+
+def runs_stream(rng, n_bases: int):
+    """``check_stream`` with every other 4,096 bases one repeated base: half
+    the windows of a warp step share one code."""
+    b = check_stream(rng, n_bases)
+    for s in range(0, n_bases, 8192):
+        b[s : s + 4096] = rng.integers(0, 4)
     return b
 
 
@@ -497,6 +516,16 @@ def phase_dense_kernels(dev, card: str) -> dict:
             log(f"kernel check dense k={k} canonical={canonical}: {CHECK_BASES} bases, "
                 f"n_own in {owns}: K5, K6{', K7' if k <= 3 else ''} equal their plain "
                 f"versions, {int(ref.sum())} windows at full n_own")
+        if k == 8:
+            # K6 in each cluster size timed below, on the same stream
+            for cluster in K6_CLUSTERS:
+                for canonical in (False, True):
+                    for n_own in owns:
+                        check("hist_u8",
+                              hc.hist_u8_cuda(b, n_own, k, 4**k, canonical, cluster=cluster),
+                              hc.hist_u8_reference(b, n_own, k, 4**k, canonical),
+                              f"k={k} canonical={canonical} n_own={n_own} cluster={cluster}")
+            log(f"kernel check dense K6 k=8 in clusters of {K6_CLUSTERS}: equal to plain")
     for k, bins in ANY_CASES:
         for canonical in (False, True):
             for n_own in owns:
@@ -529,6 +558,25 @@ def phase_dense_kernels(dev, card: str) -> dict:
     timed("hist_u8", "k=8 u8", 4**8,
           lambda acc: hc.hist_u8_cuda(b, batch, 8, 4**8, False, acc),
           lambda: hc.hist_u8_reference(b, batch, 8, 4**8), T)
+    # K6 beside its record: at k=5 (the launches of its path's run), and
+    # at k=8 in each cluster size, on this stream and on one half of whose
+    # windows lie in one-base runs.
+    runs = torch.from_numpy(runs_stream(rng, T)).to(dev)
+    k6 = {}
+    acc = torch.zeros(4**5, dtype=torch.int32, device=dev)
+    check("hist_u8", hc.hist_u8_cuda(b, batch, 5, 4**5), hc.hist_u8_reference(b, batch, 5, 4**5),
+          f"T={T} k=5")
+    k6["k=5"] = time_ms(lambda: hc.hist_u8_cuda(b, batch, 5, 4**5, False, acc), 20)
+    for label, stream in (("random", b), ("half one-base runs", runs)):
+        for cluster in K6_CLUSTERS:
+            acc = torch.zeros(4**8, dtype=torch.int32, device=dev)
+            check("hist_u8", hc.hist_u8_cuda(stream, batch, 8, 4**8, False, cluster=cluster),
+                  hc.hist_u8_reference(stream, batch, 8, 4**8), f"T={T} {label} C={cluster}")
+            k6[f"k=8 {label} C={cluster}"] = time_ms(
+                lambda: hc.hist_u8_cuda(stream, batch, 8, 4**8, False, acc, cluster=cluster), 20)
+    log(f"kernel time hist_u8 (K6) T={T}, default cluster {hc.u8_plan(4**8)[0]} at 4^8 bins: "
+        + "; ".join(f"{key} {ms:.4f} ms" for key, ms in k6.items()) + f" [{card}]")
+    del runs
     timed("hist_u8_small", "k=3 u8", 64,
           lambda acc: hc.hist_u8_small_cuda(b, batch, 3, 64, False, acc),
           lambda: hc.hist_u8_reference(b, batch, 3, 64), T)
@@ -1103,9 +1151,11 @@ def sort_rows_input(R: int, m: int, seed: int, dev):
 def phase_sort_kernel(dev, card: str) -> dict:
     """K11 against its plain version, element for element, at each row
     length of SORT_CHECKS; then timed at the route's [8192, 2048] rows of
-    K1's k=11 words (a 16 Mbase batch) beside its plain version and
-    ``torch.sort(dim=-1)`` of the biased keys (the library call). Returns
-    the kernel's record."""
+    K1's k=11 words (a 16 Mbase batch; at most 4 digit passes) beside its
+    plain version and ``torch.sort(dim=-1)`` of the biased keys (the
+    library call), the same words as rows of 128 and of 32,768, and random
+    u32 rows at [8192, 2048]. Returns the kernel's record at the route's
+    shape."""
     import numpy as np
     import torch
 
@@ -1137,23 +1187,40 @@ def phase_sort_kernel(dev, card: str) -> dict:
     x = x.contiguous()
     del planes
     check(x, f"K1's k=11 words as [{SORT_ROWS}, {m}]")
-    biased = x ^ sort_cuda.INT32_MIN
-    passes = m.bit_length() - 1
-    passes = passes * (passes + 1) // 2
-    rec = dict(
-        ms=time_ms(lambda: sort_cuda.row_sort_u32(x), 20),
-        plain_ms=time_ms(lambda: sort_cuda.row_sort_u32_reference(x), 3),
-        library_ms=time_ms(lambda: torch.sort(biased, dim=-1), 5),
-        # each word read and written once; one min or max per word per pass
-        bound=bound_ms(8 * x.numel(), passes * x.numel()),
-        max_abs_err=worst,
-        shape=f"[{SORT_ROWS}, {m}]",
-    )
-    log(f"kernel time row_sort {rec['shape']} (k=11 words, {passes} passes): kernel "
+    passes = int(sort_cuda.row_sort_digit_passes(x).max())
+    if passes > 4:
+        raise AssertionError(f"K1's k=11 words take {passes} digit passes")
+
+    def timing(x):
+        biased = x ^ sort_cuda.INT32_MIN
+        return dict(
+            ms=time_ms(lambda: sort_cuda.row_sort_u32(x), 20),
+            plain_ms=time_ms(lambda: sort_cuda.row_sort_u32_reference(x), 3),
+            library_ms=time_ms(lambda: torch.sort(biased, dim=-1), 5),
+            # each word read and written once
+            bound=bound_ms(8 * x.numel(), 0),
+        )
+
+    rec = dict(timing(x), max_abs_err=worst, shape=f"[{SORT_ROWS}, {m}]", passes=passes)
+    log(f"kernel time row_sort {rec['shape']} (k=11 words, {passes} digit passes): kernel "
         f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.3f} ms, torch.sort "
         f"{rec['library_ms']:.4f} ms, bound {rec['bound'][0]:.4f} ms ({rec['bound'][1]}), "
         f"max_abs_err={rec['max_abs_err']} [{card}]")
-    del x, biased
+    # The same words at the shortest and longest rows K11 takes, then
+    # random u32 rows (4 passes) at the route's shape.
+    for other in (MIN_SORT_M, MAX_SORT_M):
+        y = x.reshape(-1, other)
+        check(y, f"K1's k=11 words as {list(y.shape)}")
+        r = timing(y)
+        log(f"kernel time row_sort {list(y.shape)} (k=11 words): kernel {r['ms']:.4f} ms, "
+            f"torch.sort {r['library_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms [{card}]")
+    y = sort_rows_input(SORT_ROWS, m, 9, dev)
+    check(y, f"random u32 as [{SORT_ROWS}, {m}]")
+    r = timing(y)
+    log(f"kernel time row_sort [{SORT_ROWS}, {m}] (random u32, sentinel tails, "
+        f"{int(sort_cuda.row_sort_digit_passes(y).max())} digit passes): kernel {r['ms']:.4f} ms, "
+        f"torch.sort {r['library_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms [{card}]")
+    del x, y
     torch.cuda.empty_cache()
     return rec
 

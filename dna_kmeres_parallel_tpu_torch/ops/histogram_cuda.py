@@ -33,6 +33,13 @@ SMALL_BINS = 64
 MAX_ANY_BINS = 1 << 24
 #: largest k K5 serves: a window then spans at most two plane words
 MAX_PLANES_K = 8
+#: most int32 bins K6 keeps in one block's shared memory (128 KB)
+MAX_SLICE_BINS = 1 << 15
+#: K6's cluster sizes, and the one taken above MAX_SLICE_BINS bins: at
+#: 4^8 bins 2 blocks of 128 KB ran faster on the card than 4 of 64 KB
+#: (chip_smoke.py times both, PERF.md)
+CLUSTER_SIZES = (1, 2, 4)
+WIDE_CLUSTER = 2
 
 # Kernel launches since the counts were last reset; each wrapper adds one
 # per launch of its kernel and nothing else touches them except a
@@ -167,21 +174,45 @@ def _check_planes(words_le: torch.Tensor, inval_be: torch.Tensor, k: int) -> Non
     encode_cuda.check_planes(words_le, inval_be, k)
 
 
-def _launch_u8(name: str, bases, n_own, k, bins, canonical, acc, max_bins):
-    """Launch one of K6-K8 on a CUDA stream of bases; returns acc."""
+def u8_plan(bins: int, cluster: int | None = None) -> tuple[int, int]:
+    """K6's launch plan for ``bins`` (<= 65,536): (C, S), C blocks to a
+    cluster, each holding S bins in its shared memory (S = ceil(bins / C)
+    rounded up to 4 bins, for the 16-byte bulk flush). C is 1 up to
+    MAX_SLICE_BINS bins and WIDE_CLUSTER above, unless ``cluster`` is
+    given; a plan whose slice exceeds MAX_SLICE_BINS raises."""
+    if not 1 <= bins <= MAX_BINS:
+        raise ValueError(f"bins must be in [1, {MAX_BINS}], got {bins}")
+    if cluster is None:
+        cluster = 1 if bins <= MAX_SLICE_BINS else WIDE_CLUSTER
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError(f"cluster must be one of {CLUSTER_SIZES}, got {cluster}")
+    slice_bins = -(-bins // cluster) + 3 & ~3
+    if slice_bins > MAX_SLICE_BINS:
+        raise ValueError(
+            f"{bins} bins in clusters of {cluster} need {slice_bins} bins a block, "
+            f"above {MAX_SLICE_BINS}"
+        )
+    return cluster, slice_bins
+
+
+def _launch_u8(name: str, bases, n_own, k, bins, canonical, acc, max_bins, plan=None):
+    """Launch one of K6-K8 on a CUDA stream of bases; returns acc. ``plan``
+    is the (C, S) that K6's and K8's entries take (None for K7's)."""
     _check_u8(bases, k, bins, max_bins)
     if bases.device.type != "cuda":
         raise ValueError(f"{name} needs a CUDA tensor, got {bases.device}")
     if not bases.is_contiguous():
         raise ValueError(f"{name} needs a contiguous stream")
     acc = _accumulator(acc, bins, bases.device)
+    if plan and plan[0] and acc.data_ptr() % 16:
+        raise ValueError(f"{name} needs a 16-byte aligned accumulator")
     from dna_kmeres_parallel_tpu_torch.ops import kernels
 
     fn = getattr(kernels.load(), name)
     with torch.cuda.device(bases.device):
         rc = fn(
             bases.data_ptr(), bases.numel(), int(n_own), k, int(bool(canonical)),
-            bins, acc.data_ptr(), _stream(bases),
+            bins, *(plan or ()), acc.data_ptr(), _stream(bases),
         )
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {rc}")
@@ -189,13 +220,15 @@ def _launch_u8(name: str, bases, n_own, k, bins, canonical, acc, max_bins):
 
 
 def hist_u8_cuda(bases, n_own: int, k: int, bins: int, canonical: bool = False,
-                 acc: torch.Tensor | None = None) -> torch.Tensor:
-    """K6: u8 stream [T] on the card -> acc (int32 [bins]) += its
-    histogram; bins a power of two <= 65,536."""
+                 acc: torch.Tensor | None = None, cluster: int | None = None) -> torch.Tensor:
+    """K6: u8 stream [T] on the card -> acc (int32 [bins], 16-byte
+    aligned) += its histogram; bins a power of two <= 65,536, held in
+    clusters of ``u8_plan(bins, cluster)``."""
     global U8_LAUNCHES
     if bins & (bins - 1):
         raise ValueError(f"hist_u8_cuda needs power-of-two bins, got {bins}")
-    acc = _launch_u8("kp_hist_u8", bases, n_own, k, bins, canonical, acc, MAX_BINS)
+    acc = _launch_u8("kp_hist_u8", bases, n_own, k, bins, canonical, acc, MAX_BINS,
+                     u8_plan(bins, cluster))
     U8_LAUNCHES += 1
     return acc
 
@@ -212,9 +245,12 @@ def hist_u8_small_cuda(bases, n_own: int, k: int, bins: int, canonical: bool = F
 def hist_u8_any_cuda(bases, n_own: int, k: int, bins: int, canonical: bool = False,
                      acc: torch.Tensor | None = None) -> torch.Tensor:
     """K8: u8 stream [T] on the card -> acc += its histogram; any bins
-    from 1 to 4^12."""
+    from 1 to 4^12. Up to 65,536 bins it runs K6's kernel (the plan of
+    ``u8_plan``; acc 16-byte aligned), above them device-memory atomics."""
     global ANY_LAUNCHES
-    acc = _launch_u8("kp_hist_u8_any", bases, n_own, k, bins, canonical, acc, MAX_ANY_BINS)
+    plan = u8_plan(bins) if bins <= MAX_BINS else (0, 0)
+    acc = _launch_u8("kp_hist_u8_any", bases, n_own, k, bins, canonical, acc, MAX_ANY_BINS,
+                     plan)
     ANY_LAUNCHES += 1
     return acc
 

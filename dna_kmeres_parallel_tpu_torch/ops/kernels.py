@@ -129,8 +129,10 @@ def load() -> ctypes.CDLL:
     lib.kp_min_sum_rect.argtypes = [vp, ll, vp, ll, ll, vp, vp]
     lib.kp_hist_planes.restype = ci
     lib.kp_hist_planes.argtypes = [vp, vp, ll, ll, ci, ci, vp, vp]
-    for name in ("kp_hist_u8", "kp_hist_u8_small", "kp_hist_u8_any"):
+    lib.kp_hist_u8_small.restype = ci
+    lib.kp_hist_u8_small.argtypes = [vp, ll, ll, ci, ci, ci, vp, vp]
+    for name in ("kp_hist_u8", "kp_hist_u8_any"):
         fn = getattr(lib, name)
         fn.restype = ci
-        fn.argtypes = [vp, ll, ll, ci, ci, ci, vp, vp]
+        fn.argtypes = [vp, ll, ll, ci, ci, ci, ci, ci, vp, vp]
     return lib

@@ -214,6 +214,23 @@ def check_row_sort(x: torch.Tensor) -> None:
         )
 
 
+def row_sort_digit_passes(x: torch.Tensor) -> torch.Tensor:
+    """The 8-bit digit passes K11 runs on each row of x (int32 [R, m] of
+    u32 bits): one per byte in which the row's words other than the
+    all-ones sentinel differ (the bits set in the AND xor the OR of those
+    words), none for a row of equal words or of sentinels only. A block of
+    several rows (m <= 2048) runs the union of its rows' passes."""
+    check_row_sort(x)
+    real = x != -1
+    a = torch.where(real, x, -1)
+    o = torch.where(real, x, 0)
+    while a.shape[1] > 1:  # m is a power of two: fold the halves
+        a = a[:, 0::2] & a[:, 1::2]
+        o = o[:, 0::2] | o[:, 1::2]
+    differ = torch.where(real.any(dim=1), (a ^ o)[:, 0], 0).long() & 0xFFFFFFFF
+    return sum(((differ >> (8 * i)) & 0xFF != 0).long() for i in range(4))
+
+
 def row_sort_u32_cuda(x: torch.Tensor) -> torch.Tensor:
     """Launch K11 on the card: each row of x sorted ascending as u32."""
     global ROW_SORT_LAUNCHES

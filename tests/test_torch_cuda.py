@@ -273,6 +273,92 @@ def test_hist_kernels_homopolymer(cuda_device, k):
     assert torch.equal(histogram_cuda.hist_planes_cuda(*planes, n, k), got)
 
 
+def slice_edge_stream(k: int, bins: int, pad: int) -> np.ndarray:
+    """u8 stream of the k-mers whose codes sit at every cluster-slice edge
+    of ``bins`` (S - 1 and S for each plan's S, and the last bin), each
+    followed by an N, then ``pad`` random bases."""
+    codes = {0, bins - 1}
+    for cluster in histogram_cuda.CLUSTER_SIZES:
+        s = -(-bins // cluster) + 3 & ~3
+        for r in range(1, cluster):
+            codes |= {r * s - 1, r * s}
+    out = []
+    for c in sorted(x for x in codes if 0 <= x < min(bins, 4**k)):
+        out += [(c >> (2 * (k - 1 - j))) & 3 for j in range(k)] + [codec.INVALID_BASE]
+    rng = np.random.default_rng(k + bins)
+    return np.concatenate([np.array(out, np.uint8), rng.integers(0, 4, pad).astype(np.uint8)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [None, 1, 2, 4])
+@pytest.mark.parametrize("canonical", [False, True])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_hist_u8_cluster_slices_match_plain(cuda_device, k, canonical, cluster):
+    # K6 in clusters of 1, 2 and 4 blocks and its default plan, on the
+    # codes at every slice edge, an N-rich stream, and views that start
+    # 1..15 bytes past a 16-byte boundary; one accumulator that starts at 7.
+    bins = 4**k
+    if cluster == 1 and bins > histogram_cuda.MAX_SLICE_BINS:
+        with pytest.raises(ValueError, match="bins a block"):
+            histogram_cuda.u8_plan(bins, cluster)
+        return
+    base = np.concatenate([slice_edge_stream(k, bins, 3000), stream(8192, 300 + k)])
+    b = torch.from_numpy(base).to(cuda_device)
+    acc = torch.full((bins,), 7, dtype=torch.int32, device=cuda_device)
+    ref = acc.clone()
+    for off in (0, 1, 5, 15):
+        view = b[off:]
+        for n_own in own_cases(view.numel()):
+            launches = histogram_cuda.U8_LAUNCHES
+            histogram_cuda.hist_u8_cuda(view, n_own, k, bins, canonical, acc, cluster=cluster)
+            assert histogram_cuda.U8_LAUNCHES == launches + 1
+            histogram_cuda.hist_u8_reference(view, n_own, k, bins, canonical, ref)
+            torch.cuda.synchronize()
+            assert torch.equal(acc, ref), (off, n_own)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [None, 2, 4])
+@pytest.mark.parametrize("base", [0, 2, 3])
+def test_hist_u8_one_repeated_base(cuda_device, base, cluster):
+    # Every window has one code: one bin takes 2^22 - 7 counts at k=8,
+    # from every lane of every warp.
+    n = 1 << 22
+    b = torch.full((n,), base, dtype=torch.uint8, device=cuda_device)
+    got = histogram_cuda.hist_u8_cuda(b, n, 8, 4**8, cluster=cluster)
+    code = sum(base << (2 * j) for j in range(8))
+    assert int(got[code]) == n - 7 and int(got.sum()) == n - 7
+    canon = histogram_cuda.hist_u8_cuda(b, n, 8, 4**8, True, cluster=cluster)
+    assert torch.equal(canon, histogram_cuda.hist_u8_reference(b, n, 8, 4**8, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("canonical", [False, True])
+@pytest.mark.parametrize("k,bins", [(5, 1000), (6, 3000), (8, 65535), (8, 40000), (7, 3)])
+def test_hist_u8_any_sliced_route_matches_plain(cuda_device, k, bins, canonical):
+    # K8's sliced route runs K6's kernel at bins that are not powers of
+    # two; 65,535 bins leave a last slice of 3 bins past the bulk flush.
+    base = np.concatenate([slice_edge_stream(k, bins, 5000), stream(20000, k + bins % 89)])
+    b = torch.from_numpy(base).to(cuda_device)
+    for n_own in own_cases(b.numel()):
+        launches = histogram_cuda.ANY_LAUNCHES
+        got = histogram_cuda.hist_u8_any_cuda(b, n_own, k, bins, canonical)
+        assert histogram_cuda.ANY_LAUNCHES == launches + 1
+        ref = histogram_cuda.hist_u8_reference(b, n_own, k, bins, canonical)
+        torch.cuda.synchronize()
+        assert got.shape == (bins,) and torch.equal(got, ref), n_own
+
+
+@pytest.mark.cuda
+def test_hist_u8_refuses_an_unaligned_accumulator(cuda_device):
+    b = torch.zeros(64, dtype=torch.uint8, device=cuda_device)
+    acc = torch.zeros(1024 + 1, dtype=torch.int32, device=cuda_device)[1:]
+    launches = histogram_cuda.U8_LAUNCHES
+    with pytest.raises(ValueError, match="aligned"):
+        histogram_cuda.hist_u8_cuda(b, 64, 5, 1024, acc=acc)
+    assert histogram_cuda.U8_LAUNCHES == launches
+
+
 @pytest.mark.cuda
 def test_dense_count_on_card_equals_cpu(cuda_device):
     # The engine end to end on the card against its CPU route: each route
@@ -605,6 +691,48 @@ def test_row_sort_kernel_matches_plain_on_card(cuda_device, R, m):
     assert torch.equal(got, want)
     assert torch.equal(want.cpu(), sort_cuda.row_sort_u32(x.cpu()))
     assert int(got[0, -1]) == -1  # the all-ones sentinel sorts last
+
+
+def row_cases(R: int, m: int, seed: int) -> dict:
+    """Rows of one kind each, [R, m] int32 of u32 bits."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rand(lo, hi):
+        return torch.randint(lo, hi, (R, m), generator=g, dtype=torch.int64)
+
+    top = rand(0, 1 << 32) | (1 << 31)
+    cases = {
+        "sentinels only": torch.full((R, m), -1, dtype=torch.int64),
+        "no sentinel": rand(0, (1 << 32) - 1),
+        "all equal": torch.full((R, m), 0x12345678, dtype=torch.int64),
+        "all equal, sentinel tails": torch.full((R, m), 7, dtype=torch.int64),
+        "top bit set": top,
+        "top bit set, all-ones kin": torch.where(rand(0, 2) == 1, top, 0xFFFFFFFE),
+        "k=11 words": rand(0, 1 << 22),
+    }
+    cases["all equal, sentinel tails"][:, m // 3 :] = -1
+    for byte in range(4):
+        # keys that differ only in one byte; sentinels in every other row
+        x = 0x5A5A5A5A & ~(0xFF << (8 * byte)) | (rand(0, 256) << (8 * byte))
+        x[1::2, : m // 5] = -1
+        cases[f"byte {byte} only"] = x
+    return {name: (x & 0xFFFFFFFF).to(torch.uint32).view(torch.int32) for name, x in cases.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768])
+@pytest.mark.parametrize("R", [3, 11])
+def test_row_sort_kernel_on_row_kinds(cuda_device, R, m):
+    # Rows of only sentinels, none, all keys equal, the top bit set, keys
+    # that differ in one byte only (a stability fault shows after the
+    # second pass), K1's k=11 words; R not a multiple of the rows a block.
+    from dna_kmeres_parallel_tpu_torch.ops import sort_cuda
+
+    for name, x in row_cases(R, m, m + R).items():
+        x = x.to(cuda_device)
+        got = sort_cuda.row_sort_u32_cuda(x)
+        torch.cuda.synchronize()
+        assert torch.equal(got, sort_cuda.row_sort_u32_reference(x)), name
 
 
 @pytest.mark.cuda

@@ -364,3 +364,32 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         histogram_cuda.hist_planes_cuda(*port_planes(nrich(64, 1)), 64, 3)
     with pytest.raises(ValueError, match="power-of-two"):
         histogram_cuda.hist_u8_cuda(b, 64, 3, 100)
+
+
+@pytest.mark.parametrize(
+    "bins,cluster,plan",
+    [(1, None, (1, 4)), (4, None, (1, 4)), (64, None, (1, 64)), (1000, None, (1, 1000)),
+     (3000, None, (1, 3000)), (1024, None, (1, 1024)), (32768, None, (1, 32768)),
+     (40000, None, (histogram_cuda.WIDE_CLUSTER, -(-40000 // histogram_cuda.WIDE_CLUSTER))),
+     (65535, 2, (2, 32768)), (65536, 2, (2, 32768)), (65536, 4, (4, 16384)),
+     (1024, 4, (4, 256)), (5, 2, (2, 4)), (65535, 4, (4, 16384))],
+)
+def test_u8_plan(bins, cluster, plan):
+    # K6's launch plan: one block's shared memory up to 32,768 bins, a
+    # cluster above; slices padded to 4 bins for the 16-byte bulk flush.
+    assert histogram_cuda.u8_plan(bins, cluster) == plan
+    c, s = plan
+    assert s % 4 == 0 and c * s >= bins and s <= histogram_cuda.MAX_SLICE_BINS
+
+
+@pytest.mark.parametrize("bins,cluster", [(65536, 1), (40000, 1), (0, None), (65537, None),
+                                          (1024, 3), (1024, 8)])
+def test_u8_plan_refuses(bins, cluster):
+    with pytest.raises(ValueError):
+        histogram_cuda.u8_plan(bins, cluster)
+
+
+def test_wide_bins_take_a_cluster_of_two_or_four():
+    # The default at 4^8 bins is a cluster of 2 or 4 blocks (the one
+    # measured faster on the card), never one block's shared memory.
+    assert histogram_cuda.u8_plan(65536)[0] in (2, 4)

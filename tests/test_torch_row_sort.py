@@ -107,3 +107,41 @@ def test_gate_sends_single_word_rows_to_k11(k11_calls, k, row_len, pallas_sort, 
     assert k11_calls == ([(rows, row_len)] if reaches else [])
     plain = sparse_ops.sort_words_rows(b, n, k, False, row_len=row_len, pallas_sort=False)
     assert all(torch.equal(g, p) for g, p in zip(got, plain, strict=True))
+
+
+def passes_by_bytes(x: np.ndarray) -> list[int]:
+    """Per row, the bytes in which its words other than 0xFFFFFFFF differ."""
+    out = []
+    for row in x:
+        real = row[row != 0xFFFFFFFF]
+        out.append(len({b for b in range(4) if len(set((real >> (8 * b)) & 0xFF)) > 1}))
+    return out
+
+
+@pytest.mark.parametrize("m", [128, 2048])
+def test_digit_passes(m):
+    # K11 runs one 8-bit pass per byte in which a row's non-sentinel words
+    # differ: 4 for random words, none for equal words or sentinels only,
+    # one for words that differ in one byte.
+    rng = np.random.default_rng(m)
+    x = rng.integers(0, 1 << 32, (8, m), dtype=np.uint64).astype(np.uint32)
+    x[1] = 0xFFFFFFFF
+    x[2] = 77
+    x[3, : m // 2] = 0xFFFFFFFF
+    x[3, m // 2 :] = 0x80000001
+    x[4] = 0x11223344 & ~0xFF00 | (rng.integers(0, 256, m).astype(np.uint32) << 8)
+    x[5, 0] = 0xFFFFFFFE
+    x[6] = rng.integers(0, 1 << 22, m)
+    x[6, 5] = 0xFFFFFFFF
+    got = sort_cuda.row_sort_digit_passes(torch.from_numpy(x.view(np.int32)))
+    assert got.tolist() == passes_by_bytes(x)
+    assert got[:5].tolist() == [4, 0, 0, 0, 1] and got[6] == 3
+
+
+def test_k11_words_take_at_most_three_passes():
+    # K1's k=11 words (22 bits) with their sentinels: at most 3 passes.
+    rng = np.random.default_rng(11)
+    b = torch.from_numpy(rng.integers(0, 5, 8 * 2048 + 10).astype(np.uint8))
+    words = sparse_ops.encode_words(b, 8 * 2048, 11, True)[0]
+    x = words[: 8 * 2048].reshape(8, 2048)
+    assert int(sort_cuda.row_sort_digit_passes(x).max()) <= 3
