@@ -1377,9 +1377,12 @@ def _counter_module(name: str):
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count to 0, and K3/K4's counts by route."""
     for module, attr in COUNTERS.values():
         setattr(_counter_module(module), attr, 0)
+    routes = _counter_module("distance_cuda").ROUTE_LAUNCHES
+    for route in routes:
+        routes[route] = 0
 
 
 def read_launches() -> dict:
@@ -1531,23 +1534,199 @@ def check_csv(path: Path, want, n_sample: int = 100_000) -> int:
     return idx.size
 
 
-def phase_distance_kernels(dev, card: str, records) -> dict:
-    """K2, K3 and K4 against their plain versions on edge shapes, then
-    timed at the distance path's shapes. Returns each kernel's record."""
+#: K3/K4's kernels in the SASS: (name, mangled-name fragments, outputs a
+#: thread accumulates, bins a stage)
+MIN_SUM_SASS = (
+    ("min_sum_rect u16x2", ("min_sum_rect_kernel", "ILb1E"), 128, 32),
+    ("min_sum_rect i32", ("min_sum_rect_kernel", "ILb0E"), 64, 32),
+    ("min_sum_tri u16x2", ("min_sum_tri_kernel", "ILb1E"), 128, 32),
+    ("min_sum_tri i32", ("min_sum_tri_kernel", "ILb0E"), 64, 32),
+)
+
+
+def sass_functions(text: str) -> dict:
+    """``cuobjdump -sass`` output -> {function name: [(address, opcode,
+    branch target or None)]}; predicates dropped, opcodes with their
+    modifiers."""
+    import re
+
+    funcs: dict = {}
+    cur = None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Za-z0-9_.]*)(.*?);", line)
+        if m and cur is not None:
+            target = re.search(r"0x([0-9a-f]+)", m.group(3)) if m.group(2).startswith("BRA") else None
+            cur.append((int(m.group(1), 16), m.group(2), target and int(target.group(1), 16)))
+    return funcs
+
+
+def sass_loop_report(instrs, outputs: int, bins: int) -> dict:
+    """The backward branch whose body holds the most 16x2 or 32-bit integer
+    minima is the stage loop: its instructions by opcode, and the
+    instructions per (pair, bin) over ``outputs`` x ``bins`` a trip."""
+    best = None
+    for addr, _, target in instrs:
+        if target is None or target > addr:
+            continue
+        body = [o for a, o, _ in instrs if target <= a <= addr]
+        mins = sum(o.startswith(("VIMNMX", "IMNMX")) for o in body)
+        if best is None or mins > best[0]:
+            best = (mins, body)
+    if best is None:
+        return {"loop": False}
+    body = best[1]
+    ops: dict = {}
+    for o in body:
+        ops[o] = ops.get(o, 0) + 1
+    return {
+        "loop": True,
+        "instructions": len(body),
+        "per_pair_bin": len(body) / (outputs * bins),
+        "ops": dict(sorted(ops.items(), key=lambda kv: -kv[1])),
+    }
+
+
+def min_sum_sass(so: Path) -> dict:
+    """K3/K4's stage loops in the built library's SASS, by kernel and route
+    (``cuobjdump -sass``); {} where the toolkit has no cuobjdump."""
+    import os
+    import shutil
+
+    tool = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
+    if not Path(tool).exists():
+        return {}
+    text = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    funcs = sass_functions(text)
+    out = {}
+    for name, parts, outputs, bins in MIN_SUM_SASS:
+        fn = next((f for f in funcs if all(p in f for p in parts)), None)
+        if fn is not None:
+            out[name] = sass_loop_report(funcs[fn], outputs, bins)
+    return out
+
+
+#: K3/K4's route checks: rows of either side, bins, and the kinds of counts
+#: (each side's kind, the route they imply; the clamp kinds pair a side
+#: whose largest row sum is 65,535 with one that holds counts of 2^16 and
+#: more)
+ROUTE_ROWS = (1, 127, 128, 129)
+ROUTE_BINS = (1, 64, 65, 65536)
+ROUTE_KINDS = (
+    ("small", "small", "u16x2"),
+    ("small", "big", "u16x2"),
+    ("big", "small", "u16x2"),
+    ("wide", "wide", "i32"),
+)
+
+
+def route_counts(rows: int, B: int, kind: str, seed: int):
+    """Seeded int32 [rows, B] counts (NumPy) for the route checks. "small":
+    every row sums to at most 65,535 and row 0 to exactly 65,535; "wide":
+    the same with row 0 summing to 65,536; "big": counts of 0-3 with at
+    least one count of 2^16 or more in every row (row sums stay far below
+    2^31)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if kind == "big":
+        c = rng.integers(0, 4, (rows, B))
+        hot = rng.random((rows, B)) < 1e-3
+        hot[np.arange(rows), rng.integers(0, B, rows)] = True
+        c[hot] = rng.integers(1 << 16, 300_000, int(hot.sum()))
+        return c.astype(np.int32)
+    c = rng.integers(0, max(2, min(4000, (1 << 17) // B)), (rows, B)).astype(np.int64)
+    sums = c.sum(1, keepdims=True)
+    c = np.where(sums > 65535, c * 65535 // np.maximum(sums, 1), c)
+    total = 65535 if kind == "small" else 65536
+    c[0] = total // B
+    c[0, : total % B] += 1
+    return c.astype(np.int32)
+
+
+def panel_shapes(S: int, panel_rows: int) -> list:
+    """(r0, r1) of every panel of ``distance_stream_to_csv`` over S records
+    (rows 0..S-2 have partners), each against the partner rows r0..S-1."""
+    return [(r0, min(r0 + panel_rows, S - 1)) for r0 in range(0, S - 1, panel_rows)]
+
+
+def min_sum_bound(shapes, B: int, symmetric: bool = False) -> tuple[float, str]:
+    """The bound of K4 over panels [(rows, cols)] (each reads its rows and
+    partners once, writes rows x cols int32, and takes 2 operations a pair
+    and bin), or of K3 over [(S, S)] (one triangle's operations)."""
+    n_bytes = n_ops = 0
+    for rows, cols in shapes:
+        pairs = rows * (rows + 1) // 2 if symmetric else rows * cols
+        n_bytes += ((rows if symmetric else rows + cols) * B + rows * cols) * 4
+        n_ops += 2 * B * pairs
+    return bound_ms(n_bytes, n_ops)
+
+
+def time_once_ms(fn) -> float:
+    """CUDA-event milliseconds of one call (for the slow plain versions at
+    the large shapes)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def phase_distance_kernels(dev, card: str, records, so: Path | None = None) -> dict:
+    """K2, K3 and K4 against their plain versions on edge shapes (K3 and
+    K4 on both routes), then timed at the distance path's shapes: K3 at
+    (a)'s 16,384 records and at all 54,018, K4 at (c)'s first panel and
+    over all its panels. Returns each kernel's record."""
     import numpy as np
     import torch
 
     from dna_kmeres_parallel_tpu_torch.ops import distance, distance_cuda, histogram_cuda
 
     worst = {"counts_matrix": 0, "min_sum_tri": 0, "min_sum_rect": 0}
+    routes = distance_cuda.ROUTE_LAUNCHES
 
     def check(name, got, ref, what):
         torch.cuda.synchronize()
         err = max_abs_err((got,), (ref,))
-        log(f"kernel check {name} {what}: max_abs_err={err}")
+        log(f"kernel check {name} {what}: max_abs_err={err} [{card}]")
         worst[name] = max(worst[name], err)
         if err:
             raise AssertionError(f"{name} disagrees with plain at {what}")
+
+    def routed(name, fn, want, *mats):
+        """fn(*mats) on the card, held to the plain version; the launch must
+        take route ``want``. Returns max_abs_err."""
+        before = dict(routes)
+        got = fn(*mats)
+        torch.cuda.synchronize()
+        taken = [r for r in routes if routes[r] != before[r]]
+        if taken != [want]:
+            raise AssertionError(f"{name}: route {taken}, the row sums imply {want}")
+        err = max_abs_err((got,), (distance.min_sum_matrix(*mats),))
+        worst[name] = max(worst[name], err)
+        if err:
+            shapes = " x ".join(str(tuple(m.shape)) for m in mats)
+            raise AssertionError(f"{name} ({want}) disagrees with plain at {shapes}")
+        return err
+
+    if so is not None:
+        for name, rep in min_sum_sass(so).items():
+            if not rep.get("loop"):
+                log(f"sass {name}: no stage loop found [{card}]")
+                continue
+            top = ", ".join(f"{op} {n}" for op, n in list(rep["ops"].items())[:8])
+            log(f"sass {name}: stage loop {rep['instructions']} instructions, "
+                f"{rep['per_pair_bin']:.4f} per (pair, bin); {top} [{card}]")
 
     rng = np.random.default_rng(3)
     # 600 rows of 0-2,000 bases: N runs, rows shorter than k, empty rows.
@@ -1567,14 +1746,43 @@ def phase_distance_kernels(dev, card: str, records) -> dict:
         a = rng.integers(0, 200, (S, B)).astype(np.int32)
         a[rng.random(a.shape) < 0.5] = 0
         a = torch.from_numpy(a).to(dev)
+        route = distance_cuda.product_route(*distance_cuda.check_counts(a))
         check("min_sum_tri", distance_cuda.min_sum_tri_cuda(a),
-              distance.min_sum_matrix(a), f"[{S}, {B}]")
+              distance.min_sum_matrix(a), f"[{S}, {B}] ({route})")
+        route = distance_cuda.product_route(
+            *distance_cuda.check_counts(a[:S2 // 3], a[S - S2 :]))
         check("min_sum_rect", distance_cuda.min_sum_rect_cuda(a[:S2 // 3], a[S - S2 :]),
               distance.min_sum_matrix(a[:S2 // 3], a[S - S2 :]),
-              f"[{S2 // 3}, {B}] x [{S2}, {B}]")
+              f"[{S2 // 3}, {B}] x [{S2}, {B}] ({route})")
+
+    # Both routes on edge shapes: rows 1, 127, 128, 129 on either side, bins
+    # 1, 64, 65, 65,536, row sums at 65,535 and 65,536.
+    mats: dict = {}
+
+    def mat(rows, B, kind, side):
+        key = (rows, B, kind, side)
+        if key not in mats:
+            seed = ((rows * 131 + B) * 4 + ("small", "wide", "big").index(kind)) * 2 + side
+            mats[key] = torch.from_numpy(route_counts(rows, B, kind, seed)).to(dev)
+        return mats[key]
+
+    for B in ROUTE_BINS:
+        for kind in ("small", "wide"):
+            want = "u16x2" if kind == "small" else "i32"
+            err = max(routed("min_sum_tri", distance_cuda.min_sum_tri_cuda, want,
+                             mat(S, B, kind, 0)) for S in ROUTE_ROWS)
+            log(f"kernel check min_sum_tri {want} ({kind}) S in {ROUTE_ROWS}, B={B}: "
+                f"max_abs_err={err} [{card}]")
+        for ka, kc, want in ROUTE_KINDS:
+            err = max(routed("min_sum_rect", distance_cuda.min_sum_rect_cuda, want,
+                             mat(S, B, ka, 0), mat(S2, B, kc, 1))
+                      for S in ROUTE_ROWS for S2 in ROUTE_ROWS)
+            log(f"kernel check min_sum_rect {want} ({ka} x {kc}) S, S2 in {ROUTE_ROWS}, "
+                f"B={B}: max_abs_err={err} [{card}]")
+        mats.clear()
 
     # The distance path's shapes: (a)'s grid and counts at k=3, (b)'s grid
-    # at k=8, and (c)'s panel against every record.
+    # at k=8, and (c)'s panels against their partner rows.
     stream, starts, lengths = records
     na, nb = min(DIST_ROWS_A, lengths.size), min(DIST_ROWS_B, lengths.size)
     grid_a = torch.from_numpy(record_grid(stream, starts[:na], lengths[:na])).to(dev)
@@ -1584,14 +1792,20 @@ def phase_distance_kernels(dev, card: str, records) -> dict:
     check("counts_matrix", counts_a,
           histogram_cuda.counts_matrix_reference(grid_a, 3, 64), f"(a) {tuple(grid_a.shape)}")
     counts_all = histogram_cuda.counts_matrix_cuda(grid_all, 3, 64)
-    panel = counts_all[: min(PANEL_ROWS, lengths.size)]
+    del grid_all
+    nall = lengths.size
+    panel = counts_all[: min(PANEL_ROWS, nall)]
+    route = distance_cuda.product_route(*distance_cuda.check_counts(counts_all))
+    log(f"distance counts at k=3: largest row sum "
+        f"{int(counts_all.sum(1).max())}, route {route} [{card}]")
     out_a = torch.empty(na, na, dtype=torch.int32, device=dev)
-    out_c = torch.empty(panel.shape[0], lengths.size, dtype=torch.int32, device=dev)
-    distance_cuda.launch_min_sum_tri(counts_a, out_a)
-    check("min_sum_tri", out_a, distance.min_sum_matrix(counts_a), f"(a) {tuple(counts_a.shape)}")
-    distance_cuda.launch_min_sum_rect(panel, counts_all, out_c)
+    out_c = torch.empty(panel.shape[0], nall, dtype=torch.int32, device=dev)
+    distance_cuda.launch_min_sum_tri(counts_a, out_a, route)
+    check("min_sum_tri", out_a, distance.min_sum_matrix(counts_a),
+          f"(a) {tuple(counts_a.shape)} ({route})")
+    distance_cuda.launch_min_sum_rect(panel, counts_all, out_c, route)
     check("min_sum_rect", out_c, distance.min_sum_matrix(panel, counts_all),
-          f"(c) {tuple(panel.shape)} x {tuple(counts_all.shape)}")
+          f"(c) {tuple(panel.shape)} x {tuple(counts_all.shape)} ({route})")
 
     rec = {}
     sa, sl = grid_a.shape
@@ -1606,29 +1820,100 @@ def phase_distance_kernels(dev, card: str, records) -> dict:
     nbytes = grid_b.numel() + nb * 65536 * 4
     log(f"kernel time counts_matrix k=8 grid {tuple(grid_b.shape)}: {k8_ms:.4f} ms, "
         f"bound {bound_ms(nbytes, 0)[0]:.4f} ms [{card}]")
+    del grid_a, grid_b
     af = counts_a.float()
     rec["min_sum_tri"] = dict(
-        ms=time_ms(lambda: distance_cuda.launch_min_sum_tri(counts_a, out_a), 10),
+        ms=time_ms(lambda: distance_cuda.launch_min_sum_tri(counts_a, out_a, route), 10),
         plain_ms=time_ms(lambda: distance.min_sum_matrix(counts_a), 2),
         library_ms=time_ms(lambda: torch.cdist(af, af, p=1), 3),
-        bound=bound_ms(na * 64 * 4 + na * na * 4, 2 * 64 * na * (na + 1) // 2),
-        shape=f"[{na}, 64]",
+        bound=min_sum_bound([(na, na)], 64, symmetric=True),
+        shape=f"[{na}, 64] ({route})",
     )
+    wide_ms = time_ms(lambda: distance_cuda.launch_min_sum_tri(counts_a, out_a, "i32"), 10)
+    check("min_sum_tri", out_a, distance.min_sum_matrix(counts_a), f"(a) {tuple(counts_a.shape)} (i32)")
+    log(f"kernel time min_sum_tri [{na}, 64] on the i32 route: {wide_ms:.4f} ms [{card}]")
+    del out_a, af
     pf, cf = panel.float(), counts_all.float()
-    npn, nall = panel.shape[0], lengths.size
+    npn = panel.shape[0]
     rec["min_sum_rect"] = dict(
-        ms=time_ms(lambda: distance_cuda.launch_min_sum_rect(panel, counts_all, out_c), 10),
+        ms=time_ms(lambda: distance_cuda.launch_min_sum_rect(panel, counts_all, out_c, route), 10),
         plain_ms=time_ms(lambda: distance.min_sum_matrix(panel, counts_all), 2),
         library_ms=time_ms(lambda: torch.cdist(pf, cf, p=1), 3),
-        bound=bound_ms((npn + nall) * 64 * 4 + npn * nall * 4, 2 * 64 * npn * nall),
-        shape=f"[{npn}, 64] x [{nall}, 64]",
+        bound=min_sum_bound([(npn, nall)], 64),
+        shape=f"[{npn}, 64] x [{nall}, 64] ({route})",
     )
+    wide_ms = time_ms(lambda: distance_cuda.launch_min_sum_rect(panel, counts_all, out_c, "i32"), 10)
+    check("min_sum_rect", out_c, distance.min_sum_matrix(panel, counts_all),
+          f"(c) {tuple(panel.shape)} x {tuple(counts_all.shape)} (i32)")
+    log(f"kernel time min_sum_rect [{npn}, 64] x [{nall}, 64] on the i32 route: "
+        f"{wide_ms:.4f} ms [{card}]")
+    del pf, cf
     for name, r in rec.items():
         r["max_abs_err"] = worst[name]
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(f"kernel time {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.3f} ms, torch.cdist {lib}, bound {r['bound'][0]:.4f} ms "
             f"({r['bound'][1]}) [{card}]")
+
+    # K4 over every panel of one (c) run, kernel only (no CSV): each panel's
+    # rows against its partner rows, into one buffer.
+    panels = panel_shapes(nall, PANEL_ROWS)
+    flat = out_c.view(-1)
+    launches = []
+    for r0, r1 in panels:
+        o = flat[: (r1 - r0) * (nall - r0)].view(r1 - r0, nall - r0)
+        launches.append((counts_all[r0:r1], counts_all[r0:], o))
+    reset_launches()
+    for a, c, o in launches:
+        distance_cuda.launch_min_sum_rect(
+            a, c, o, distance_cuda.product_route(*distance_cuda.check_counts(a, c)))
+    torch.cuda.synchronize()
+    n_launch, by_route = distance_cuda.RECT_LAUNCHES, dict(routes)
+    r0, r1 = panels[-1]
+    check("min_sum_rect", launches[-1][2], distance.min_sum_matrix(counts_all[r0:r1], counts_all[r0:]),
+          f"(c) last panel [{r1 - r0}, 64] x [{nall - r0}, 64] ({route})")
+    all_ms = time_ms(lambda: [distance_cuda.launch_min_sum_rect(a, c, o, route)
+                              for a, c, o in launches], 5)
+    plain_all = time_once_ms(lambda: [distance.min_sum_matrix(a, c) for a, c, _ in launches])
+    lib_all = time_once_ms(lambda: [torch.cdist(a.float(), c.float(), p=1)
+                                    for a, c, _ in launches])
+    b_all = min_sum_bound([(a.shape[0], c.shape[0]) for a, c, _ in launches], 64)
+    partners = sum(c.shape[0] for _, c, _ in launches)
+    log(f"kernel time min_sum_rect over all {len(panels)} panels of (c) ({n_launch} launches, "
+        f"routes {by_route}; {partners} partner rows, {partners / nall:.2f} first panels): "
+        f"{all_ms:.4f} ms (first panel {rec['min_sum_rect']['ms']:.4f} ms), plain "
+        f"{plain_all:.1f} ms, torch.cdist {lib_all:.1f} ms, bound {b_all[0]:.4f} ms "
+        f"({b_all[1]}) [{card}]")
+    del launches, flat, out_c, panel
+    torch.cuda.empty_cache()
+
+    # K3 over all records: three row tiles (first, middle, last) against the
+    # plain version over all columns.
+    out = torch.empty(nall, nall, dtype=torch.int32, device=dev)
+    reset_launches()
+    distance_cuda.launch_min_sum_tri(counts_all, out, route)
+    torch.cuda.synchronize()
+    by_route = dict(routes)
+    for r0 in (0, (nall // 2) // 128 * 128, (nall - 1) // 128 * 128):
+        r1 = min(r0 + 128, nall)
+        check("min_sum_tri", out[r0:r1], distance.min_sum_matrix(counts_all[r0:r1], counts_all),
+              f"[{nall}, 64] rows {r0}..{r1 - 1} ({route})")
+    big_ms = time_ms(lambda: distance_cuda.launch_min_sum_tri(counts_all, out, route), 5)
+    del out
+    torch.cuda.empty_cache()
+    plain_big = time_once_ms(lambda: distance.min_sum_matrix(counts_all))
+    torch.cuda.empty_cache()
+    # One torch.cdist(p=1) of [54018, 54018] fails to launch (invalid
+    # configuration): it runs in blocks of 8,192 rows.
+    cf = counts_all.float()
+    lib_big = time_once_ms(lambda: [torch.cdist(cf[r : r + 8192], cf, p=1)
+                                    for r in range(0, nall, 8192)])
+    del cf
+    torch.cuda.empty_cache()
+    b_big = min_sum_bound([(nall, nall)], 64, symmetric=True)
+    log(f"kernel time min_sum_tri [{nall}, 64] (1 launch, routes {by_route}): {big_ms:.4f} ms, "
+        f"plain {plain_big:.1f} ms, torch.cdist in 8,192-row blocks {lib_big:.1f} ms, bound "
+        f"{b_big[0]:.4f} ms ({b_big[1]}) [{card}]")
     return rec
 
 
@@ -1661,6 +1946,10 @@ def phase_distance_path(records, path: Path, dev, card: str) -> dict:
         log(f"{name}: {n_pairs} pairs, wall {wall:.3f} s, "
             f"{n_pairs / wall / 1e6:.2f} Mpairs/s; phases s: {split}; {note} [{card}]")
 
+    def routes_taken():
+        """K3/K4's launches of the run just read, by route."""
+        return {r: n for r, n in distance_cuda.ROUTE_LAUNCHES.items() if n}
+
     def in_memory_run(name, k, n, run):
         reset_launches()
         t = time.perf_counter()
@@ -1668,6 +1957,7 @@ def phase_distance_path(records, path: Path, dev, card: str) -> dict:
         wall = time.perf_counter() - t
         launches[name] = expect_launches(
             name, {**none, "counts_matrix": 1, "min_sum_tri": 1})
+        taken = routes_taken()
         ref_counts = reference_counts(stream, starts[:n], lengths[:n], k, False, dev)
         if res.n != n or not np.array_equal(res.counts, ref_counts.cpu().numpy()):
             raise AssertionError(f"{name}: counts differ from the reference")
@@ -1679,7 +1969,7 @@ def phase_distance_path(records, path: Path, dev, card: str) -> dict:
         if not same_bits(res.packed, want):
             raise AssertionError(f"{name}: distances differ from the reference")
         report(name, wall, want.size, res.phases,
-               "counts, min-sums and distances equal the reference")
+               f"K3 routes {taken}; counts, min-sums and distances equal the reference")
         del counts, ref_sums, ref_counts
         torch.cuda.empty_cache()
 
@@ -1697,6 +1987,7 @@ def phase_distance_path(records, path: Path, dev, card: str) -> dict:
     out = eng.distance_stream_to_csv(seqs, csv, panel_rows=PANEL_ROWS, max_panels=1)
     wall = time.perf_counter() - t
     launches["(c)"] = expect_launches(name, {**none, "counts_matrix": 1, "min_sum_rect": 1})
+    taken = routes_taken()
     rows = min(PANEL_ROWS, S - 1)
     ref_counts = reference_counts(stream, starts, lengths, 3, False, dev)
     ref_sums = reference_min_sums(ref_counts[:rows], ref_counts)
@@ -1712,7 +2003,7 @@ def phase_distance_path(records, path: Path, dev, card: str) -> dict:
         raise AssertionError(f"{name}: panel distances differ from the reference")
     checked = check_csv(csv, want)
     report(name, wall, want.size, out["phases"],
-           f"counts, min-sums and distances equal the reference, "
+           f"K4 routes {taken}; counts, min-sums and distances equal the reference, "
            f"{csv.stat().st_size} CSV bytes, {checked} sampled lines equal %f")
     csv.unlink()
     return launches
@@ -1800,7 +2091,7 @@ def main() -> int:
         write_fasta(path, *records)
         log(f"distance fasta: {records[2].size} records, {int(records[2].sum())} "
             f"bases, written in {time.perf_counter() - t:.1f} s")
-        dist = phase_distance_kernels(dev, card, records)
+        dist = phase_distance_kernels(dev, card, records, so)
         dist_launches = phase_distance_path(records, path, dev, card)
     finally:
         tmp.cleanup()

@@ -10,6 +10,13 @@ version is ``ops/distance.min_sum_matrix``.
 counts' device and nothing else: the kernel on the card, the plain version
 on the CPU. Both refuse counts whose row sums reach 2^31: an int32
 min-sum could not hold such a pair, and the kernels do not wrap.
+
+On the card each kernel has two routes, both kernels (``product_route``):
+``"u16x2"`` packs two outputs into one 32-bit word and takes their minima
+with one ``min.u16x2``, exact where no count is negative and the smaller
+side's largest row sum is below 2^16 (no min-sum can then reach 2^16);
+``"i32"`` runs the same tiling on 32-bit lanes for everything else. The
+route follows from the row sums that ``check_counts`` computes anyway.
 """
 
 from __future__ import annotations
@@ -23,11 +30,34 @@ from dna_kmeres_parallel_tpu_torch.ops import distance as dist_ops
 #: caller's reset.
 TRI_LAUNCHES = 0
 RECT_LAUNCHES = 0
+#: The kernels' routes: two 16-bit lanes a word, or one 32-bit lane.
+PACKED, WIDE = "u16x2", "i32"
+#: Launches of K3 and K4 together by route, counted beside the two above.
+ROUTE_LAUNCHES = {PACKED: 0, WIDE: 0}
+#: The packed route needs the smaller side's largest row sum below this.
+PACKED_LIMIT = 1 << 16
 
 
-def check_counts(*mats: torch.Tensor) -> None:
+def product_route(*bounds: int | None) -> str:
+    """The kernels' route for operands whose largest row sums are
+    ``bounds`` (one for K3, two for K4; ``None`` for a side holding a
+    negative count): ``PACKED`` when no side is negative and the smallest
+    bound is below 2^16, else ``WIDE``.
+
+    A min-sum is at most the smaller side's row sum, so no packed lane can
+    reach 2^16, and every value of that side is below 2^16: clamping both
+    sides to 0xFFFF leaves every minimum as it was."""
+    if not bounds or any(b is None for b in bounds):
+        return WIDE
+    return PACKED if min(bounds) < PACKED_LIMIT else WIDE
+
+
+def check_counts(*mats: torch.Tensor) -> list[int | None]:
     """Raise unless every matrix is a 2-D int32 [rows, B] tensor with one B
-    and one device, and every row's sum is below 2^31."""
+    and one device, and every row's sum is below 2^31. Returns each
+    matrix's largest row sum (0 for no rows), or ``None`` for a matrix that
+    holds a negative count: the bounds ``product_route`` takes."""
+    bounds = []
     for m in mats:
         if m.dtype != torch.int32 or m.dim() != 2:
             raise ValueError(
@@ -38,11 +68,20 @@ def check_counts(*mats: torch.Tensor) -> None:
                 f"counts must share bins and device, got {tuple(m.shape)} on "
                 f"{m.device} and {tuple(mats[0].shape)} on {mats[0].device}"
             )
-        if m.numel() and int(m.sum(1, dtype=torch.int64).max()) >= 1 << 31:
+        if not m.numel():
+            bounds.append(0)
+            continue
+        # One device-to-host read for both numbers.
+        top, low = torch.stack(
+            [m.sum(1, dtype=torch.int64).max(), m.min().to(torch.int64)]
+        ).tolist()
+        if top >= 1 << 31:
             raise ValueError(
                 "a row of the counts sums to 2^31 or more: its min-sums could "
                 "overflow int32"
             )
+        bounds.append(None if low < 0 else top)
+    return bounds
 
 
 def _launch(fn, name: str, *args) -> None:
@@ -64,29 +103,38 @@ def _cuda_ready(*mats: torch.Tensor) -> None:
             )
 
 
-def launch_min_sum_tri(counts: torch.Tensor, out: torch.Tensor) -> None:
-    """Launch K3 into ``out`` (int32 [S, S] on the card). Checks shapes and
-    devices only: the caller has checked the row sums."""
+def _entry(name: str, route: str):
+    if route not in ROUTE_LAUNCHES:
+        raise ValueError(f"route must be {PACKED!r} or {WIDE!r}, got {route!r}")
+    from dna_kmeres_parallel_tpu_torch.ops import kernels
+
+    entry = name if route == WIDE else f"{name}_{PACKED}"
+    return entry, getattr(kernels.load(), entry)
+
+
+def launch_min_sum_tri(counts: torch.Tensor, out: torch.Tensor, route: str) -> None:
+    """Launch K3 on ``route`` into ``out`` (int32 [S, S] on the card).
+    Checks shapes and devices only: the caller has checked the row sums
+    and chosen the route with ``product_route``."""
     global TRI_LAUNCHES
     _cuda_ready(counts, out)
     S, B = counts.shape
     if out.dtype != torch.int32 or out.shape != (S, S):
         raise ValueError(f"out must be int32 {(S, S)}, got {out.dtype} {tuple(out.shape)}")
-    from dna_kmeres_parallel_tpu_torch.ops import kernels
-
-    lib = kernels.load()
+    name, fn = _entry("kp_min_sum_tri", route)
     with torch.cuda.device(counts.device):
         stream = torch.cuda.current_stream(counts.device).cuda_stream
-        _launch(lib.kp_min_sum_tri, "kp_min_sum_tri",
-                counts.data_ptr(), S, B, out.data_ptr(), stream)
+        _launch(fn, name, counts.data_ptr(), S, B, out.data_ptr(), stream)
     TRI_LAUNCHES += 1
+    ROUTE_LAUNCHES[route] += 1
 
 
 def launch_min_sum_rect(
-    counts: torch.Tensor, counts_other: torch.Tensor, out: torch.Tensor
+    counts: torch.Tensor, counts_other: torch.Tensor, out: torch.Tensor, route: str
 ) -> None:
-    """Launch K4 into ``out`` (int32 [S, S2] on the card). Checks shapes
-    and devices only: the caller has checked the row sums."""
+    """Launch K4 on ``route`` into ``out`` (int32 [S, S2] on the card).
+    Checks shapes and devices only: the caller has checked the row sums
+    and chosen the route with ``product_route``."""
     global RECT_LAUNCHES
     _cuda_ready(counts, counts_other, out)
     S, B = counts.shape
@@ -95,36 +143,35 @@ def launch_min_sum_rect(
         raise ValueError(f"bins differ: {B} and {counts_other.shape[1]}")
     if out.dtype != torch.int32 or out.shape != (S, S2):
         raise ValueError(f"out must be int32 {(S, S2)}, got {out.dtype} {tuple(out.shape)}")
-    from dna_kmeres_parallel_tpu_torch.ops import kernels
-
-    lib = kernels.load()
+    name, fn = _entry("kp_min_sum_rect", route)
     with torch.cuda.device(counts.device):
         stream = torch.cuda.current_stream(counts.device).cuda_stream
-        _launch(lib.kp_min_sum_rect, "kp_min_sum_rect", counts.data_ptr(), S,
-                counts_other.data_ptr(), S2, B, out.data_ptr(), stream)
+        _launch(fn, name, counts.data_ptr(), S, counts_other.data_ptr(), S2, B,
+                out.data_ptr(), stream)
     RECT_LAUNCHES += 1
+    ROUTE_LAUNCHES[route] += 1
 
 
 def min_sum_tri_cuda(counts: torch.Tensor) -> torch.Tensor:
     """K3: int32 [S, B] on the card -> the full symmetric int32 [S, S]
     min-sum matrix on the card."""
-    check_counts(counts)
+    route = product_route(*check_counts(counts))
     _cuda_ready(counts)
     S = counts.shape[0]
     out = torch.empty(S, S, dtype=torch.int32, device=counts.device)
     if S:
-        launch_min_sum_tri(counts, out)
+        launch_min_sum_tri(counts, out, route)
     return out
 
 
 def min_sum_rect_cuda(counts: torch.Tensor, counts_other: torch.Tensor) -> torch.Tensor:
     """K4: int32 [S, B] and [S2, B] on the card -> int32 [S, S2]."""
-    check_counts(counts, counts_other)
+    route = product_route(*check_counts(counts, counts_other))
     _cuda_ready(counts, counts_other)
     S, S2 = counts.shape[0], counts_other.shape[0]
     out = torch.empty(S, S2, dtype=torch.int32, device=counts.device)
     if S and S2:
-        launch_min_sum_rect(counts, counts_other, out)
+        launch_min_sum_rect(counts, counts_other, out, route)
     return out
 
 

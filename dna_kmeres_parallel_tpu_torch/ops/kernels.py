@@ -123,10 +123,14 @@ def load() -> ctypes.CDLL:
     lib.kp_encode_stream.argtypes = [vp, ll, ll, ci, ci, vp, vp, ci, vp]
     lib.kp_counts_matrix.restype = ci
     lib.kp_counts_matrix.argtypes = [vp, ll, ll, ci, ci, ci, vp, vp]
-    lib.kp_min_sum_tri.restype = ci
-    lib.kp_min_sum_tri.argtypes = [vp, ll, ll, vp, vp]
-    lib.kp_min_sum_rect.restype = ci
-    lib.kp_min_sum_rect.argtypes = [vp, ll, vp, ll, ll, vp, vp]
+    for name in ("kp_min_sum_tri", "kp_min_sum_tri_u16x2"):
+        fn = getattr(lib, name)
+        fn.restype = ci
+        fn.argtypes = [vp, ll, ll, vp, vp]
+    for name in ("kp_min_sum_rect", "kp_min_sum_rect_u16x2"):
+        fn = getattr(lib, name)
+        fn.restype = ci
+        fn.argtypes = [vp, ll, vp, ll, ll, vp, vp]
     lib.kp_hist_planes.restype = ci
     lib.kp_hist_planes.argtypes = [vp, vp, ll, ll, ci, ci, vp, vp]
     lib.kp_hist_u8_small.restype = ci

@@ -149,6 +149,78 @@ def test_reference_counts_and_distances_match_oracle():
         assert chip_smoke.same_bits(packed, oracle.distance_matrix_packed(seqs, k))
 
 
+def test_panel_shapes_of_the_reference_workload():
+    # 54,018 records in panels of 2,048 rows: rows 0..54,016 have partners.
+    panels = chip_smoke.panel_shapes(54_018, 2048)
+    assert len(panels) == 27
+    assert panels[0] == (0, 2048) and panels[-1] == (53_248, 54_017)
+    assert panels[-1][1] - panels[-1][0] == 769
+    assert sum(54_018 - r0 for r0, _ in panels) == 739_638
+    assert chip_smoke.panel_shapes(70, 16)[-1] == (64, 69)
+    assert chip_smoke.panel_shapes(1, 16) == []
+
+
+@pytest.mark.parametrize("B", chip_smoke.ROUTE_BINS)
+@pytest.mark.parametrize("rows", chip_smoke.ROUTE_ROWS)
+def test_route_counts_meet_their_route(rows, B):
+    from dna_kmeres_parallel_tpu_torch.ops import distance_cuda
+
+    def bound(kind):
+        c = chip_smoke.route_counts(rows, B, kind, rows + B)
+        assert c.dtype == np.int32 and c.shape == (rows, B) and c.min() >= 0
+        return c, distance_cuda.check_counts(torch.from_numpy(c))[0]
+
+    small, top = bound("small")
+    assert top == 65535 and small[0].sum() == 65535
+    wide, top = bound("wide")
+    assert top == 65536 and wide[0].sum() == 65536
+    big, top = bound("big")
+    assert (big.max(1) >= 1 << 16).all() and top < 1 << 31
+    for ka, kc, route in chip_smoke.ROUTE_KINDS:
+        a = {"small": small, "wide": wide, "big": big}[ka]
+        c = {"small": small, "wide": wide, "big": big}[kc]
+        bounds = distance_cuda.check_counts(torch.from_numpy(a), torch.from_numpy(c))
+        assert distance_cuda.product_route(*bounds) == route
+
+
+def test_min_sum_bound_counts_pairs_and_bytes():
+    # K4's first panel and K3 at (a)'s 16,384 records, as PR 6 reported.
+    rect = chip_smoke.min_sum_bound([(2048, 54_018)], 64)
+    assert rect[1] == "operations"
+    assert rect[0] == pytest.approx(2 * 64 * 2048 * 54_018 / 67e12 * 1e3)
+    tri = chip_smoke.min_sum_bound([(16_384, 16_384)], 64, symmetric=True)
+    assert tri[1] == "bytes"
+    assert tri[0] == pytest.approx((16_384 * 64 + 16_384**2) * 4 / 3.35e12 * 1e3)
+    two = chip_smoke.min_sum_bound([(2048, 54_018), (769, 770)], 64)
+    assert two[0] > rect[0]
+
+
+SASS = """
+\tFunction : _ZN12_GLOBAL__N_119min_sum_rect_kernelILb1EEEvPKilS2_lllPi
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   LDS.128 R4, [R2] ;
+        /*0020*/                   VIMNMX.U16x2 R3, R4, R5, PT ;
+        /*0030*/                   VIMNMX.U16x2 R8, R4, R6, PT ;
+        /*0040*/                   IADD3 R9, R9, R3, R8 ;
+        /*0050*/              @!P0 BRA 0x10 ;
+        /*0060*/                   BRA 0x60;
+\tFunction : _ZN12_GLOBAL__N_118min_sum_tri_kernelILb0EEEvPKilllPi
+        /*0000*/                   VIMNMX R3, R4, R5, PT ;
+        /*0010*/                   EXIT ;
+"""
+
+
+def test_sass_loop_report_finds_the_stage_loop():
+    funcs = chip_smoke.sass_functions(SASS)
+    rect = next(f for f in funcs if "min_sum_rect_kernelILb1E" in f)
+    rep = chip_smoke.sass_loop_report(funcs[rect], outputs=2, bins=1)
+    assert rep["loop"] and rep["instructions"] == 5
+    assert rep["ops"] == {"VIMNMX.U16x2": 2, "LDS.128": 1, "IADD3": 1, "BRA": 1}
+    assert rep["per_pair_bin"] == 2.5
+    tri = next(f for f in funcs if "min_sum_tri_kernel" in f)
+    assert chip_smoke.sass_loop_report(funcs[tri], 1, 1) == {"loop": False}
+
+
 def test_check_csv_catches_a_wrong_line(tmp_path):
     want = np.array([0.25, 0.5, 1.0 / 3.0], np.float32)
     path = tmp_path / "d.csv"

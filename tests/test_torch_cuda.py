@@ -12,6 +12,9 @@ the machine with the card), without the repository's conftest:
 
 Integer codes: every comparison is exact (tolerance zero)."""
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -25,6 +28,9 @@ from dna_kmeres_parallel_tpu_torch.ops import (
 )
 from dna_kmeres_parallel_tpu_torch.ops import sparse as sparse_ops
 from dna_kmeres_parallel_tpu_torch.utils import codec
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 KS = [1, 11, 13, 15, 16, 21, 23, 24, 31]
 
@@ -172,6 +178,102 @@ def test_min_sum_refuses_rows_summing_to_2_31(cuda_device):
     a[1, 1] -= 1
     got = distance_cuda.min_sum_matrix_tri(a)
     assert int(got[1, 1]) == (1 << 31) - 1
+
+
+ROUTE_ROWS = (1, 127, 128, 129)
+ROUTE_BINS = (1, 64, 65, 65536)
+
+
+def route_counts(rows: int, B: int, kind: str, seed: int, dev) -> torch.Tensor:
+    """``chip_smoke.route_counts`` on the card: "small" rows sum to at most
+    65,535 (row 0 to exactly 65,535), "wide" row 0 to 65,536, "big" rows
+    hold a count of 2^16 or more."""
+    return torch.from_numpy(chip_smoke.route_counts(rows, B, kind, seed)).to(dev)
+
+
+def routed(fn, *mats):
+    """fn(*mats) and the one route its launch took."""
+    before = dict(distance_cuda.ROUTE_LAUNCHES)
+    got = fn(*mats)
+    taken = [r for r, n in distance_cuda.ROUTE_LAUNCHES.items() if n != before[r]]
+    assert len(taken) == 1
+    return got, taken[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,route", [("small", "u16x2"), ("wide", "i32")])
+@pytest.mark.parametrize("B", ROUTE_BINS)
+@pytest.mark.parametrize("S", ROUTE_ROWS)
+def test_min_sum_tri_routes_match_plain(cuda_device, S, B, kind, route):
+    a = route_counts(S, B, kind, S * 7 + B, cuda_device)
+    launches = distance_cuda.TRI_LAUNCHES
+    got, taken = routed(distance_cuda.min_sum_matrix_tri, a)
+    assert taken == route
+    assert distance_cuda.TRI_LAUNCHES == launches + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, distance.min_sum_matrix(a))
+    assert int(got[0, 0]) == (65535 if kind == "small" else 65536)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "kinds,route",
+    [(("small", "small"), "u16x2"), (("small", "big"), "u16x2"),
+     (("big", "small"), "u16x2"), (("wide", "wide"), "i32")],
+)
+@pytest.mark.parametrize("B", ROUTE_BINS)
+@pytest.mark.parametrize("S2", ROUTE_ROWS)
+@pytest.mark.parametrize("S", ROUTE_ROWS)
+def test_min_sum_rect_routes_match_plain(cuda_device, S, S2, B, kinds, route):
+    a = route_counts(S, B, kinds[0], S * 7 + B, cuda_device)
+    b = route_counts(S2, B, kinds[1], S2 * 11 + B + 1, cuda_device)
+    launches = distance_cuda.RECT_LAUNCHES
+    got, taken = routed(distance_cuda.min_sum_matrix_rect, a, b)
+    assert taken == route
+    assert distance_cuda.RECT_LAUNCHES == launches + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, distance.min_sum_matrix(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["u16x2", "i32"])
+def test_min_sum_unaligned_operands_and_output(cuda_device, route):
+    # Rows of 63 bins (4-byte aligned only) and outputs 4 bytes past a
+    # 16-byte boundary: scalar loads, and every head length of the stores.
+    base = counts(300, 63, 5, cuda_device)
+    a, b = base[1:200], base[3:]
+    ref = distance.min_sum_matrix(a, b)
+    buf = torch.full((a.shape[0] * b.shape[0] + 1,), -1, dtype=torch.int32, device=cuda_device)
+    out = buf[1:].view(a.shape[0], b.shape[0])
+    distance_cuda.launch_min_sum_rect(a, b, out, route)
+    buf2 = torch.full((a.shape[0] ** 2 + 3,), -1, dtype=torch.int32, device=cuda_device)
+    tri = buf2[3:].view(a.shape[0], a.shape[0])
+    distance_cuda.launch_min_sum_tri(a, tri, route)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert int(buf[0]) == -1
+    assert torch.equal(tri, distance.min_sum_matrix(a))
+    assert (buf2[:3] == -1).all()
+
+
+@pytest.mark.cuda
+def test_min_sum_cuda_tensors_never_reach_the_plain_version(cuda_device, monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    a = counts(70, 64, 1, cuda_device)
+    want_tri, want_rect = distance.min_sum_matrix(a), distance.min_sum_matrix(a[:9], a)
+    monkeypatch.setattr(distance_cuda.dist_ops, "min_sum_matrix", refuse)
+    tri, rect = distance_cuda.TRI_LAUNCHES, distance_cuda.RECT_LAUNCHES
+    routes = dict(distance_cuda.ROUTE_LAUNCHES)
+    for step in range(1, 3):
+        got_tri = distance_cuda.min_sum_matrix_tri(a)
+        got_rect = distance_cuda.min_sum_matrix_rect(a[:9], a)
+        assert (distance_cuda.TRI_LAUNCHES, distance_cuda.RECT_LAUNCHES) == (tri + step, rect + step)
+    assert distance_cuda.ROUTE_LAUNCHES["u16x2"] == routes["u16x2"] + 4
+    assert distance_cuda.ROUTE_LAUNCHES["i32"] == routes["i32"]
+    torch.cuda.synchronize()
+    assert torch.equal(got_tri, want_tri) and torch.equal(got_rect, want_rect)
 
 
 # ---------------------------------------------------------------------------
