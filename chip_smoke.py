@@ -12,11 +12,15 @@ exits nonzero:
 3. K1 against its plain PyTorch version on the card, element for element,
    and both timed with CUDA events at the main path's batch; then the
    dense histogram kernels K5-K8 the same way: k in {1, 2, 3, 4, 6, 7, 8}
-   x canonical x four ``n_own`` on an N-rich stream (K6 at k=8 also in
-   clusters of 2 and 4 blocks), K8 at 1,000, 3,000, 65,535 and 4^11 bins,
-   each timed at one 16 Mbase batch, K6 also at k=5 and at k=8 in each
-   cluster size on the stream and on one half of whose windows lie in
-   one-base runs; then K9 (the u8-stream
+   x canonical x five ``n_own`` on an N-rich stream (K7 from u8 and from
+   the packed batch at k <= 3; K6 at k=8 also in clusters of 2 and 4
+   blocks), on views 1..15 bytes past alignment, on a batch whose windows
+   half lie in one-base runs and on batches of one base, K8 at 1,000,
+   3,000, 65,535 and 4^11 bins, each timed at one 16 Mbase batch, K5 also
+   at k=6, K7 also as the packed route before it (``unpack_stream`` + the
+   u8 entry), K6 also at k=5 and at k=8 in each cluster size on the stream
+   and on one half of whose windows lie in one-base runs; then K9 (the
+   u8-stream
    encoder) at every split-word width x canonical x four ``n_own``, on
    streams shorter than k and unaligned, and timed at the k=21 batch;
 4. the main path: exact k-mer counting of a seeded random FASTA of
@@ -26,8 +30,9 @@ exits nonzero:
    that shares no code with the port: every window of the generated
    records encoded in int64 on the card, then ``torch.unique``. The
    kernel's launch count is checked against the batch count. Then the
-   dense path on the same file: ``count_file`` at k=3 (K7 after the
-   device unpack), canonical k=6 and k=8 (K5), and with
+   dense path on the same file: ``count_file`` at k=3 (K7 from the packed
+   batch, and no ``unpack_stream`` on the card), canonical k=6 and k=8
+   (K5), and with
    ``pack_input=False`` at k=2 (K7), k=5 and canonical k=8 (K6), and at k=9
    (K1, densified), each histogram against ``torch.bincount`` of the same
    reference codes and each run launching only its route's kernel, once
@@ -129,7 +134,7 @@ K6_CLUSTERS = (2, 4)
 #: the dense path's count_file runs: (name, k, canonical, pack_input, the
 #: kernel its route launches once per batch)
 DENSE_RUNS = (
-    ("count_file(k=3)", 3, False, True, "hist_u8_small"),
+    ("count_file(k=3)", 3, False, True, "hist_packed_small"),
     ("count_file(k=6, canonical)", 6, True, True, "hist_planes"),
     ("count_file(k=8)", 8, False, True, "hist_planes"),
     ("count_file(k=2, pack_input=False)", 2, False, False, "hist_u8_small"),
@@ -144,7 +149,8 @@ ANY_RUN = ("histogram_stream(k=6, bins=3000)", 6, 3000)
 DENSE_MAIN = {
     "hist_planes": "count_file(k=8)",
     "hist_u8": "count_file(k=5, pack_input=False)",
-    "hist_u8_small": "count_file(k=3)",
+    "hist_u8_small": "count_file(k=2, pack_input=False)",
+    "hist_packed_small": "count_file(k=3)",
     "hist_u8_any": ANY_RUN[0],
 }
 #: the card's peaks for the bound of a kernel (NVIDIA's H100 SXM data
@@ -478,17 +484,25 @@ def phase_main_path(records, path: Path, dev, card: str, refs: dict | None = Non
 
 
 def phase_dense_kernels(dev, card: str) -> dict:
-    """K5-K8 against their plain versions on an N-rich stream, element for
-    element, then each timed at one 16 Mbase batch beside its plain
-    version. Returns each kernel's record."""
+    """K5-K8 against their plain versions, element for element: on an
+    N-rich stream (every k of DENSE_KS x canonical x n_own at the edges;
+    K7 from u8 and from the packed batch at k <= 3; K6 at k=8 also in
+    clusters of 2 and 4), on views offset by 1..15 bytes, and at one 16
+    Mbase batch on the same kind of stream, on one whose windows half lie
+    in one-base runs, and on batches of one code. Then each timed at that
+    batch beside its plain version (K5 at k=6 and 8, K7 u8 and packed, and
+    the packed route before it: ``unpack_stream`` + the u8 entry). Returns
+    each kernel's record."""
     import numpy as np
     import torch
 
-    from dna_kmeres_parallel_tpu_torch import KmerConfig
+    from dna_kmeres_parallel_tpu_torch import KmerConfig, native
     from dna_kmeres_parallel_tpu_torch.models.engine import batch_plan, stage_batch_planes
+    from dna_kmeres_parallel_tpu_torch.ops import encode as encode_ops
     from dna_kmeres_parallel_tpu_torch.ops import histogram_cuda as hc
 
-    worst = dict.fromkeys(("hist_planes", "hist_u8", "hist_u8_small", "hist_u8_any"), 0)
+    worst = dict.fromkeys(
+        ("hist_planes", "hist_u8", "hist_u8_small", "hist_packed_small", "hist_u8_any"), 0)
 
     def check(name, got, ref, what):
         torch.cuda.synchronize()
@@ -497,48 +511,112 @@ def phase_dense_kernels(dev, card: str) -> dict:
         if err:
             raise AssertionError(f"{name} disagrees with plain at {what}")
 
+    def packed(bases):
+        data, mask, _ = native.pack_2bit_native(bases)
+        return torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev)
+
+    def check_all(tag, bases, ks, owns, stages=None):
+        """K5, K6 (and K7 from u8 and packed at k <= 3) on one stream, each
+        k x canonical x n_own."""
+        planes, b, pk = stages or (stage_batch_planes(bases, dev),
+                                   torch.from_numpy(bases).to(dev), packed(bases))
+        for k in ks:
+            for canonical in (False, True):
+                for n_own in owns(k):
+                    what = f"{tag} k={k} canonical={canonical} n_own={n_own}"
+                    ref = hc.hist_u8_reference(b, n_own, k, 4**k, canonical)
+                    check("hist_planes", hc.hist_planes_cuda(*planes, n_own, k, canonical),
+                          ref, what)
+                    check("hist_u8", hc.hist_u8_cuda(b, n_own, k, 4**k, canonical), ref, what)
+                    if 4**k <= hc.SMALL_BINS:
+                        check("hist_u8_small",
+                              hc.hist_u8_small_cuda(b, n_own, k, 4**k, canonical), ref, what)
+                        check("hist_packed_small",
+                              hc.hist_packed_small_cuda(*pk, n_own, k, 4**k, canonical), ref,
+                              what)
+        return ref
+
     rng = np.random.default_rng(4)
     bases = check_stream(rng, CHECK_BASES)
-    planes = stage_batch_planes(bases, dev)
+    n = CHECK_BASES
+    owns = lambda k: (0, 1, n // 2 + 5, n - k, n)  # noqa: E731
     b = torch.from_numpy(bases).to(dev)
-    owns = (0, 1, CHECK_BASES // 2 + 5, CHECK_BASES)
+    planes = stage_batch_planes(bases, dev)
+    pk = packed(bases)
     for k in DENSE_KS:
-        for canonical in (False, True):
-            for n_own in owns:
-                what = f"k={k} canonical={canonical} n_own={n_own}"
-                check("hist_planes", hc.hist_planes_cuda(*planes, n_own, k, canonical),
-                      hc.hist_planes_reference(*planes, n_own, k, canonical), what)
-                ref = hc.hist_u8_reference(b, n_own, k, 4**k, canonical)
-                check("hist_u8", hc.hist_u8_cuda(b, n_own, k, 4**k, canonical), ref, what)
-                if 4**k <= hc.SMALL_BINS:
-                    check("hist_u8_small", hc.hist_u8_small_cuda(b, n_own, k, 4**k, canonical),
-                          ref, what)
-            log(f"kernel check dense k={k} canonical={canonical}: {CHECK_BASES} bases, "
-                f"n_own in {owns}: K5, K6{', K7' if k <= 3 else ''} equal their plain "
-                f"versions, {int(ref.sum())} windows at full n_own")
-        if k == 8:
-            # K6 in each cluster size timed below, on the same stream
-            for cluster in K6_CLUSTERS:
-                for canonical in (False, True):
-                    for n_own in owns:
-                        check("hist_u8",
-                              hc.hist_u8_cuda(b, n_own, k, 4**k, canonical, cluster=cluster),
-                              hc.hist_u8_reference(b, n_own, k, 4**k, canonical),
-                              f"k={k} canonical={canonical} n_own={n_own} cluster={cluster}")
-            log(f"kernel check dense K6 k=8 in clusters of {K6_CLUSTERS}: equal to plain")
+        ref = check_all("N-rich", bases, (k,), owns, (planes, b, pk))
+        log(f"kernel check dense k={k}: {n} bases, canonical and not, n_own in {owns(k)}: "
+            f"K5, K6{', K7 u8, K7 packed' if k <= 3 else ''} equal their plain versions, "
+            f"{int(ref.sum())} windows at full n_own")
+    if 8 in DENSE_KS:
+        # K6 in each cluster size timed below, on the same stream
+        for cluster in K6_CLUSTERS:
+            for canonical in (False, True):
+                for n_own in owns(8):
+                    check("hist_u8",
+                          hc.hist_u8_cuda(b, n_own, 8, 4**8, canonical, cluster=cluster),
+                          hc.hist_u8_reference(b, n_own, 8, 4**8, canonical),
+                          f"k=8 canonical={canonical} n_own={n_own} cluster={cluster}")
+        log(f"kernel check dense K6 k=8 in clusters of {K6_CLUSTERS}: equal to plain")
+    # Views that start 1..15 bytes past a 16-byte boundary: u8 streams by
+    # bytes, planes by words (4 bytes), packed data by 2 bytes and its mask
+    # by 1 (8 bases), each at k = 3 and 8.
+    for off in range(1, 16):
+        view = b[off:]
+        m = view.numel()
+        for k in (3, 8):
+            for canonical in (False, True):
+                for n_own in (0, m // 2 + 1, m - k, m):
+                    what = f"offset {off} k={k} canonical={canonical} n_own={n_own}"
+                    ref = hc.hist_u8_reference(view, n_own, k, 4**k, canonical)
+                    check("hist_u8", hc.hist_u8_cuda(view, n_own, k, 4**k, canonical), ref, what)
+                    if k <= 3:
+                        check("hist_u8_small",
+                              hc.hist_u8_small_cuda(view, n_own, k, 4**k, canonical), ref, what)
+                    if off < 8:
+                        d, mk = pk[0][2 * off:], pk[1][off:]
+                        p_ref = hc.hist_u8_reference(b[8 * off:], n_own, k, 4**k, canonical)
+                        if k <= 3:
+                            check("hist_packed_small",
+                                  hc.hist_packed_small_cuda(d, mk, n_own, k, 4**k, canonical),
+                                  p_ref, f"packed {what}")
+                    if off < 4:
+                        w_ref = hc.hist_u8_reference(b[16 * off:], n_own, k, 4**k, canonical)
+                        check("hist_planes",
+                              hc.hist_planes_cuda(planes[0][off:], planes[1][off:], n_own, k,
+                                                  canonical),
+                              w_ref, f"planes {what}")
+    log("kernel check dense on views 1..15 bytes past 16-byte alignment (planes 1..3 "
+        "words, packed 1..7 mask bytes), k=3 and 8: K5, K6, K7 u8, K7 packed equal to plain")
     for k, bins in ANY_CASES:
         for canonical in (False, True):
-            for n_own in owns:
+            for n_own in owns(k):
                 check("hist_u8_any", hc.hist_u8_any_cuda(b, n_own, k, bins, canonical),
                       hc.hist_u8_reference(b, n_own, k, bins, canonical),
                       f"k={k} bins={bins} canonical={canonical} n_own={n_own}")
         log(f"kernel check dense K8 k={k} bins={bins}: equal to plain")
+    del b, planes, pk
 
     # One 16 Mbase batch: batch_bases owned + a (k-1) halo, padded.
     batch, T = batch_plan(1 << 40, 8, KmerConfig().batch_bases)
+    full = lambda k: (batch, T - k)  # noqa: E731
+    runs = runs_stream(rng, T)
+    check_all("one-base runs", runs, (3, 6, 8), full)
+    for code in (0, 3):
+        # every window one code: one bin takes every count of the batch
+        one = np.full(T, code, np.uint8)
+        ref = check_all(f"all {'ACGT'[code]}", one, (1, 3, 6, 8), full)
+        log(f"kernel check dense on a batch of one base ({'ACGT'[code]}), k in (1, 3, 6, 8): "
+            f"{int(ref.max())} counts in one bin at k=8, K5, K6, K7 u8, K7 packed equal "
+            f"to plain")
+    del runs, one
     bases = check_stream(rng, T)
-    planes = stage_batch_planes(bases, dev)
     b = torch.from_numpy(bases).to(dev)
+    planes = stage_batch_planes(bases, dev)
+    pk = packed(bases)
+    check_all("N-rich batch", bases, (3, 6, 8), full, (planes, b, pk))
+    log(f"kernel check dense on the one-base-run, one-code and N-rich batches of {T} bases: "
+        "equal to plain")
     rec = {}
 
     def timed(name, shape, bins, kernel, plain, in_bytes):
@@ -555,6 +633,10 @@ def phase_dense_kernels(dev, card: str) -> dict:
     timed("hist_planes", "k=8 planes", 4**8,
           lambda acc: hc.hist_planes_cuda(*planes, batch, 8, False, acc),
           lambda: hc.hist_planes_reference(*planes, batch, 8), T // 2)
+    acc = torch.zeros(4**6, dtype=torch.int32, device=dev)
+    k5_6 = time_ms(lambda: hc.hist_planes_cuda(*planes, batch, 6, False, acc), 20)
+    log(f"kernel time hist_planes (K5) k=6 planes T={T}: {k5_6:.4f} ms, bound "
+        f"{bound_ms(T // 2 + 8 * 4**6, batch)[0]:.4f} ms [{card}]")
     timed("hist_u8", "k=8 u8", 4**8,
           lambda acc: hc.hist_u8_cuda(b, batch, 8, 4**8, False, acc),
           lambda: hc.hist_u8_reference(b, batch, 8, 4**8), T)
@@ -580,6 +662,14 @@ def phase_dense_kernels(dev, card: str) -> dict:
     timed("hist_u8_small", "k=3 u8", 64,
           lambda acc: hc.hist_u8_small_cuda(b, batch, 3, 64, False, acc),
           lambda: hc.hist_u8_reference(b, batch, 3, 64), T)
+    timed("hist_packed_small", "k=3 packed", 64,
+          lambda acc: hc.hist_packed_small_cuda(*pk, batch, 3, 64, False, acc),
+          lambda: hc.hist_packed_small_reference(*pk, batch, 3, 64), T // 4 + T // 8)
+    acc = torch.zeros(64, dtype=torch.int32, device=dev)
+    before = time_ms(
+        lambda: hc.hist_u8_small_cuda(encode_ops.unpack_stream(*pk), batch, 3, 64, False, acc), 20)
+    log(f"kernel time packed k=3 route T={T}: unpack_stream + hist_u8_small {before:.4f} ms, "
+        f"hist_packed_small {rec['hist_packed_small']['ms']:.4f} ms [{card}]")
     _, k8, bins8 = ANY_RUN
     timed("hist_u8_any", f"k={k8} bins={bins8} u8", bins8,
           lambda acc: hc.hist_u8_any_cuda(b, batch, k8, bins8, False, acc),
@@ -606,12 +696,23 @@ def phase_dense_path(records, path: Path, dev, card: str, refs: dict | None = No
     import dna_kmeres_parallel_tpu_torch as port
     from dna_kmeres_parallel_tpu_torch import KmerConfig
     from dna_kmeres_parallel_tpu_torch.models.engine import batch_plan
+    from dna_kmeres_parallel_tpu_torch.ops import encode as encode_ops
     from dna_kmeres_parallel_tpu_torch.ops import histogram_cuda
 
     stream, _, lengths = records
     refs = {} if refs is None else refs
     none = dict.fromkeys(read_launches(), 0)
     launches = {}
+    # Every unpack_stream call of a run, by the device of its input: the
+    # packed k <= 3 route must make none on the card (K7 reads the packed
+    # batch itself).
+    unpacks: list[str] = []
+    real_unpack = encode_ops.unpack_stream
+
+    def counted_unpack(data, mask):
+        unpacks.append(data.device.type)
+        return real_unpack(data, mask)
+
     for name, k, canonical, pack_input, kernel in DENSE_RUNS:
         t = time.perf_counter()
         ref = cached(refs, ("hist", k, canonical),
@@ -620,12 +721,19 @@ def phase_dense_path(records, path: Path, dev, card: str, refs: dict | None = No
         ref_s = time.perf_counter() - t
         batch, _ = batch_plan(stream.size, k, KmerConfig().batch_bases)
         n_batches = math.ceil(stream.size / batch)
+        unpacks.clear()
+        encode_ops.unpack_stream = counted_unpack
         reset_launches()
         t = time.perf_counter()
-        res = port.count_file(str(path), k=k, canonical=canonical,
-                              pack_input=pack_input, device=dev)
+        try:
+            res = port.count_file(str(path), k=k, canonical=canonical,
+                                  pack_input=pack_input, device=dev)
+        finally:
+            encode_ops.unpack_stream = real_unpack
         wall = time.perf_counter() - t
         launches[name] = expect_launches(name, {**none, kernel: n_batches})
+        if "cuda" in unpacks:
+            raise AssertionError(f"{name}: {unpacks.count('cuda')} unpack_stream calls on the card")
         if (res.n_seqs, res.total_bases) != (lengths.size, int(lengths.sum())):
             raise AssertionError(f"{name}: {res.n_seqs} records of {res.total_bases} bases parsed")
         if res.hist.dtype != np.int64 or not np.array_equal(res.hist, ref):
@@ -633,7 +741,7 @@ def phase_dense_path(records, path: Path, dev, card: str, refs: dict | None = No
         phases = " ".join(f"{p}={s:.3f}" for p, s in res.phases.items())
         log(f"{name}: {res.distinct_kmers} distinct, {res.total_kmers} k-mers, equal to "
             f"the reference ({ref_s:.2f} s); {n_batches} {kernel} launches for "
-            f"{n_batches} batches; wall {wall:.3f} s, "
+            f"{n_batches} batches, no unpack_stream on the card; wall {wall:.3f} s, "
             f"{res.total_bases / wall / 1e9:.4f} Gbase/s; phases s: {phases} [{card}]")
 
     name, k, bins = ANY_RUN
@@ -1362,6 +1470,7 @@ COUNTERS = {
     "hist_planes": ("histogram_cuda", "PLANES_LAUNCHES"),
     "hist_u8": ("histogram_cuda", "U8_LAUNCHES"),
     "hist_u8_small": ("histogram_cuda", "SMALL_LAUNCHES"),
+    "hist_packed_small": ("histogram_cuda", "PACKED_LAUNCHES"),
     "hist_u8_any": ("histogram_cuda", "ANY_LAUNCHES"),
     "encode_packed_minimizer": ("encode_cuda", "MIN_LAUNCHES"),
     "owner_segments": ("sort_cuda", "OWNER_LAUNCHES"),
@@ -2148,6 +2257,7 @@ def main() -> int:
         ("hist_planes", "histogram_pallas.py:814"),
         ("hist_u8", "histogram_pallas.py:604"),
         ("hist_u8_small", "histogram_pallas.py:375"),
+        ("hist_packed_small", "histogram_pallas.py:375"),
         ("hist_u8_any", "histogram_pallas.py:927"),
     ):
         r = dense[name]

@@ -239,8 +239,8 @@ class KmerEngine:
     def _stage(self, padded: np.ndarray) -> tuple[np.ndarray, ...]:
         """The host half of a batch, as the JAX engine's ``_count_batch*``
         route it: with ``pack_input``, the encoder's u32 planes for k = 4..8
-        (K5) or the packed bytes and validity bits for k <= 3 (unpacked on
-        the device, then K7); without it, the u8 bases (K7 or K6)."""
+        (K5) or the packed bytes and validity bits for k <= 3 (K7 reads
+        them as they are); without it, the u8 bases (K7 or K6)."""
         cfg = self.config
         if cfg.pack_input and cfg.k >= 4:
             return pack_planes_np(padded)
@@ -260,9 +260,10 @@ class KmerEngine:
         m1 = runtime.mark(dev)
         if planes:
             histogram_cuda.histogram_planes(*staged, n_own, cfg.k, cfg.canonical, acc)
+        elif cfg.pack_input:
+            histogram_cuda.histogram_packed(*staged, n_own, cfg.k, cfg.bins, cfg.canonical, acc)
         else:
-            bases = encode_ops.unpack_stream(*staged) if cfg.pack_input else staged[0]
-            histogram_cuda.histogram_stream(bases, n_own, cfg.k, cfg.bins, cfg.canonical, acc)
+            histogram_cuda.histogram_stream(*staged, n_own, cfg.k, cfg.bins, cfg.canonical, acc)
         return m0, m1, runtime.mark(dev)
 
     def count_stream(self, flat: np.ndarray, total_bases: int, n_seqs: int) -> CountResult:

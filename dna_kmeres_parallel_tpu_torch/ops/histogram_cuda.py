@@ -8,13 +8,15 @@
   ``histogram_bp2_packed_pallas`` (K5, from the encoder's u32 planes),
   ``histogram_bp2_pallas`` (K6), ``histogram_bitplane_pallas`` (K7) and
   ``histogram_pallas`` (K8, the routing entry and its two-level body), each
-  from a u8 base stream. Each adds its counts into a caller-given int32
-  accumulator, the port of the JAX engine's ``_count_batch_acc*``.
+  from a u8 base stream; K7 also reads the 2-bit packed batch itself (the
+  JAX engine's ``_count_batch_acc_packed``: its unpack and the bit-plane
+  kernel). Each adds its counts into a caller-given int32 accumulator, the
+  port of the JAX engine's ``_count_batch_acc*``.
 
 The entries (``counts_matrix_grid``, ``histogram_planes``,
-``histogram_stream``) pick the route by the input's device and nothing
-else: the kernel on the card, the plain version on the CPU. A kernel that
-refuses its arguments raises; nothing falls back.
+``histogram_stream``, ``histogram_packed``) pick the route by the input's
+device and nothing else: the kernel on the card, the plain version on the
+CPU. A kernel that refuses its arguments raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -52,6 +54,8 @@ PLANES_LAUNCHES = 0
 U8_LAUNCHES = 0
 #: K7 ``kp_hist_u8_small``
 SMALL_LAUNCHES = 0
+#: K7 ``kp_hist_packed_small``
+PACKED_LAUNCHES = 0
 #: K8 ``kp_hist_u8_any``
 ANY_LAUNCHES = 0
 
@@ -303,8 +307,9 @@ def histogram_stream(bases: torch.Tensor, n_own: int, k: int, bins: int,
 def hist_planes_cuda(words_le: torch.Tensor, inval_be: torch.Tensor, n_own: int,
                      k: int, canonical: bool = False,
                      acc: torch.Tensor | None = None) -> torch.Tensor:
-    """K5: u32 planes [Tw] on the card -> acc (int32 [4^k]) += the
-    histogram of the windows that start below n_own; k <= 8."""
+    """K5: u32 planes [Tw] on the card -> acc (int32 [4^k], 16-byte
+    aligned) += the histogram of the windows that start below n_own; k <=
+    8."""
     global PLANES_LAUNCHES
     _check_planes(words_le, inval_be, k)
     if words_le.device.type != "cuda":
@@ -312,6 +317,8 @@ def hist_planes_cuda(words_le: torch.Tensor, inval_be: torch.Tensor, n_own: int,
     if not (words_le.is_contiguous() and inval_be.is_contiguous()):
         raise ValueError("hist_planes_cuda needs contiguous planes")
     acc = _accumulator(acc, 4**k, words_le.device)
+    if acc.data_ptr() % 16:
+        raise ValueError("hist_planes_cuda needs a 16-byte aligned accumulator")
     from dna_kmeres_parallel_tpu_torch.ops import kernels
 
     lib = kernels.load()
@@ -349,3 +356,80 @@ def histogram_planes(words_le: torch.Tensor, inval_be: torch.Tensor, n_own: int,
     if words_le.device.type == "cpu":
         return hist_planes_reference(words_le, inval_be, n_own, k, canonical, acc)
     raise ValueError(f"no histogram for device {words_le.device}")
+
+
+# ---------------------------------------------------------------------------
+# K7 from the 2-bit packed batch
+# ---------------------------------------------------------------------------
+
+
+def _check_packed(data: torch.Tensor, mask: torch.Tensor, k: int, bins: int) -> None:
+    for name, t in (("data", data), ("mask", mask)):
+        if t.dtype != torch.uint8 or t.dim() != 1:
+            raise ValueError(
+                f"{name} must be a 1-D uint8 tensor, got {t.dtype} {tuple(t.shape)}"
+            )
+    if 4 * data.numel() != 8 * mask.numel():
+        raise ValueError(
+            f"{data.numel()} data bytes hold {4 * data.numel()} bases but "
+            f"{mask.numel()} mask bytes hold {8 * mask.numel()}"
+        )
+    if data.device != mask.device:
+        raise ValueError(f"data on {data.device}, mask on {mask.device}")
+    if not (1 <= k <= encode_ops.MAX_DENSE_K):
+        raise ValueError(f"k must be in [1, {encode_ops.MAX_DENSE_K}], got {k}")
+    if not (1 <= bins <= SMALL_BINS):
+        raise ValueError(f"bins must be in [1, {SMALL_BINS}], got {bins}")
+
+
+def hist_packed_small_cuda(data: torch.Tensor, mask: torch.Tensor, n_own: int, k: int,
+                           bins: int, canonical: bool = False,
+                           acc: torch.Tensor | None = None) -> torch.Tensor:
+    """K7 from the packed batch (``native.pack_2bit_native``'s format: data
+    u8 [T/4], mask u8 [T/8]) on the card -> acc (int32 [bins]) += the
+    histogram of its windows that start below n_own; bins <= 64. No
+    unpacked stream is made."""
+    global PACKED_LAUNCHES
+    _check_packed(data, mask, k, bins)
+    if data.device.type != "cuda":
+        raise ValueError(f"hist_packed_small_cuda needs CUDA tensors, got {data.device}")
+    if not (data.is_contiguous() and mask.is_contiguous()):
+        raise ValueError("hist_packed_small_cuda needs contiguous data and mask")
+    acc = _accumulator(acc, bins, data.device)
+    from dna_kmeres_parallel_tpu_torch.ops import kernels
+
+    lib = kernels.load()
+    with torch.cuda.device(data.device):
+        rc = lib.kp_hist_packed_small(
+            data.data_ptr(), mask.data_ptr(), 4 * data.numel(), int(n_own), k,
+            int(bool(canonical)), bins, acc.data_ptr(), _stream(data),
+        )
+    if rc != 0:
+        raise RuntimeError(f"kp_hist_packed_small launch failed: cudaError_t {rc}")
+    PACKED_LAUNCHES += 1
+    return acc
+
+
+def hist_packed_small_reference(data: torch.Tensor, mask: torch.Tensor, n_own: int,
+                                k: int, bins: int, canonical: bool = False,
+                                acc: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`hist_packed_small_cuda`, on whatever
+    device the batch lies: ``encode.unpack_stream``, then
+    :func:`hist_u8_reference`."""
+    _check_packed(data, mask, k, bins)
+    return hist_u8_reference(encode_ops.unpack_stream(data, mask), n_own, k, bins,
+                             canonical, acc)
+
+
+def histogram_packed(data: torch.Tensor, mask: torch.Tensor, n_own: int, k: int,
+                     bins: int, canonical: bool = False,
+                     acc: torch.Tensor | None = None) -> torch.Tensor:
+    """The packed batch (data u8 [T/4], mask u8 [T/8]) -> acc (int32
+    [bins], zeros when None) += the histogram of its windows that start
+    below n_own, bins <= 64: K7 on the card, its plain version on the
+    CPU."""
+    if data.device.type == "cuda":
+        return hist_packed_small_cuda(data, mask, n_own, k, bins, canonical, acc)
+    if data.device.type == "cpu":
+        return hist_packed_small_reference(data, mask, n_own, k, bins, canonical, acc)
+    raise ValueError(f"no histogram for device {data.device}")

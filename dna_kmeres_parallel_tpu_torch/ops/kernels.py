@@ -135,6 +135,8 @@ def load() -> ctypes.CDLL:
     lib.kp_hist_planes.argtypes = [vp, vp, ll, ll, ci, ci, vp, vp]
     lib.kp_hist_u8_small.restype = ci
     lib.kp_hist_u8_small.argtypes = [vp, ll, ll, ci, ci, ci, vp, vp]
+    lib.kp_hist_packed_small.restype = ci
+    lib.kp_hist_packed_small.argtypes = [vp, vp, ll, ll, ci, ci, ci, vp, vp]
     for name in ("kp_hist_u8", "kp_hist_u8_any"):
         fn = getattr(lib, name)
         fn.restype = ci

@@ -250,8 +250,8 @@ def test_distance_path_rehearsal(tmp_path, monkeypatch, counted_plain_versions):
 def counted_dense_plain_versions(monkeypatch):
     """Route the dense path's kernel entries to their plain versions on the
     CPU, each adding to the launch count of the kernel the card would run
-    (``u8_route`` for a u8 stream; K1 for the planes' encode, K9 for the
-    u8 stream's)."""
+    (``u8_route`` for a u8 stream; K7's packed entry for the packed batch;
+    K1 for the planes' encode, K9 for the u8 stream's)."""
     from dna_kmeres_parallel_tpu_torch.ops import encode_cuda, histogram_cuda
 
     counters = {"small": "SMALL_LAUNCHES", "u8": "U8_LAUNCHES", "any": "ANY_LAUNCHES"}
@@ -266,6 +266,10 @@ def counted_dense_plain_versions(monkeypatch):
         setattr(histogram_cuda, name, getattr(histogram_cuda, name) + 1)
         return histogram_cuda.hist_u8_reference(bases, n_own, k, bins, canonical, acc)
 
+    def packed(*a, **kw):
+        histogram_cuda.PACKED_LAUNCHES += 1
+        return histogram_cuda.hist_packed_small_reference(*a, **kw)
+
     def encode(*a, **kw):
         encode_cuda.LAUNCHES += 1
         return plain_encode(*a, **kw)
@@ -278,6 +282,7 @@ def counted_dense_plain_versions(monkeypatch):
 
     monkeypatch.setattr(histogram_cuda, "histogram_planes", planes)
     monkeypatch.setattr(histogram_cuda, "histogram_stream", stream)
+    monkeypatch.setattr(histogram_cuda, "histogram_packed", packed)
     monkeypatch.setattr(encode_cuda, "encode_packed_reference", encode)
     monkeypatch.setattr(encode_cuda, "encode_stream_reference", stream_encode)
 

@@ -479,6 +479,145 @@ def test_dense_count_on_card_equals_cpu(cuda_device):
         assert np.array_equal(got.hist, want.hist), (k, canonical, pack)
 
 
+def packed_on(bases: np.ndarray, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    from dna_kmeres_parallel_tpu_torch import native
+
+    data, mask, _ = native.pack_2bit_native(bases)
+    return torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("canonical", [False, True])
+@pytest.mark.parametrize("k,bins", [(1, 4), (2, 16), (3, 64), (3, 37), (5, 64), (15, 7)])
+@pytest.mark.parametrize("kind", ["nrich", "runs"])
+def test_hist_small_kernels_match_plain(cuda_device, kind, k, bins, canonical):
+    # Both K7 entries (u8 and packed) on an N-rich stream and on one whose
+    # windows half lie in one-base runs, at every k the engine sends them
+    # and at k > 3 with bins <= 64 (histogram_stream routes by bins), for
+    # n_own at the edges, added into one accumulator that starts at 7. The
+    # u8 entry also on views 1..15 bytes past a 16-byte boundary; the packed
+    # one on data views of 2..14 bytes with mask views of 1..7 (8 bases a
+    # step), and one of 16 and 8 (aligned again).
+    n = 8192 + 40
+    if kind == "nrich":
+        bases = stream(n, 500 + k)
+    else:
+        bases = chip_smoke.runs_stream(np.random.default_rng(k), n)
+    b = torch.from_numpy(bases).to(cuda_device)
+    data, mask = packed_on(bases, cuda_device)
+    for off in range(16):
+        view = b[off:]
+        acc = torch.full((bins,), 7, dtype=torch.int32, device=cuda_device)
+        ref = acc.clone()
+        for n_own in (0, 1, view.numel() // 2 + 3, view.numel() - k, view.numel(), 10**12):
+            launches = histogram_cuda.SMALL_LAUNCHES
+            histogram_cuda.hist_u8_small_cuda(view, n_own, k, bins, canonical, acc)
+            assert histogram_cuda.SMALL_LAUNCHES == launches + 1
+            histogram_cuda.hist_u8_reference(view, n_own, k, bins, canonical, ref)
+            torch.cuda.synchronize()
+            assert torch.equal(acc, ref), ("u8", off, n_own)
+    for d_off, m_off in [(2 * j, j) for j in range(8)] + [(16, 8)]:
+        d, m = data[d_off:], mask[m_off:]
+        view = b[4 * d_off:]
+        acc = torch.full((bins,), 7, dtype=torch.int32, device=cuda_device)
+        ref = acc.clone()
+        for n_own in (0, 1, view.numel() // 2 + 3, view.numel() - k, view.numel()):
+            launches = histogram_cuda.PACKED_LAUNCHES
+            out = histogram_cuda.histogram_packed(d, m, n_own, k, bins, canonical, acc)
+            assert out is acc and histogram_cuda.PACKED_LAUNCHES == launches + 1
+            histogram_cuda.hist_u8_reference(view, n_own, k, bins, canonical, ref)
+            torch.cuda.synchronize()
+            assert torch.equal(acc, ref), ("packed", d_off, n_own)
+            assert torch.equal(
+                histogram_cuda.hist_packed_small_reference(d, m, n_own, k, bins, canonical),
+                histogram_cuda.hist_u8_reference(view, n_own, k, bins, canonical))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 4, 7, 8])
+@pytest.mark.parametrize("canonical", [False, True])
+@pytest.mark.parametrize("kind", ["nrich", "runs"])
+def test_hist_planes_views_match_plain(cuda_device, kind, canonical, k):
+    # K5 at k=8 (16-bit halves) and below (one block's cluster histogram),
+    # on an N-rich stream and a run-rich one, on plane views 0..3 words in,
+    # for n_own at the edges.
+    n = 65536 + 128
+    if kind == "nrich":
+        bases = stream(n, 700)
+    else:
+        bases = chip_smoke.runs_stream(np.random.default_rng(7), n)
+    planes = engine.stage_batch_planes(bases, cuda_device)
+    b = torch.from_numpy(bases).to(cuda_device)
+    for off in range(4):
+        view = (planes[0][off:], planes[1][off:])
+        m = n - 16 * off
+        acc = torch.full((4**k,), 7, dtype=torch.int32, device=cuda_device)
+        ref = acc.clone()
+        for n_own in (0, 1, m // 2 + 3, m - k, m):
+            launches = histogram_cuda.PLANES_LAUNCHES
+            histogram_cuda.hist_planes_cuda(*view, n_own, k, canonical, acc)
+            assert histogram_cuda.PLANES_LAUNCHES == launches + 1
+            histogram_cuda.hist_u8_reference(b[16 * off:], n_own, k, 4**k, canonical, ref)
+            torch.cuda.synchronize()
+            assert torch.equal(acc, ref), (k, off, n_own)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", [0, 2, 3])
+def test_hist_kernels_one_code_batch(cuda_device, code):
+    # A whole 16 Mbase batch of one base: one bin takes every count (K7's
+    # per-thread counters and block sums; K5's 16-bit halves pass 2^15 many
+    # times in each block and spill), canonical and not.
+    batch, T = engine.batch_plan(1 << 40, 8, 1 << 24)
+    bases = np.full(T, code, np.uint8)
+    b = torch.from_numpy(bases).to(cuda_device)
+    data, mask = packed_on(bases, cuda_device)
+    planes = engine.stage_batch_planes(bases, cuda_device)
+    for canonical in (False, True):
+        for k in (1, 3):
+            want = histogram_cuda.hist_u8_reference(b, batch, k, 4**k, canonical)
+            assert int(want.max()) == batch
+            got = histogram_cuda.hist_u8_small_cuda(b, batch, k, 4**k, canonical)
+            assert torch.equal(got, want), ("u8", k)
+            got = histogram_cuda.hist_packed_small_cuda(data, mask, batch, k, 4**k, canonical)
+            assert torch.equal(got, want), ("packed", k)
+        for k in (6, 8):
+            want = histogram_cuda.hist_u8_reference(b, T, k, 4**k, canonical)
+            assert int(want.max()) == T - k + 1
+            got = histogram_cuda.hist_planes_cuda(*planes, T, k, canonical)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), k
+
+
+@pytest.mark.cuda
+def test_packed_small_route_runs_no_unpack_on_card(cuda_device, monkeypatch):
+    # The engine's packed k <= 3 route launches K7's packed entry once a
+    # batch and never unpacks on the card; its counts equal the CPU route's.
+    import dna_kmeres_parallel_tpu_torch as port
+    from dna_kmeres_parallel_tpu_torch.ops import encode as encode_ops
+
+    rng = np.random.default_rng(11)
+    seqs = ["".join(rng.choice(list("ACGTN"), size=n, p=[0.24] * 4 + [0.04]))
+            for n in (5000, 3, 12000, 700)]
+    want = {k: port.count_sequences(seqs, k=k, device="cpu", batch_bases=4096).hist
+            for k in (1, 2, 3)}
+    real_unpack = encode_ops.unpack_stream
+
+    def unpack_on_cpu_only(data, mask):
+        assert data.device.type == "cpu", "unpack_stream ran on the card"
+        return real_unpack(data, mask)
+
+    monkeypatch.setattr(encode_ops, "unpack_stream", unpack_on_cpu_only)
+    for k in (1, 2, 3):
+        launches = histogram_cuda.PACKED_LAUNCHES
+        small = histogram_cuda.SMALL_LAUNCHES
+        got = port.count_sequences(seqs, k=k, device="cuda", batch_bases=4096)
+        n_batches = -(-(sum(map(len, seqs)) + len(seqs) - 1) // 4096)
+        assert histogram_cuda.PACKED_LAUNCHES == launches + n_batches
+        assert histogram_cuda.SMALL_LAUNCHES == small
+        assert np.array_equal(got.hist, want[k]), k
+
+
 # ---------------------------------------------------------------------------
 # K9: the u8-stream encoder, and the streaming counter on the card
 # ---------------------------------------------------------------------------
