@@ -10,11 +10,12 @@ exits nonzero:
    and the native host library's build;
 2. the kernels' build from ``dna_kmeres_parallel_tpu_torch/csrc`` (nvcc);
 3. K1 against its plain PyTorch version on the card, element for element,
-   and both timed with CUDA events at the main path's batch; then the
-   dense histogram kernels K5-K8 the same way: k in {1, 2, 3, 4, 6, 7, 8}
-   x canonical x five ``n_own`` on an N-rich stream (K7 from u8 and from
-   the packed batch at k <= 3; K6 at k=8 also in clusters of 2 and 4
-   blocks), on views 1..15 bytes past alignment, on a batch whose windows
+   and both timed with CUDA events at the main path's batch and at one
+   config-5 shard (k=31, no minimizer plane, as prefix owners launch it);
+   then the dense histogram kernels K5-K8 the same way: k in {1, 2, 3, 4,
+   6, 7, 8} x canonical x five ``n_own`` on an N-rich stream (K7 from u8
+   and from the packed batch at k <= 3; K6 at k=8 also in clusters of 2
+   and 4 blocks), on views 1..15 bytes past alignment, on a batch whose windows
    half lie in one-base runs and on batches of one base, K8 at 1,000,
    3,000, 65,535 and 4^11 bins, each timed at one 16 Mbase batch, K5 also
    at k=6, K7 also as the packed route before it (``unpack_stream`` + the
@@ -62,18 +63,19 @@ exits nonzero:
    byte. Every kernel's launch count is checked against what the run
    implies;
 7. the bucketed exchange (BASELINE config 5): K1m (K1 with its minimizer
-   plane), K10 (owner segments) and P1 (the row roll) against their plain
-   versions on edge cases, then timed at the config-5 shapes (one 64 Mbase
-   shard at k=31, m=7; K10 over [32768, 2048] x 2 planes at D=4; P1 at
-   [32768, 2048]); then ``count_bucket_auto`` on the main path's FASTA
-   (parsed by the port's native parser) on a local mesh of 4 shards on the
-   card: k=31 with minimizer owners (config 5), the same canonical, and
-   prefix owners, each against ``reference_table``, with its launches and
-   phase split, and the row route timed against the global sort at one
-   shard; then, on the first 16 Mbase, the global route, the aggregated and
-   super-k-mer exchanges, k=21, a mesh of 5, a homopolymer-rich stream
-   on which auto falls back to the aggregated exchange, and a 1-rank NCCL
-   process group, each against its reference;
+   plane; every window length k - m + 1 from 2 to 31, canonical and not,
+   and one-base streams), K10 (owner segments) and P1 (the row roll)
+   against their plain versions on edge cases, then timed at the config-5
+   shapes (one 64 Mbase shard at k=31, m=7; K10 over [32768, 2048] x 2
+   planes at D=4; P1 at [32768, 2048]); then ``count_bucket_auto`` on the
+   main path's FASTA (parsed by the port's native parser) on a local mesh
+   of 4 shards on the card: k=31 with minimizer owners (config 5), the
+   same canonical, and prefix owners, each against ``reference_table``,
+   with its launches and phase split, and the row route timed against the
+   global sort at one shard; then, on the first 16 Mbase, the global
+   route, the aggregated and super-k-mer exchanges, k=21, a mesh of 5, a
+   homopolymer-rich stream on which auto falls back to the aggregated
+   exchange, and a 1-rank NCCL process group, each against its reference;
 8. the device-sort route: K11 (the row sort) against its plain version at
    row lengths 128, 512, 2048 and 32768 (random u32 with top-bit values,
    sentinel tails), then timed at the route's [8192, 2048] rows of one
@@ -175,8 +177,17 @@ STREAM_BATCH_BASES = None
 STREAM_CKPT_BASES = 64 << 20
 #: the streaming run whose launches the kernels line reports for K9
 STREAM_MAIN = "StreamingCounter(k=21, compact=device, pack_input=False)"
-#: K1m's check: every m of {7, 11, 15} below k, for k in {17, 21, 31}
-MIN_CASES = [(k, m) for k in (17, 21, 31) for m in (7, 11, 15) if m < k]
+#: K1m's check: every m of {7, 11, 15} below k, for k in {17, 21, 31}, and
+#: one (k, m) for each other window length L = k - m + 1 in [2, 31], so
+#: that the ladder's every level count and combine offset runs (each k
+#: width: no hi, int16 and int32 hi)
+MIN_CASES = [(k, m) for k in (17, 21, 31) for m in (7, 11, 15) if m < k] + [
+    (16, 15), (13, 10), (19, 15), (11, 6), (22, 15), (15, 7), (24, 15), (14, 3),
+    (20, 8), (27, 14), (16, 1), (31, 14), (25, 7), (29, 10), (23, 2), (31, 9),
+    (26, 3), (30, 5), (28, 2), (31, 4), (30, 2), (31, 2), (31, 1),
+]
+#: K1m's one-base streams (every m-mer of a window ties): (base, k, m)
+MIN_ONE_BASE = ((0, 31, 7), (3, 21, 11), (1, 16, 15), (2, 13, 1))
 #: the bucketed path (config 5): shards on the card, k, minimizer length
 BUCKET_D = 4
 BUCKET_K = 31
@@ -261,20 +272,30 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _layout(t) -> str:
+    return "absent" if t is None else f"{t.dtype}{tuple(t.shape)}"
+
+
 def max_abs_err(got, ref) -> int:
     """Largest |kernel - plain| over the planes; raises unless every
-    plane has the plain version's dtype and shape."""
+    plane has the plain version's dtype and shape (a plane absent from
+    both, as hi for k <= 15, is skipped)."""
     worst = 0
     for g, r in zip(got, ref, strict=True):
-        if g.dtype != r.dtype or g.shape != r.shape:
-            raise AssertionError(
-                f"plane {g.dtype}{tuple(g.shape)} != plain {r.dtype}{tuple(r.shape)}"
-            )
+        if g is None and r is None:
+            continue
+        if g is None or r is None or g.dtype != r.dtype or g.shape != r.shape:
+            raise AssertionError(f"plane {_layout(g)} != plain {_layout(r)}")
         worst = max(worst, int((g.long() - r.long()).abs().max()))
     return worst
 
 
-def phase_kernels(dev, card: str) -> dict:
+def phase_kernels(dev, card: str, shard_bases: int) -> dict:
+    """K1 against its plain version on the card in KERNEL_CASES, then both
+    timed at the main path's batch (TIMED_CASES) and at one config-5 shard
+    without the minimizer plane (k=31, prefix owners). Returns {(k,
+    canonical): (ms, plain ms, max_abs_err)} and, under "shard", that
+    shape's record."""
     import numpy as np
     import torch
 
@@ -324,7 +345,54 @@ def phase_kernels(dev, card: str) -> dict:
             f"({T / ms / 1e6:.2f} Gwindow/s, {out_bytes / ms / 1e6:.1f} GB/s stored), "
             f"plain {plain_ms:.3f} ms, max_abs_err={err} [{card}]")
         record[(k, canonical)] = (ms, plain_ms, err)
+        del planes
+
+    # One config-5 shard, as the prefix-owner route launches K1 on it.
+    k, T = BUCKET_K, shard_windows(shard_bases)
+    planes = stage_batch_planes(check_stream(rng, T), dev)
+    got, ref = both(planes, shard_bases, k, False)
+    err = max_abs_err(got, ref)
+    if err:
+        raise AssertionError(f"kernel disagrees with plain at T={T} k={k}")
+    del got, ref
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: encode_cuda.encode_packed(*planes, shard_bases, k, False), 20)
+    plain_ms = time_ms(
+        lambda: encode_cuda.encode_packed_reference(*planes, shard_bases, k, False), 3
+    )
+    # planes read (0.5 B per base); lo and hi stored
+    bound = bound_ms(T // 2 + 8 * T, 0)
+    log(f"kernel time k={k} (one config-5 shard) T={T}: kernel {ms:.4f} ms "
+        f"({T / ms / 1e6:.2f} Gwindow/s), plain {plain_ms:.3f} ms, bound {bound[0]:.4f} ms "
+        f"({bound[1]}), max_abs_err={err} [{card}]")
+    record["shard"] = dict(ms=ms, plain_ms=plain_ms, bound=bound, max_abs_err=err,
+                           shape=f"k={k} T={T}")
+    del planes
+    torch.cuda.empty_cache()
     return record
+
+
+def smoke_lengths(bases: int):
+    """The record lengths of ``smoke_records(bases)``, and the generator
+    that goes on to draw their bases."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    n_seqs = max(1, round(bases / 250_000))
+    return rng, rng.integers(200_000, 300_001, n_seqs)
+
+
+def smoke_shard_bases(bases: int) -> int:
+    """The bases of one config-5 shard of ``smoke_records(bases)``'s
+    stream (BUCKET_D shards, the last one shorter)."""
+    _, lengths = smoke_lengths(bases)
+    return -(-(int(lengths.sum()) + lengths.size - 1) // BUCKET_D)
+
+
+def shard_windows(shard_bases: int) -> int:
+    """Window slots of one shard's planes: its bases plus a (k-1) halo at
+    BUCKET_K, in whole words."""
+    return -(-(shard_bases + BUCKET_K - 1) // 16) * 16
 
 
 def smoke_records(bases: int):
@@ -334,9 +402,8 @@ def smoke_records(bases: int):
     length in it."""
     import numpy as np
 
-    rng = np.random.default_rng(0)
-    n_seqs = max(1, round(bases / 250_000))
-    lengths = rng.integers(200_000, 300_001, n_seqs)
+    rng, lengths = smoke_lengths(bases)
+    n_seqs = lengths.size
     starts = np.concatenate([[0], np.cumsum(lengths + 1)[:-1]])
     stream = rng.integers(0, 4, int(lengths.sum()) + n_seqs - 1, dtype=np.uint8)
     stream[rng.random(stream.size) < 0.001] = INVALID
@@ -1036,10 +1103,20 @@ def phase_bucket_kernels(dev, card: str, shard_bases: int) -> dict:
                 check("encode_packed_minimizer", got[:2],
                       encode_cuda.encode_packed(*planes, n_own, k, canonical),
                       what + ": words with the plane against K1's without it")
-            n_valid = int((got[0] != -1).sum())
-        log(f"kernel check encode_packed_minimizer k={k} m={m}: {CHECK_BASES} windows, "
-            f"n_own in {owns}, canonical and not: equal to plain, words equal K1's; "
-            f"{n_valid} valid windows at full n_own")
+            n_valid = int((got[1] != -1).sum())
+        log(f"kernel check encode_packed_minimizer k={k} m={m} (L={k - m + 1}): "
+            f"{CHECK_BASES} windows, n_own in {owns}, canonical and not: equal to plain, "
+            f"words equal K1's; {n_valid} valid windows at full n_own")
+    for base, k, m in MIN_ONE_BASE:
+        one = stage_batch_planes(np.full(CHECK_BASES, base, np.uint8), dev)
+        for canonical in (False, True):
+            what = f"one-base stream of {base}, k={k} m={m} canonical={canonical}"
+            got = encode_cuda.encode_packed(*one, CHECK_BASES, k, canonical, minimizer_m=m)
+            check("encode_packed_minimizer", got, encode_cuda.encode_packed_reference(
+                *one, CHECK_BASES, k, canonical, minimizer_m=m), what)
+        log(f"kernel check encode_packed_minimizer on a one-base stream of {base}, k={k} "
+            f"m={m}: equal to plain, canonical and not")
+    del one
 
     for D in (1, 4, 5, 8):
         planes2, starts = seg_rows(333, D, D, dev)
@@ -1072,7 +1149,7 @@ def phase_bucket_kernels(dev, card: str, shard_bases: int) -> dict:
 
     rec = {}
     # K1m at one config-5 shard: 64 Mbase owned + a (k-1) halo, in planes.
-    k, m, T = BUCKET_K, BUCKET_M, -(-(shard_bases + BUCKET_K - 1) // 16) * 16
+    k, m, T = BUCKET_K, BUCKET_M, shard_windows(shard_bases)
     planes = stage_batch_planes(check_stream(rng, T), dev)
     check("encode_packed_minimizer",
           encode_cuda.encode_packed(*planes, shard_bases, k, False, minimizer_m=m),
@@ -2164,7 +2241,8 @@ def main() -> int:
 
     # 3. kernel vs plain
     dev = torch.device("cuda", 0)
-    timed = phase_kernels(dev, card)
+    shard_bases = smoke_shard_bases(args.bases)
+    timed = phase_kernels(dev, card, shard_bases)
     dense = phase_dense_kernels(dev, card)
     k9 = phase_stream_kernel(dev, card)
 
@@ -2183,7 +2261,9 @@ def main() -> int:
         launches = phase_main_path(records, path, dev, card, refs)
         dense_launches = phase_dense_path(records, path, dev, card, refs)
         stream_launches = phase_stream_path(records, path, dev, card, refs)
-        bucket = phase_bucket_kernels(dev, card, -(-stream.size // BUCKET_D))
+        if shard_bases != -(-stream.size // BUCKET_D):
+            raise AssertionError("smoke_shard_bases disagrees with the generated stream")
+        bucket = phase_bucket_kernels(dev, card, shard_bases)
         bucket_launches = phase_bucket_path(records, path, dev, card, refs)
         row_sort = phase_sort_kernel(dev, card)
         sort_launches = phase_sort_path(records, path, dev, card, refs)

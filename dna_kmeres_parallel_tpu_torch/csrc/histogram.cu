@@ -98,6 +98,8 @@
 
 #include <cstdint>
 
+#include "planes.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -118,17 +120,6 @@ constexpr int kStageBins = 8192;         // HalfHist's flush stage: 32 KB of int
 // HalfHist's windows between spills: at most 2^15, so no half passes 2^16 - 1
 constexpr int kHalfRoundSteps = 2;
 static_assert(kHalfRoundSteps * kU8Threads * 16 <= 32768, "a round must stay below a carry");
-
-// Reverse the 16 2-bit digits of x.
-__device__ __forceinline__ uint32_t digit_rev32(uint32_t x) {
-  x = __brev(x);
-  return ((x >> 1) & 0x55555555u) | ((x & 0x55555555u) << 1);
-}
-
-__device__ __forceinline__ uint32_t word_or_zero(const uint32_t* __restrict__ p,
-                                                 int64_t i, int64_t n) {
-  return i < n ? __ldg(p + i) : 0u;
-}
 
 // The code of the window of the u8 stream that starts at p (its k bases lie
 // in the stream); false if one of them is invalid.
@@ -200,18 +191,6 @@ __device__ __forceinline__ void count_u8(const uint32_t (&w)[8], int64_t first, 
     v |= valid4(w[i]) << (4 * i);
   }
   count16<kCanonical>(d, v, first, limit, k, bins, add);
-}
-
-// The validity bits of 16 bases from their inval_be plane word (digit 11 at
-// bits 30-2j where base j is invalid): bit j set where base j is valid.
-__device__ __forceinline__ uint32_t valid16(uint32_t inval_be) {
-  uint32_t x = digit_rev32(inval_be);  // base j at bits 2j
-  x = (x | (x >> 1)) & 0x55555555u;
-  x = (x | (x >> 1)) & 0x33333333u;
-  x = (x | (x >> 2)) & 0x0F0F0F0Fu;
-  x = (x | (x >> 4)) & 0x00FF00FFu;
-  x = (x | (x >> 8)) & 0x0000FFFFu;
-  return ~x & 0xFFFFu;
 }
 
 // Count the 16 window starts of plane word w (K5): its bases and the next

@@ -4,10 +4,11 @@ Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``),
 one process per source, all started together, and the objects are linked
 into ONE shared library with a plain C interface, at first use, under
 ``build/torch_kernels/`` beside the package. The library's name carries a
-hash of the sources and flags, so an edited source rebuilds and an
-unchanged one is reused. It is loaded with ``ctypes``: every pointer and
-the stream are passed as ``c_void_p``, since ctypes would cut a Python
-int passed without a declared type to 32 bits.
+hash of the sources, the ``csrc/*.cuh`` headers and the flags, so an
+edited source or header rebuilds and an unchanged one is reused. It is
+loaded with ``ctypes``: every pointer and the stream are passed as
+``c_void_p``, since ctypes would cut a Python int passed without a
+declared type to 32 bits.
 
 Nothing here runs at import time, and nothing falls back: a failed build
 raises with nvcc's output.
@@ -54,9 +55,10 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, the headers they include
+    (``csrc/*.cuh``) and the flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted([*_sources(), *CSRC_DIR.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libkmer_kernels_{h.hexdigest()[:16]}.so"

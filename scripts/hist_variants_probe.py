@@ -76,8 +76,8 @@ def build(tmp: Path) -> dict:
             text = text.replace(old, new)
         (inc / "histogram.cu").write_text(text)
         so = inc / "libhist_variants.so"
-        cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-I", str(inc), "-shared",
-               "-o", str(so), str(SOURCE)]
+        cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-I", str(inc), "-I",
+               str(kernels.CSRC_DIR), "-shared", "-o", str(so), str(SOURCE)]
         procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True))
     libs = {}

@@ -46,6 +46,37 @@ def test_records_layout(records):
     assert 0 < int((stream == chip_smoke.INVALID).sum()) < stream.size // 100
 
 
+def test_shard_shape_of_the_records(records):
+    # K1 and K1m are timed at one config-5 shard before the records are
+    # made: the shard's bases follow from the record lengths alone.
+    stream = records[0]
+    shard = chip_smoke.smoke_shard_bases(400_000)
+    assert shard == -(-stream.size // chip_smoke.BUCKET_D)
+    T = chip_smoke.shard_windows(shard)
+    assert T % 16 == 0 and shard + chip_smoke.BUCKET_K - 1 <= T < shard + chip_smoke.BUCKET_K + 15
+
+
+def test_min_cases_reach_every_window_length():
+    # K1m's check runs every ladder depth and combine offset: each window
+    # length L = k - m + 1 from 2 to 31, at every hi width, and one-base
+    # streams where every m-mer ties.
+    cases = chip_smoke.MIN_CASES
+    assert all(1 <= m < min(k, 16) <= k <= 31 for k, m in cases)
+    assert {k - m + 1 for k, m in cases} == set(range(2, 32))
+    assert {(k > 15) + (k > 23) for k, _ in cases} == {0, 1, 2}
+    assert {b for b, _, _ in chip_smoke.MIN_ONE_BASE} == {0, 1, 2, 3}
+    assert all(1 <= m < min(k, 16) for _, k, m in chip_smoke.MIN_ONE_BASE)
+
+
+def test_max_abs_err_skips_a_plane_absent_from_both():
+    lo = torch.tensor([1, -1, 5], dtype=torch.int32)
+    assert chip_smoke.max_abs_err((None, lo), (None, lo + 2)) == 2
+    with pytest.raises(AssertionError, match="absent"):
+        chip_smoke.max_abs_err((None, lo), (lo, lo))
+    with pytest.raises(AssertionError, match="int16"):
+        chip_smoke.max_abs_err((lo,), (lo.to(torch.int16),))
+
+
 @pytest.mark.parametrize("k,canonical", [(21, False), (21, True), (11, True)])
 def test_reference_table_matches_oracle(records, k, canonical):
     # The first 20 kbase of each record, joined by one separator: the

@@ -772,6 +772,90 @@ def test_minimizer_kernel_edges_on_card(cuda_device, n, k, m):
     assert torch.equal(got[2], ref[2]) and torch.equal(got[1], ref[1])
 
 
+def packed_planes_equal(planes, n_own, k, canonical, m):
+    """K1 (m None) or K1m against its plain version, plane by plane; with
+    m, the words also against K1's without the plane, bit for bit."""
+    got = encode_cuda.encode_packed(*planes, n_own, k, canonical, minimizer_m=m)
+    ref = encode_cuda.encode_packed_reference(*planes, n_own, k, canonical, minimizer_m=m)
+    plain = encode_cuda.encode_packed(*planes, n_own, k, canonical) if m else got[:2]
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref, strict=True):
+        assert (g is None and r is None) or (
+            g.device.type == "cuda" and g.dtype == r.dtype and torch.equal(g, r)
+        ), (k, m, canonical, n_own)
+    for g, w in zip(got[:2], plain, strict=True):
+        assert (g is None and w is None) or torch.equal(g, w), (k, m, canonical, n_own)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(2, 32))
+def test_minimizer_kernel_every_m_on_card(cuda_device, k):
+    # Every (k, m) with 1 <= m < min(k, 16), 345 pairs over k = 2..31, so
+    # every window length L = k - m + 1 from 2 to 31: every ladder depth
+    # and combine offset, canonical and not, on one 4,096-base stream.
+    planes = engine.stage_batch_planes(stream(4096, 900 + k), cuda_device)
+    for m in range(1, min(k, 16)):
+        for canonical in (False, True):
+            packed_planes_equal(planes, 4096 - 200, k, canonical, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,m", [(1, None), (11, None), (21, None), (31, None), (16, 15),
+                                 (21, 7), (31, 7), (31, 1), (13, 12)])
+def test_encode_kernel_n_own_edges_on_card(cuda_device, k, m):
+    # n_own at 0, 1, each side of a word edge and of a warp's 512 windows,
+    # and past the end.
+    planes = engine.stage_batch_planes(stream(4096, 40 + k), cuda_device)
+    for n_own in (0, 1, 15, 16, 17, 511, 512, 513, 2047, 2048, 2049, 4095, 4096, 10**9):
+        for canonical in (False, True):
+            packed_planes_equal(planes, n_own, k, canonical, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_words", [1, 2, 3])
+@pytest.mark.parametrize("k,m", [(1, None), (15, None), (16, 15), (23, 2), (24, 9), (31, 7),
+                                 (31, 1), (31, 15)])
+def test_encode_kernel_short_planes_on_card(cuda_device, n_words, k, m):
+    # Planes of one to three words: every window past the planes invalid,
+    # nothing read past them.
+    planes = engine.stage_batch_planes(stream(16 * n_words, n_words + k), cuda_device)
+    for canonical in (False, True):
+        packed_planes_equal(planes, 10**9, k, canonical, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", [1, 2, 3])
+@pytest.mark.parametrize("k,m", [(11, None), (21, None), (31, None), (21, 7), (31, 7)])
+def test_encode_kernel_plane_views_on_card(cuda_device, start, k, m):
+    # Plane views that start 1-3 words into their tensors (4-12 bytes past
+    # the allocation's alignment), as a caller's slices give them.
+    full = engine.stage_batch_planes(stream(4096 + 64, 70 + k), cuda_device)
+    planes = tuple(p[start : start + 256 - start] for p in full)
+    assert planes[0].data_ptr() % 16 == 4 * start
+    for canonical in (False, True):
+        packed_planes_equal(planes, 10**9, k, canonical, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("base", [0, 1, 2, 3])
+def test_minimizer_kernel_one_base_stream_on_card(cuda_device, base):
+    # One base throughout: every m-mer of a window ties.
+    planes = engine.stage_batch_planes(np.full(4096, base, np.uint8), cuda_device)
+    for k, m in ((2, 1), (16, 15), (21, 7), (31, 7), (31, 1), (31, 15)):
+        for canonical in (False, True):
+            packed_planes_equal(planes, 4096 - 3, k, canonical, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(1, 32))
+def test_encode_kernel_every_k_on_card(cuda_device, k):
+    # K1 at every k, canonical and not, on a stream longer than one block's
+    # 4,096 windows and not a multiple of them.
+    planes = engine.stage_batch_planes(stream(3 * 4096 + 48, 60 + k), cuda_device)
+    for canonical in (False, True):
+        packed_planes_equal(planes, 3 * 4096 + 7, k, canonical, None)
+
+
 def sorted_rows_on(dev, n_rows, row_w, D, seed):
     """Row-sorted int32 planes [n_rows, row_w] (2) grouped by owner and
     their starts [n_rows, D+1]: row 0 one owner, row 1 all sentinels."""

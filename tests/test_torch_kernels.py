@@ -19,6 +19,24 @@ def test_library_path_is_keyed_by_the_sources():
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
 
 
+def test_library_path_is_keyed_by_the_headers(tmp_path, monkeypatch):
+    # A header the sources include (csrc/*.cuh) keys the library like a
+    # source: an edited header never loads a stale library.
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in [*kernels.CSRC_DIR.glob("*.cu"), *kernels.CSRC_DIR.glob("*.cuh")]:
+        (csrc / src.name).write_bytes(src.read_bytes())
+    assert (csrc / "planes.cuh").exists()
+    monkeypatch.setattr(kernels, "CSRC_DIR", csrc)
+    path = kernels.library_path()
+    assert path == kernels.library_path()
+    (csrc / "planes.cuh").write_text((csrc / "planes.cuh").read_text() + "\n// edited\n")
+    edited = kernels.library_path()
+    assert edited != path
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    assert kernels.library_path() not in (path, edited)
+
+
 def test_missing_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
