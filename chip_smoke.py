@@ -49,8 +49,11 @@ exits nonzero:
    it;
 5. the distance kernels (K2 counts matrix, K3 and K4 (min,+)) against
    their plain PyTorch versions on the card, element for element on edge
-   shapes, then timed with CUDA events at the distance path's shapes,
-   beside their plain versions and, for K3/K4, ``torch.cdist(p=1)``;
+   shapes (K2 at k=1-8, canonical and not, and on a grid 5 bytes past
+   alignment), then timed with CUDA events at the distance path's shapes,
+   beside their plain versions and, for K3/K4, ``torch.cdist(p=1)``; K2
+   checked and timed at (a)'s grid, (c)'s (all records, one launch),
+   (b)'s at k=8 and 8 rows of 4 Mbase (split across warps);
 6. the distance path on a seeded FASTA of ``--records`` records of
    1,000-2,000 bases (default 54,018, the reference program's design
    scale): (a) ``distance_file`` at k=3 on the first 16,384 records, (b)
@@ -65,9 +68,11 @@ exits nonzero:
 7. the bucketed exchange (BASELINE config 5): K1m (K1 with its minimizer
    plane; every window length k - m + 1 from 2 to 31, canonical and not,
    and one-base streams), K10 (owner segments) and P1 (the row roll)
-   against their plain versions on edge cases, then timed at the config-5
-   shapes (one 64 Mbase shard at k=31, m=7; K10 over [32768, 2048] x 2
-   planes at D=4; P1 at [32768, 2048]); then ``count_bucket_auto`` on the
+   against their plain versions on edge cases (P1 also at W of 1-5, 255,
+   2049 and 2048, one word past alignment, shifts at both int32
+   extremes), then timed at the config-5 shapes (one 64 Mbase shard at
+   k=31, m=7; K10 over [32768, 2048] x 2 planes at D=4; P1 at [32768,
+   2048] and at the row route's [8, 256] probe tile); then ``count_bucket_auto`` on the
    main path's FASTA (parsed by the port's native parser) on a local mesh
    of 4 shards on the card: k=31 with minimizer owners (config 5), the
    same canonical, and prefix owners, each against ``reference_table``,
@@ -165,6 +170,8 @@ OPS_PER_S = 67e12
 #: the rows of (c)'s one streamed panel
 DIST_ROWS_A = 16384
 DIST_ROWS_B = 2048
+#: K2's long-row shape: a few rows of 4 Mbase, split across warps
+K2_LONG_ROWS = (8, 4_000_000)
 PANEL_ROWS = 2048
 #: k of K9's check (every width of the split words), each with and
 #: without canonical
@@ -197,6 +204,8 @@ BUCKET_SMALL_BASES = 16 << 20
 #: K10's and P1's timed shape: the row route's rows of one 64 Mbase shard
 SEG_ROWS = 32768
 ROW_W = 2048
+#: P1's edge shapes [R, W]: W of 1-3, not a multiple of 4, one past ROW_W
+ROLL_EDGES = ((64, 1), (64, 2), (64, 3), (64, 5), (333, 255), (100, 2049), (100, ROW_W))
 #: the config-5 run, whose launches the kernels line reports for K1m, K10
 #: and P1
 BUCKET_MAIN = f"count_bucket_auto(k={BUCKET_K}, minimizer, D={BUCKET_D})"
@@ -1144,8 +1153,20 @@ def phase_bucket_kernels(dev, card: str, shard_bases: int) -> dict:
     sr = torch.randint(-3 * ROW_W, 3 * ROW_W, (SEG_ROWS,), generator=g).to(torch.int32).to(dev)
     check("row_roll", (sort_cuda.row_roll(xr, sr),), (sort_cuda.row_roll_reference(xr, sr),),
           f"[{SEG_ROWS}, {ROW_W}]")
+    for R, W in ROLL_EDGES:
+        for offset in (0, 1):  # 1: x one word past a 16-byte boundary
+            buf = torch.empty(R * W + offset, dtype=torch.int32, device=dev)
+            xe = buf[offset:].view(R, W).copy_(
+                torch.randint(-(2**31), 2**31 - 1, (R, W), generator=g, dtype=torch.int64)
+                .to(torch.int32))
+            se = torch.randint(-3 * W, 3 * W, (R,), generator=g).to(torch.int32)
+            se[:2] = torch.tensor([-(2**31), 2**31 - 1])
+            se = se.to(dev)
+            check("row_roll", (sort_cuda.row_roll(xe, se),),
+                  (sort_cuda.row_roll_reference(xe, se),), f"[{R}, {W}] offset {offset}")
     log(f"kernel check row_roll: the probe's [8, 256] tile equals np.roll, [{SEG_ROWS}, "
-        f"{ROW_W}] with shifts in [-{3 * ROW_W}, {3 * ROW_W}) equals plain")
+        f"{ROW_W}] with shifts in [-{3 * ROW_W}, {3 * ROW_W}) equals plain, and so do "
+        f"{list(ROLL_EDGES)}, aligned and one word past, shifts at both int32 extremes")
 
     rec = {}
     # K1m at one config-5 shard: 64 Mbase owned + a (k-1) halo, in planes.
@@ -1181,11 +1202,20 @@ def phase_bucket_kernels(dev, card: str, shard_bases: int) -> dict:
         shape=f"[{SEG_ROWS}, {ROW_W}] x 2 planes, D={D}, row_cap={row_cap}",
     )
     del planes2, starts
+    rolls = []
+    for xt, st in ((xr, sr), (x, s)):
+        R, W = xt.shape
+        bound = bound_ms(2 * 4 * R * W + 4 * R, 0)
+        rolls.append(dict(
+            shape=f"[{R}, {W}]", ms=time_ms(lambda: sort_cuda.row_roll(xt, st), 20),
+            plain_ms=time_ms(lambda: sort_cuda.row_roll_reference(xt, st), 3),
+            bound_ms=bound[0], bound_by=bound[1],
+        ))
+    log(f"kernel time row_roll at the path's probe tile [8, 256]: {rolls[1]['ms']:.4f} ms, "
+        f"plain {rolls[1]['plain_ms']:.3f} ms, bound {rolls[1]['bound_ms']:.6f} ms [{card}]")
     rec["row_roll"] = dict(
-        ms=time_ms(lambda: sort_cuda.row_roll(xr, sr), 20),
-        plain_ms=time_ms(lambda: sort_cuda.row_roll_reference(xr, sr), 3),
-        bound=bound_ms(2 * 4 * SEG_ROWS * ROW_W + 4 * SEG_ROWS, 0),
-        shape=f"[{SEG_ROWS}, {ROW_W}]",
+        ms=rolls[0]["ms"], plain_ms=rolls[0]["plain_ms"],
+        bound=(rolls[0]["bound_ms"], rolls[0]["bound_by"]), shape=rolls[0]["shape"], shapes=rolls,
     )
     del xr, sr
     torch.cuda.empty_cache()
@@ -1922,12 +1952,20 @@ def phase_distance_kernels(dev, card: str, records, so: Path | None = None) -> d
     for r, n in enumerate(rng.integers(0, 2001, 600)):
         g[r, n if r % 7 else r % 9 :] = INVALID
     grid = torch.from_numpy(g).to(dev)
-    for k in (3, 5, 8):
+    for k in range(1, 9):
         for canonical in (False, True):
             check("counts_matrix",
                   histogram_cuda.counts_matrix_cuda(grid, k, 4**k, canonical),
                   histogram_cuda.counts_matrix_reference(grid, k, 4**k, canonical),
                   f"k={k} canonical={canonical} grid {tuple(g.shape)}")
+    # Rows that do not start on a 16-byte boundary: the grid 5 bytes past one.
+    buf = torch.empty(g.size + 5, dtype=torch.uint8, device=dev)
+    view = buf[5:].view(g.shape).copy_(grid)
+    for k in (3, 8):
+        check("counts_matrix", histogram_cuda.counts_matrix_cuda(view, k, 4**k, True),
+              histogram_cuda.counts_matrix_reference(view, k, 4**k, True),
+              f"k={k} canonical grid {tuple(g.shape)} 5 bytes past alignment")
+    del buf, view
     for B, S, S2 in ((64, 1000, 777), (1024, 1000, 777), (65536, 300, 130)):
         a = rng.integers(0, 200, (S, B)).astype(np.int32)
         a[rng.random(a.shape) < 0.5] = 0
@@ -1974,9 +2012,30 @@ def phase_distance_kernels(dev, card: str, records, so: Path | None = None) -> d
     grid_a = torch.from_numpy(record_grid(stream, starts[:na], lengths[:na])).to(dev)
     grid_b = grid_a[:nb].contiguous()
     grid_all = torch.from_numpy(record_grid(stream, starts, lengths)).to(dev)
+    g = rng.integers(0, 4, K2_LONG_ROWS, dtype=np.uint8)
+    g[rng.random(K2_LONG_ROWS) < 0.001] = INVALID
+    grid_long = torch.from_numpy(g).to(dev)
+    del g
+    # K2 at the four shapes it is timed at: (a), (c) (the reference
+    # workload's one launch), (b) at k=8, and a few long rows (split
+    # across warps).
+    k2 = []
+    for run, grid, k in (("(a)", grid_a, 3), ("(c)", grid_all, 3), ("(b)", grid_b, 8),
+                         ("long rows", grid_long, 3)):
+        S, L = grid.shape
+        check("counts_matrix", histogram_cuda.counts_matrix_cuda(grid, k, 4**k),
+              histogram_cuda.counts_matrix_reference(grid, k, 4**k), f"{run} k={k} [{S}, {L}]")
+        bound = bound_ms(S * L + S * 4**k * 4, 0)
+        k2.append(dict(
+            run=run, shape=f"k={k} grid [{S}, {L}]",
+            ms=time_ms(lambda: histogram_cuda.counts_matrix_cuda(grid, k, 4**k), 20),
+            plain_ms=time_ms(lambda: histogram_cuda.counts_matrix_reference(grid, k, 4**k), 3),
+            bound_ms=bound[0], bound_by=bound[1],
+        ))
+        log(f"kernel time counts_matrix {run} k={k} grid [{S}, {L}]: {k2[-1]['ms']:.4f} ms, "
+            f"plain {k2[-1]['plain_ms']:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}) [{card}]")
+    del grid_long
     counts_a = histogram_cuda.counts_matrix_cuda(grid_a, 3, 64)
-    check("counts_matrix", counts_a,
-          histogram_cuda.counts_matrix_reference(grid_a, 3, 64), f"(a) {tuple(grid_a.shape)}")
     counts_all = histogram_cuda.counts_matrix_cuda(grid_all, 3, 64)
     del grid_all
     nall = lengths.size
@@ -1993,19 +2052,10 @@ def phase_distance_kernels(dev, card: str, records, so: Path | None = None) -> d
     check("min_sum_rect", out_c, distance.min_sum_matrix(panel, counts_all),
           f"(c) {tuple(panel.shape)} x {tuple(counts_all.shape)} ({route})")
 
-    rec = {}
-    sa, sl = grid_a.shape
-    rec["counts_matrix"] = dict(
-        ms=time_ms(lambda: histogram_cuda.counts_matrix_cuda(grid_a, 3, 64), 20),
-        plain_ms=time_ms(lambda: histogram_cuda.counts_matrix_reference(grid_a, 3, 64), 3),
-        library_ms=None,
-        bound=bound_ms(sa * sl + sa * 64 * 4, 0),
-        shape=f"k=3 grid [{sa}, {sl}]",
-    )
-    k8_ms = time_ms(lambda: histogram_cuda.counts_matrix_cuda(grid_b, 8, 65536), 20)
-    nbytes = grid_b.numel() + nb * 65536 * 4
-    log(f"kernel time counts_matrix k=8 grid {tuple(grid_b.shape)}: {k8_ms:.4f} ms, "
-        f"bound {bound_ms(nbytes, 0)[0]:.4f} ms [{card}]")
+    rec = {"counts_matrix": dict(
+        ms=k2[0]["ms"], plain_ms=k2[0]["plain_ms"], library_ms=None,
+        bound=(k2[0]["bound_ms"], k2[0]["bound_by"]), shape=k2[0]["shape"], shapes=k2,
+    )}
     del grid_a, grid_b
     af = counts_a.float()
     rec["min_sum_tri"] = dict(
@@ -2320,6 +2370,13 @@ def main() -> int:
     ):
         r = dist[name]
         run_key = next(key for key in dist_launches if key.startswith(run))
+        extra = {}
+        if name == "counts_matrix":
+            # every timed shape, with its run's launches (the long rows are
+            # on no path)
+            extra["shapes"] = [{**sh, "launches": next(
+                (n[name] for key, n in dist_launches.items() if key.startswith(sh["run"])), 0)}
+                for sh in r["shapes"]]
         kernels_json.append({
             "name": name,
             "route": "cuda",
@@ -2332,6 +2389,7 @@ def main() -> int:
             "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1],
             "library_ms": r["library_ms"],
+            **extra,
         })
     for name, replaces in (
         ("hist_planes", "histogram_pallas.py:814"),
@@ -2361,18 +2419,25 @@ def main() -> int:
         ("row_roll", "owner_segments.cu", "scripts/dynroll_probe.py:37"),
     ):
         r = bucket[name]
+        launched = bucket_launches[BUCKET_MAIN][name]
+        extra = {}
+        if name == "row_roll":
+            # the path launches P1 once, on the probe's [8, 256] tile
+            extra["shapes"] = [{**sh, "launches": launched if sh["shape"] == "[8, 256]" else 0}
+                               for sh in r["shapes"]]
         kernels_json.append({
             "name": name,
             "route": "cuda",
             "source": f"dna_kmeres_parallel_tpu_torch/csrc/{src}",
             "replaces": replaces,
-            "launches": bucket_launches[BUCKET_MAIN][name],
+            "launches": launched,
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1],
             "library_ms": r["library_ms"],
+            **extra,
         })
     kernels_json.append({
         "name": "row_sort",

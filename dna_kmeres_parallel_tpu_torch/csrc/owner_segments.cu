@@ -19,12 +19,20 @@
 //   which checked that Mosaic rolls a row by a shift read at run time:
 //   out[r, c] = x[r, (c + shift[r]) mod W].
 //
-// Design: a gather with contiguous runs. One thread per output element;
-// a block covers 256 consecutive columns of one (row, owner) slot, so it
-// reads its two starts once and both its loads and its stores are
-// coalesced along c. Both planes go through one launch. The TPU kernel's
-// whole-tile rolls and sublane selects are a VMEM layout device and have
-// no counterpart here.
+// K10's design: a gather with contiguous runs. One thread per output
+// element; a block covers 256 consecutive columns of one (row, owner)
+// slot, so it reads its two starts once and both its loads and its stores
+// are coalesced along c. Both planes go through one launch. The TPU
+// kernel's whole-tile rolls and sublane selects are a VMEM layout device
+// and have no counterpart here.
+//
+// P1's design: a warp per row (grid-stride over rows), the row's shift
+// reduced into [0, W) once, in 32 bits; a lane moves one word at a time,
+// with coalesced 4-byte loads and stores, at any W and any alignment. On
+// the card, whole quads of 4 words written as 16-byte stores ran within
+// 2% of it at [32768, 2048] and slower at the path's [8, 256] tile; two
+// aligned 16-byte loads and a word select ran 9% slower, and streaming
+// stores tied (scripts/counts_matrix_variants_probe.py).
 //
 // Bound: bytes. K10 reads each plane once (4 B per word) and writes 4 B
 // per send slot, D * row_cap slots per row (twice the row at the
@@ -72,16 +80,30 @@ owner_segments_kernel(const int32_t* __restrict__ in0,
   }
 }
 
+constexpr int kRollWarps = kThreads / 32;
+
+// Row r's shift reduced into [0, W).
+__device__ __forceinline__ int row_shift(const int32_t* __restrict__ shift, int64_t r, int W) {
+  const int s = __ldg(shift + r) % W;
+  return s < 0 ? s + W : s;
+}
+
+// P1: one warp a row, one word a lane.
 __global__ void __launch_bounds__(kThreads)
 row_roll_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ shift,
-                int64_t tiles, int W, int32_t* __restrict__ out) {
-  const int64_t r = static_cast<int64_t>(blockIdx.x) / tiles;
-  const int c = static_cast<int>(static_cast<int64_t>(blockIdx.x) % tiles) *
-                    kThreads +
-                threadIdx.x;
-  if (c >= W) return;
-  const int64_t src = wrap(static_cast<int64_t>(c) + __ldg(shift + r), W);
-  out[r * W + c] = __ldg(x + r * W + src);
+                      int64_t R, int W, int32_t* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int64_t n_warps = static_cast<int64_t>(gridDim.x) * kRollWarps;
+  for (int64_t r = static_cast<int64_t>(blockIdx.x) * kRollWarps + (threadIdx.x >> 5); r < R;
+       r += n_warps) {
+    const int back = W - row_shift(shift, r, W);  // in [1, W]
+    const int32_t* xr = x + r * W;
+    int32_t* o = out + r * W;
+    for (int c = lane; c < W; c += 32) {
+      const int i = c < back ? c + W - back : c - back;  // (c + shift) mod W
+      o[c] = __ldg(xr + i);
+    }
+  }
 }
 
 constexpr int64_t kMaxBlocks = 0x7FFFFFFF;
@@ -108,17 +130,15 @@ extern "C" int kp_owner_segments(const void* in0, const void* in1,
   return static_cast<int>(cudaGetLastError());
 }
 
-// P1: out[r, c] = x[r, (c + shift[r]) mod W] over [R, W] int32.
+// P1: out[r, c] = x[r, (c + shift[r]) mod W] over [R, W] int32, any int32
+// shift and any W >= 1.
 extern "C" int kp_row_roll(const void* x, const void* shift, long long R,
                            int W, void* out, void* stream) {
-  const int64_t tiles = (W + kThreads - 1) / kThreads;
-  const int64_t blocks = static_cast<int64_t>(R) * tiles;
-  if (R <= 0 || W <= 0 || blocks > kMaxBlocks) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  row_roll_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(x), static_cast<const int32_t*>(shift), tiles,
-      W, static_cast<int32_t*>(out));
+  if (R <= 0 || W <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t blocks = (R + kRollWarps - 1) / kRollWarps;
+  const unsigned grid = static_cast<unsigned>(blocks < kMaxBlocks ? blocks : kMaxBlocks);
+  row_roll_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(x), static_cast<const int32_t*>(shift), R, W,
+      static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

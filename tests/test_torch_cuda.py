@@ -103,20 +103,40 @@ def base_grid(S: int, L: int, seed: int) -> np.ndarray:
         g[0, 10:30] = codec.INVALID_BASE
     for r, n in enumerate(rng.integers(0, L + 1, S)):
         g[r, n:] = codec.INVALID_BASE
+    if S > 2:
+        g[S // 2] = codec.INVALID_BASE  # one row all padding
     return g
+
+
+#: K2's row lengths at the edges of its 16-byte chunks (k - 1 holds no window)
+COUNTS_LS = (0, 1, "k-1", 15, 16, 17, 31, 33, 2000, 2001)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("canonical", [False, True])
 @pytest.mark.parametrize(
-    "S,L,k,bins",
-    [(1, 1, 3, 64), (5, 2, 3, 64), (37, 300, 3, 64), (64, 513, 5, 1024),
-     (9, 2000, 8, 65536), (3, 40, 1, 4), (16, 200, 10, 65536), (2, 0, 3, 64)],
+    "S,L,k,bins,offset",
+    [(1, 1, 3, 64, 0), (5, 2, 3, 64, 0), (37, 300, 3, 64, 0), (64, 513, 5, 1024, 0),
+     (64, 513, 6, 4096, 3), (40, 700, 7, 4097, 5),
+     (9, 2000, 8, 65536, 0), (3, 40, 1, 4, 0), (16, 200, 10, 65536, 0), (2, 0, 3, 64, 0)]
+    + [(37, L, k, min(4**k, 65536), offset) for k in (1, 3, 8, 10) for L in COUNTS_LS
+       for offset in (0, 5)]
+    # rows split into parts: few long rows (both routes, and the warp
+    # route's widest histogram), a row past the block route's 4,095 chunks,
+    # and one or all of the reference's records
+    + [(1, 4_000_000, 3, 64, 0), (2, 1_000_000, 2, 16, 3), (3, 300_000, 8, 65536, 7),
+       (2, 300_000, 6, 4096, 0), (2, 70_001, 7, 16384, 0), (1, 2000, 3, 64, 0),
+       (54018, 2000, 3, 64, 0)],
 )
-def test_counts_matrix_kernel_matches_plain(cuda_device, S, L, k, bins, canonical):
+def test_counts_matrix_kernel_matches_plain(cuda_device, S, L, k, bins, offset, canonical):
     # k=10 keeps only the codes below 65,536 (the rest are dropped, as in
-    # the plain version); L=0 and L=2 hold no window.
-    grid = torch.from_numpy(base_grid(S, L, S * 7 + L)).to(cuda_device)
+    # the plain version); L=0, L=2 and L=k-1 hold no window. `offset` puts
+    # the grid that many bytes past an aligned address.
+    L = k - 1 if L == "k-1" else L
+    g = base_grid(S, L, S * 7 + L)
+    buf = torch.empty(S * L + offset, dtype=torch.uint8, device=cuda_device)
+    grid = buf[offset:].view(S, L)
+    grid.copy_(torch.from_numpy(g))
     launches = histogram_cuda.COUNTS_LAUNCHES
     got = histogram_cuda.counts_matrix_grid(grid, k, bins, canonical)
     assert histogram_cuda.COUNTS_LAUNCHES == launches + 1
@@ -892,14 +912,25 @@ def test_owner_segments_kernel_matches_plain_on_card(cuda_device, D, row_w, row_
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,W", [(8, 256), (333, 1000), (4096, 2048), (1, 1)])
-def test_row_roll_kernel_matches_plain_on_card(cuda_device, R, W):
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize(
+    "R,W",
+    [(8, 256), (333, 1000), (4096, 2048), (1, 1), (64, 2), (64, 3), (64, 5), (333, 255),
+     (100, 2049), (32768, 2048)],
+)
+def test_row_roll_kernel_matches_plain_on_card(cuda_device, R, W, offset):
+    # offset 1 puts x one word past a 16-byte boundary, so no row starts
+    # aligned. Shifts include both int32 extremes.
     from dna_kmeres_parallel_tpu_torch.ops import sort_cuda
 
     g = torch.Generator().manual_seed(R + W)
     x = torch.randint(-(2**31), 2**31 - 1, (R, W), generator=g, dtype=torch.int64)
-    x = x.to(torch.int32).to(cuda_device)
-    s = torch.randint(-3 * W, 3 * W, (R,), generator=g).to(torch.int32).to(cuda_device)
+    buf = torch.empty(R * W + offset, dtype=torch.int32, device=cuda_device)
+    x = buf[offset:].view(R, W).copy_(x.to(torch.int32))
+    s = torch.randint(-3 * W, 3 * W, (R,), generator=g).to(torch.int32)
+    s[0] = -(2**31)
+    s[-1] = 2**31 - 1
+    s = s.to(cuda_device)
     launches = sort_cuda.ROLL_LAUNCHES
     got = sort_cuda.row_roll(x, s)
     assert sort_cuda.ROLL_LAUNCHES == launches + 1
