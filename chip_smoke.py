@@ -94,7 +94,34 @@ exits nonzero:
    and on two duplicated inputs (the records of its first 16 Mbase four
    times, of its first 4 Mbase sixteen times); and the aggregated
    exchange on a one-shard mesh at k=13. Each table against
-   its reference, each run's launches against its route.
+   its reference, each run's launches against its route;
+9. distances past the dense band, after phase 6 on the same card: (d)
+   the union route on 2,048 reads of 1,000-2,000 bases drawn from a
+   seeded 100 kbase genome (about 30x, one substitution in 5,000 bases)
+   at k=21: ``distance_sparse_packed`` with the union route on (K3 over
+   the [2048, 131,072] union matrix), off (the native two-pointer) and
+   under ``auto`` (its route and predicted times printed), their CSVs
+   byte-identical, then ``distance_sparse_stream_to_csv`` in panels of
+   256 rows (K4), stopped after 2 panels and resumed, byte-identical to
+   the one-shot CSV, and canonical k=21 once; (e) the host route on the
+   distance FASTA's first 4,096 records at k=21, streamed to CSV by a
+   child SIGKILLed after its second checkpoint and resumed here; (f) 8
+   independent records of 4.2-6 Mbase at k=21, their tables from K1
+   (``SparseKmerEngine``), their union declined by the ``auto`` plan; (g)
+   ``KmerEngine(k=9).distance_sequences`` on 1,024 distance records (K2's
+   global route, K3 at 4^9 bins) and ``distance_stream_to_csv`` at k=10
+   on 256 (K4 at 4^10 bins). The sparse phases are held against plain
+   per-record tables (int64 rolled codes and ``torch.unique`` on the
+   card) and ``numpy.intersect1d`` per sampled pair (100,000 pairs and
+   CSV lines; (f)'s 28 pairs of 5 Mbase tables by ``torch.searchsorted``
+   on the card), (g) against the reference of phase 6. Then K2's global
+   route (k=9, 10 and 12, canonical and not, N runs, rows shorter than k,
+   8 rows of 4 Mbase) and K3/K4 at (d)'s and (g)'s widths (u16x2) and on
+   slices whose row sums reach 2^16 (i32) against their plain versions,
+   each timed beside its plain version, ``torch.cdist(p=1)`` and its
+   bound; and the rates the distance gates read (K3's bin-pairs a
+   second, the two-pointer's entry-pairs a second a thread, pinned H2D
+   and D2H, a tiny job's round trip).
 
 The script imports the port and nothing of JAX or of the JAX package.
 
@@ -1572,6 +1599,7 @@ COUNTERS = {
     "encode_packed": ("encode_cuda", "LAUNCHES"),
     "encode_stream": ("encode_cuda", "STREAM_LAUNCHES"),
     "counts_matrix": ("histogram_cuda", "COUNTS_LAUNCHES"),
+    "counts_matrix_global": ("histogram_cuda", "COUNTS_GLOBAL_LAUNCHES"),
     "min_sum_tri": ("distance_cuda", "TRI_LAUNCHES"),
     "min_sum_rect": ("distance_cuda", "RECT_LAUNCHES"),
     "hist_planes": ("histogram_cuda", "PLANES_LAUNCHES"),
@@ -1731,23 +1759,36 @@ def same_bits(a, b) -> bool:
     return a.shape == b.shape and np.array_equal(a.view(np.uint32), b.view(np.uint32))
 
 
-def check_csv(path: Path, want, n_sample: int = 100_000) -> int:
-    """One line per value, and ``n_sample`` seeded lines equal to Python's
-    ``"%f"`` of the reference's values. Returns the lines checked."""
+def sample_lines(n_lines: int, n_sample: int = 100_000):
+    """``n_sample`` seeded distinct line numbers of ``n_lines``."""
+    import numpy as np
+
+    rng = np.random.default_rng(2)
+    return rng.choice(n_lines, size=min(n_sample, n_lines), replace=False)
+
+
+def check_csv_lines(path: Path, n_lines: int, idx, want) -> int:
+    """``n_lines`` lines, and line ``idx[i]`` equal to Python's ``"%f"`` of
+    ``want[i]``. Returns the lines checked."""
     import numpy as np
 
     data = np.fromfile(path, dtype=np.uint8)
     nl = np.flatnonzero(data == ord("\n"))
-    if nl.size != want.size or (data.size and data[-1] != ord("\n")):
-        raise AssertionError(f"{path.name}: {nl.size} lines for {want.size} pairs")
+    if nl.size != n_lines or (data.size and data[-1] != ord("\n")):
+        raise AssertionError(f"{path.name}: {nl.size} lines for {n_lines} pairs")
     begin = np.concatenate([[0], nl[:-1] + 1])
-    rng = np.random.default_rng(2)
-    idx = rng.choice(want.size, size=min(n_sample, want.size), replace=False)
-    for i in idx:
+    for i, w in zip(idx, want, strict=True):
         line = data[begin[i] : nl[i] + 1].tobytes()
-        if line != ("%f\n" % want[i]).encode():
-            raise AssertionError(f"{path.name} line {i}: {line!r} != %f of {want[i]!r}")
-    return idx.size
+        if line != ("%f\n" % w).encode():
+            raise AssertionError(f"{path.name} line {i}: {line!r} != %f of {w!r}")
+    return len(idx)
+
+
+def check_csv(path: Path, want, n_sample: int = 100_000) -> int:
+    """One line per value, and ``n_sample`` seeded lines equal to Python's
+    ``"%f"`` of the reference's values. Returns the lines checked."""
+    idx = sample_lines(want.size, n_sample)
+    return check_csv_lines(path, want.size, idx, want[idx])
 
 
 #: K3/K4's kernels in the SASS: (name, mangled-name fragments, outputs a
@@ -2153,6 +2194,14 @@ def phase_distance_kernels(dev, card: str, records, so: Path | None = None) -> d
     return rec
 
 
+def with_launches(shapes: list, kernel: str, launches: dict) -> list:
+    """Each timed shape with the launches of ``kernel`` in the run whose
+    name starts with the shape's ``run`` (0 for a shape on no path)."""
+    return [{**sh, "launches": next(
+        (n[kernel] for key, n in launches.items() if sh["run"] and key.startswith(sh["run"])), 0)}
+        for sh in shapes]
+
+
 def expect_launches(name: str, want: dict) -> dict:
     got = read_launches()
     if got != want:
@@ -2160,10 +2209,57 @@ def expect_launches(name: str, want: dict) -> dict:
     return got
 
 
+def report_run(name: str, wall: float, n_pairs: int, phases: dict, note: str, card: str) -> None:
+    split = " ".join(f"{p}={s:.3f}" for p, s in phases.items())
+    log(f"{name}: {n_pairs} pairs, wall {wall:.3f} s, "
+        f"{n_pairs / max(wall, 1e-9) / 1e6:.2f} Mpairs/s; phases s: {split}; {note} [{card}]")
+
+
+def routes_taken() -> dict:
+    """K3/K4's launches of the run just read, by route."""
+    from dna_kmeres_parallel_tpu_torch.ops import distance_cuda
+
+    return {r: n for r, n in distance_cuda.ROUTE_LAUNCHES.items() if n}
+
+
+def check_in_memory_run(name: str, k: int, n: int, run, records, dev, card: str,
+                        want: dict) -> dict:
+    """Run ``run()`` (in-memory dense distances of the first n records)
+    with the launch counts reset, expect ``want`` launches, and hold its
+    counts, K3's min-sums of them and its distances to the plain
+    reference. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from dna_kmeres_parallel_tpu_torch.ops import distance_cuda
+
+    stream, starts, lengths = records
+    reset_launches()
+    t = time.perf_counter()
+    res = run()
+    wall = time.perf_counter() - t
+    launches = expect_launches(name, {**dict.fromkeys(read_launches(), 0), **want})
+    taken = routes_taken()
+    ref_counts = reference_counts(stream, starts[:n], lengths[:n], k, False, dev)
+    if res.n != n or not np.array_equal(res.counts, ref_counts.cpu().numpy()):
+        raise AssertionError(f"{name}: counts differ from the reference")
+    counts = torch.from_numpy(res.counts).to(dev)
+    ref_sums = reference_min_sums(ref_counts, ref_counts)
+    if not torch.equal(distance_cuda.min_sum_tri_cuda(counts), ref_sums):
+        raise AssertionError(f"{name}: K3 min-sums differ from the reference")
+    want_packed = reference_packed(ref_sums.cpu().numpy(), lengths[:n], lengths[:n], k)
+    if not same_bits(res.packed, want_packed):
+        raise AssertionError(f"{name}: distances differ from the reference")
+    report_run(name, wall, want_packed.size, res.phases,
+               f"K3 routes {taken}; counts, min-sums and distances equal the reference", card)
+    del counts, ref_sums, ref_counts, res
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_distance_path(records, path: Path, dev, card: str) -> dict:
     """Runs (a), (b) and (c) of the distance path, each checked against the
     plain reference. Returns each run's launch counts."""
-    import numpy as np
     import torch
 
     import dna_kmeres_parallel_tpu_torch as port
@@ -2176,44 +2272,16 @@ def phase_distance_path(records, path: Path, dev, card: str) -> dict:
     none = dict.fromkeys(read_launches(), 0)
     seqs = record_strings(stream, starts, lengths)
     launches = {}
-
-    def report(name, wall, n_pairs, phases, note):
-        split = " ".join(f"{p}={s:.3f}" for p, s in phases.items())
-        log(f"{name}: {n_pairs} pairs, wall {wall:.3f} s, "
-            f"{n_pairs / wall / 1e6:.2f} Mpairs/s; phases s: {split}; {note} [{card}]")
-
-    def routes_taken():
-        """K3/K4's launches of the run just read, by route."""
-        return {r: n for r, n in distance_cuda.ROUTE_LAUNCHES.items() if n}
-
-    def in_memory_run(name, k, n, run):
-        reset_launches()
-        t = time.perf_counter()
-        res = run()
-        wall = time.perf_counter() - t
-        launches[name] = expect_launches(
-            name, {**none, "counts_matrix": 1, "min_sum_tri": 1})
-        taken = routes_taken()
-        ref_counts = reference_counts(stream, starts[:n], lengths[:n], k, False, dev)
-        if res.n != n or not np.array_equal(res.counts, ref_counts.cpu().numpy()):
-            raise AssertionError(f"{name}: counts differ from the reference")
-        counts = torch.from_numpy(res.counts).to(dev)
-        ref_sums = reference_min_sums(ref_counts, ref_counts)
-        if not torch.equal(distance_cuda.min_sum_tri_cuda(counts), ref_sums):
-            raise AssertionError(f"{name}: K3 min-sums differ from the reference")
-        want = reference_packed(ref_sums.cpu().numpy(), lengths[:n], lengths[:n], k)
-        if not same_bits(res.packed, want):
-            raise AssertionError(f"{name}: distances differ from the reference")
-        report(name, wall, want.size, res.phases,
-               f"K3 routes {taken}; counts, min-sums and distances equal the reference")
-        del counts, ref_sums, ref_counts
-        torch.cuda.empty_cache()
-
+    in_memory = {"counts_matrix": 1, "min_sum_tri": 1}
     na, nb = min(DIST_ROWS_A, S), min(DIST_ROWS_B, S)
-    in_memory_run(f"(a) distance_file(k=3, max_seqs={na})", 3, na,
-                  lambda: port.distance_file(str(path), k=3, device=dev, max_seqs=na))
-    in_memory_run(f"(b) KmerEngine(k=8).distance_sequences({nb} records)", 8, nb,
-                  lambda: KmerEngine(KmerConfig(k=8), device=dev).distance_sequences(seqs[:nb]))
+    name = f"(a) distance_file(k=3, max_seqs={na})"
+    launches[name] = check_in_memory_run(
+        name, 3, na, lambda: port.distance_file(str(path), k=3, device=dev, max_seqs=na),
+        records, dev, card, in_memory)
+    name = f"(b) KmerEngine(k=8).distance_sequences({nb} records)"
+    launches[name] = check_in_memory_run(
+        name, 8, nb, lambda: KmerEngine(KmerConfig(k=8), device=dev).distance_sequences(seqs[:nb]),
+        records, dev, card, in_memory)
 
     name = f"(c) distance_stream_to_csv(k=3, {S} records, panel_rows={PANEL_ROWS}, max_panels=1)"
     csv = path.with_suffix(".csv")
@@ -2238,11 +2306,624 @@ def phase_distance_path(records, path: Path, dev, card: str) -> dict:
     if not same_bits(eng.make_dense_panel_fn(counts, lengths)(0, rows), want):
         raise AssertionError(f"{name}: panel distances differ from the reference")
     checked = check_csv(csv, want)
-    report(name, wall, want.size, out["phases"],
-           f"K4 routes {taken}; counts, min-sums and distances equal the reference, "
-           f"{csv.stat().st_size} CSV bytes, {checked} sampled lines equal %f")
+    report_run(name, wall, want.size, out["phases"],
+               f"K4 routes {taken}; counts, min-sums and distances equal the reference, "
+               f"{csv.stat().st_size} CSV bytes, {checked} sampled lines equal %f", card)
     csv.unlink()
     return launches
+
+
+#: phase (d): reads of a seeded genome at about 30x (the union route)
+READ_GENOME_BASES = 100_000
+READ_COUNT = 2048
+#: substitutions a read base
+READ_SUB_RATE = 1 / 5000
+#: k of the sparse phases (d)-(f)
+SPARSE_K = 21
+#: phase (d)'s streamed run: rows a panel, panels before the stop
+READ_PANEL_ROWS = 256
+READ_STOP_PANELS = 2
+#: phase (e): the first records of the distance FASTA (the host route),
+#: streamed in panels of HOST_PANEL_ROWS, killed after 2 checkpoints
+HOST_RECORDS = 4096
+HOST_PANEL_ROWS = 512
+#: phase (f): long independent records, their tables from K1
+LONG_RECORDS = 8
+LONG_BASES = (4 << 20, 6_000_000)
+#: phase (g): dense mid k, in memory at k=9 and streamed at k=10
+MIDK_ROWS = 1024
+MIDK_STREAM_ROWS = 256
+#: the K3/K4 holds' widths, and the rows of their i32-route slices
+WIDE_BINS = (131_072, 262_144)
+WIDE_ROWS = 256
+#: pairs held against numpy.intersect1d in phases (d) and (e)
+PAIR_SAMPLE = 100_000
+SPARSE_MAIN = "(d) union=on"
+MIDK_MAIN = "(g) k=9"
+MIDK_STREAM = "(g) k=10 stream"
+
+
+def read_set(n_reads: int, genome_bases: int, seed: int = 4):
+    """Seeded reads of 1,000-2,000 bases drawn from one seeded genome, one
+    base in READ_SUB_RATE substituted, as (stream, starts, lengths)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, genome_bases, dtype=np.uint8)
+    lengths = rng.integers(1000, 2001, n_reads)
+    at = rng.integers(0, genome_bases - lengths + 1)
+    starts = np.concatenate([[0], np.cumsum(lengths + 1)[:-1]])
+    stream = np.full(int(lengths.sum()) + n_reads - 1, INVALID, np.uint8)
+    for s, a, n in zip(starts, at, lengths):
+        stream[s : s + n] = genome[a : a + n]
+    sub = (rng.random(stream.size) < READ_SUB_RATE) & (stream < 4)
+    stream[sub] = (stream[sub] + rng.integers(1, 4, int(sub.sum()), dtype=np.uint8)) % 4
+    return stream, starts, lengths
+
+
+def long_records(n: int, lo: int, hi: int, seed: int = 5):
+    """Seeded independent records of lo..hi bases (0.1% N), as (stream,
+    starts, lengths)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(lo, hi + 1, n)
+    starts = np.concatenate([[0], np.cumsum(lengths + 1)[:-1]])
+    stream = rng.integers(0, 4, int(lengths.sum()) + n - 1, dtype=np.uint8)
+    stream[rng.random(stream.size) < 0.001] = INVALID
+    stream[starts[1:] - 1] = INVALID
+    return stream, starts, lengths
+
+
+def first_records(records, n: int):
+    """The first n records of (stream, starts, lengths)."""
+    stream, starts, lengths = records
+    end = int(starts[n - 1] + lengths[n - 1])
+    return stream[:end], starts[:n], lengths[:n]
+
+
+def reference_pair_tables(stream, starts, lengths, k: int, canonical: bool, dev):
+    """Per-record sorted (u64 codes, i64 counts, int64 fences [S+1]), in
+    plain torch on the card: every window of the stream rolled into its
+    code (as ``reference_codes``), keyed by record * 4^k + code, then one
+    ``torch.unique``. Shares no code with the port."""
+    import numpy as np
+    import torch
+
+    S = lengths.size
+    shift = 2 * k
+    if S >= 1 << (63 - shift):
+        raise ValueError("too many records to key by record and code")
+    b = torch.from_numpy(stream).to(dev)
+    first = torch.from_numpy(np.asarray(starts, np.int64)).to(dev)
+    n = b.numel() - k + 1
+    keys = [torch.zeros(0, dtype=torch.int64, device=dev)]
+    for s in range(0, max(n, 0), REF_CHUNK):
+        m = min(REF_CHUNK, n - s)
+        w = b[s : s + m + k - 1].long()
+        code = torch.zeros(m, dtype=torch.int64, device=dev)
+        rc = torch.zeros_like(code)
+        valid = torch.ones(m, dtype=torch.bool, device=dev)
+        for j in range(k):
+            d = w[j : j + m]
+            valid &= d < 4
+            code = (code << 2) | (d & 3)
+            rc |= (3 - (d & 3)) << (2 * j)
+        if canonical:
+            code = torch.minimum(code, rc)
+        row = torch.searchsorted(first, torch.arange(s, s + m, device=dev), right=True) - 1
+        keys.append(((row << shift) | code)[valid])
+    keys, counts = torch.unique(torch.cat(keys), sorted=True, return_counts=True)
+    offs = torch.searchsorted(keys >> shift, torch.arange(S + 1, device=dev))
+    codes = keys & ((1 << shift) - 1)
+    return codes.cpu().numpy().view(np.uint64), counts.cpu().numpy(), offs.cpu().numpy()
+
+
+def pair_rows(idx, S: int):
+    """Packed strict-upper-triangle indices -> (rows, columns)."""
+    import numpy as np
+
+    row_start = np.concatenate([[0], np.cumsum(np.arange(S - 1, 0, -1))])
+    i = np.searchsorted(row_start, idx, side="right") - 1
+    return i, i + 1 + (idx - row_start[i])
+
+
+def reference_pair_distances(tables, lengths, k: int, idx):
+    """float32 distances of the packed pairs ``idx``: each pair's min-sum by
+    ``numpy.intersect1d`` of the two tables, then 1 - s / (min(L) - k + 1)
+    in NumPy float32."""
+    import numpy as np
+
+    codes, counts, offs = tables
+    rows, cols = pair_rows(np.asarray(idx), lengths.size)
+    out = np.empty(len(rows), np.float32)
+    for n, (a, b) in enumerate(zip(rows.tolist(), cols.tolist())):
+        _, ia, ib = np.intersect1d(codes[offs[a] : offs[a + 1]], codes[offs[b] : offs[b + 1]],
+                                   assume_unique=True, return_indices=True)
+        s = np.minimum(counts[offs[a] : offs[a + 1]][ia], counts[offs[b] : offs[b + 1]][ib]).sum()
+        out[n] = np.float32(1.0) - np.float32(s) / np.float32(min(lengths[a], lengths[b]) - k + 1)
+    return out
+
+
+def same_tables(got, want) -> bool:
+    import numpy as np
+
+    return all(np.array_equal(g, w) for g, w in zip(got, want, strict=True))
+
+
+def phase_union_path(dev, card: str, tmp: Path) -> dict:
+    """(d): the union route on a read set at coverage. distance_sparse_packed
+    with the union route on, off and under auto (each one's CSV
+    byte-identical), the streamed run over panels of READ_PANEL_ROWS
+    stopped after READ_STOP_PANELS and resumed (its CSV byte-identical to
+    the one-shot one), and canonical k once; sampled pairs held against
+    numpy.intersect1d of the reference tables. Returns the launch counts,
+    the tables, and the host two-pointer's time."""
+    import numpy as np
+
+    from dna_kmeres_parallel_tpu_torch.models import sparse_engine
+    from dna_kmeres_parallel_tpu_torch.utils import io
+
+    records = read_set(READ_COUNT, READ_GENOME_BASES)
+    stream, starts, lengths = records
+    seqs = record_strings(*records)
+    S, k = lengths.size, SPARSE_K
+    n_pairs = S * (S - 1) // 2
+    none = dict.fromkeys(read_launches(), 0)
+    t = time.perf_counter()
+    ref = reference_pair_tables(*records, k, False, dev)
+    tables = sparse_engine.build_pair_tables(seqs, k, False, dev)
+    if not same_tables(tables, ref):
+        raise AssertionError("(d): build_pair_tables differs from the reference tables")
+    idx = np.sort(sample_lines(n_pairs, PAIR_SAMPLE))
+    want = reference_pair_distances(ref, lengths, k, idx)
+    log(f"(d) {S} reads of {int(lengths.min())}-{int(lengths.max())} bases from a "
+        f"{READ_GENOME_BASES}-base genome ({int(lengths.sum()) / READ_GENOME_BASES:.1f}x): "
+        f"{ref[0].size} table entries, {sparse_engine.sorted_unique(ref[0]).size} distinct "
+        "codes; reference "
+        f"tables and {idx.size} pairs by numpy.intersect1d in {time.perf_counter() - t:.1f} s "
+        f"[{card}]")
+    launches, csvs, host_s = {}, {}, None
+    for union in ("on", "off", "auto"):
+        name = f"(d) union={union}"
+        info = {}
+        reset_launches()
+        t = time.perf_counter()
+        packed = sparse_engine.distance_sparse_packed(seqs, k, device=dev, union=union, info=info)
+        wall = time.perf_counter() - t
+        unioned = info["route"].startswith("union/")
+        if unioned != (union != "off") and union != "auto":
+            raise AssertionError(f"{name}: route {info['route']}")
+        launches[name] = expect_launches(name, {**none, "min_sum_tri": int(unioned)})
+        if not same_bits(packed[idx], want):
+            raise AssertionError(f"{name}: distances differ from the reference")
+        csvs[union] = tmp / f"union_{union}.csv"
+        io.write_distances_csv(csvs[union], packed)
+        if union == "off":
+            host_s = info["phases"]["min_sum"]
+        predicted = (f"predicted device {info['t_dev_total']:.4f} s, host "
+                     f"{info['t_host_total']:.4f} s" if "t_dev_total" in info else "no prediction")
+        report_run(f"(d) distance_sparse_packed(k={k}, {S} reads, union={union})", wall,
+                   n_pairs, info["phases"],
+                   f"route {info['route']} (K3 routes {routes_taken()}); union of "
+                   f"{info.get('union_bins')} codes, {info.get('union_bytes')} bytes planned; "
+                   f"{predicted}; {idx.size} sampled pairs equal the reference", card)
+        del packed
+    first = csvs["on"].read_bytes()
+    for union, path in csvs.items():
+        if path.read_bytes() != first:
+            raise AssertionError(f"(d) union={union}: CSV differs from union=on")
+    log(f"(d) CSVs of union=on, off and auto byte-identical ({len(first)} bytes) [{card}]")
+
+    name = f"(d) stream union=on panel_rows={READ_PANEL_ROWS}"
+    csv, ckpt = tmp / "union_stream.csv", tmp / "union_stream.json"
+    kw = dict(panel_rows=READ_PANEL_ROWS, checkpoint_path=ckpt, device=dev, union="on")
+    reset_launches()
+    t = time.perf_counter()
+    leg1 = sparse_engine.distance_sparse_stream_to_csv(seqs, k, csv, max_panels=READ_STOP_PANELS, **kw)
+    leg2 = sparse_engine.distance_sparse_stream_to_csv(seqs, k, csv, **kw)
+    wall = time.perf_counter() - t
+    n_panels = len(panel_shapes(S, READ_PANEL_ROWS))
+    launches[name] = expect_launches(name, {**none, "min_sum_rect": n_panels})
+    if leg1["completed"] or not (leg2["resumed"] and leg2["completed"]):
+        raise AssertionError(f"{name}: legs {leg1['completed']}, {leg2['resumed']}")
+    if csv.read_bytes() != first:
+        raise AssertionError(f"{name}: the resumed CSV differs from the one-shot CSV")
+    report_run(f"(d) distance_sparse_stream_to_csv(k={k}, panel_rows={READ_PANEL_ROWS}, "
+               f"stopped after {READ_STOP_PANELS} panels, resumed)", wall, n_pairs,
+               {f"leg{i}_{p}": v for i, leg in ((1, leg1), (2, leg2))
+                for p, v in leg["phases"].items()},
+               f"route {leg2['route']}, {n_panels} K4 launches (routes {routes_taken()}); "
+               f"CSV byte-identical to the one-shot CSV", card)
+    for path in (*csvs.values(), csv, ckpt):
+        path.unlink()
+
+    name = "(d) canonical"
+    info = {}
+    reset_launches()
+    t = time.perf_counter()
+    packed = sparse_engine.distance_sparse_packed(seqs, k, True, device=dev, info=info)
+    wall = time.perf_counter() - t
+    unioned = info["route"].startswith("union/")
+    launches[name] = expect_launches(name, {**none, "min_sum_tri": int(unioned)})
+    ref_c = reference_pair_tables(*records, k, True, dev)
+    sub = idx[: max(1, idx.size // 5)]
+    if not same_bits(packed[sub], reference_pair_distances(ref_c, lengths, k, sub)):
+        raise AssertionError(f"{name}: distances differ from the reference")
+    report_run(f"(d) distance_sparse_packed(k={k}, canonical, {S} reads)", wall, n_pairs,
+               info["phases"], f"route {info['route']}; {sub.size} sampled pairs equal the "
+               "reference", card)
+    return {"launches": launches, "tables": tables, "host_min_sum_s": host_s, "n_pairs": n_pairs}
+
+
+#: a child that streams sparse distances with checkpoints and SIGKILLs
+#: itself once its second checkpoint is published
+_KILLED_DISTANCE_CHILD = r"""
+import os, signal, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+from dna_kmeres_parallel_tpu_torch import native
+from dna_kmeres_parallel_tpu_torch.models import sparse_engine
+from dna_kmeres_parallel_tpu_torch.utils import checkpoint
+
+root, fasta, csv, ckpt, dev, k, rows = sys.argv[1:8]
+parsed = native.parse_fasta_native(fasta)
+letters = np.frombuffer(b"ACGTN", np.uint8)
+seqs = [letters[np.minimum(parsed.stream[o : o + n], 4)].tobytes().decode()
+        for o, n in zip(parsed.offsets[:-1], parsed.lengths)]
+save = checkpoint.save_json_atomic
+published = []
+
+def save_then_die(*a, **kw):
+    save(*a, **kw)
+    published.append(1)
+    if len(published) == 2:
+        os.kill(os.getpid(), signal.SIGKILL)
+
+checkpoint.save_json_atomic = save_then_die
+sparse_engine.distance_sparse_stream_to_csv(seqs, int(k), csv, panel_rows=int(rows),
+                                            checkpoint_path=ckpt, device=dev)
+"""
+
+
+def phase_host_path(records, dev, card: str, tmp: Path) -> dict:
+    """(e): the host route on the first HOST_RECORDS records of the distance
+    FASTA at k=21, streamed to CSV: a child killed after its second
+    checkpoint, then resumed here. The CSV's line count, a sample of
+    PAIR_SAMPLE lines and every line of the first resumed panel against
+    numpy.intersect1d of the reference tables. Returns the launch
+    counts."""
+    import numpy as np
+
+    from dna_kmeres_parallel_tpu_torch.models import sparse_engine
+    from dna_kmeres_parallel_tpu_torch.utils import checkpoint
+
+    records = first_records(records, min(HOST_RECORDS, records[2].size))
+    stream, starts, lengths = records
+    S, k = lengths.size, SPARSE_K
+    n_pairs = S * (S - 1) // 2
+    seqs = record_strings(*records)
+    fasta, csv, ckpt = tmp / "host.fasta", tmp / "host.csv", tmp / "host.json"
+    write_fasta(fasta, *records)
+    t = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", _KILLED_DISTANCE_CHILD, str(ROOT), str(fasta), str(csv), str(ckpt),
+         str(dev), str(k), str(HOST_PANEL_ROWS)],
+        capture_output=True, text=True, timeout=600,
+    )
+    child_s = time.perf_counter() - t
+    if child.returncode != -9:
+        raise AssertionError(f"(e): child exited {child.returncode}: {child.stderr[-2000:]}")
+    durable = checkpoint.load_json(ckpt)
+    name = "(e) resumed"
+    info = {}
+    reset_launches()
+    t = time.perf_counter()
+    out = sparse_engine.distance_sparse_stream_to_csv(
+        seqs, k, csv, panel_rows=HOST_PANEL_ROWS, checkpoint_path=ckpt, device=dev, info=info)
+    wall = time.perf_counter() - t
+    launches = {name: expect_launches(name, dict.fromkeys(read_launches(), 0))}
+    if info["route"] != "host/sparse" or not (out["resumed"] and out["completed"]):
+        raise AssertionError(f"{name}: route {info['route']}, report {out}")
+    t = time.perf_counter()
+    ref = reference_pair_tables(*records, k, False, dev)
+    resumed = np.arange(durable["n_pairs"], min(durable["n_pairs"] + 20_000, n_pairs))
+    idx = np.unique(np.concatenate([sample_lines(n_pairs, PAIR_SAMPLE), resumed]))
+    checked = check_csv_lines(csv, n_pairs, idx, reference_pair_distances(ref, lengths, k, idx))
+    done = n_pairs - durable["n_pairs"]
+    report_run(f"(e) distance_sparse_stream_to_csv(k={k}, {S} records, panel_rows="
+               f"{HOST_PANEL_ROWS}) resumed at row {durable['next_r0']}", wall, done,
+               out["phases"],
+               f"route {info['route']}, union of {info.get('union_bins')} codes "
+               f"({info.get('union_bytes')} bytes) declined; child killed after 2 checkpoints "
+               f"({durable['n_pairs']} pairs durable) in {child_s:.1f} s; {n_pairs} lines, "
+               f"{checked} sampled and resumed lines equal the reference "
+               f"(checked in {time.perf_counter() - t:.1f} s)", card)
+    for path in (fasta, csv, ckpt):
+        path.unlink()
+    return launches
+
+
+def phase_long_path(dev, card: str) -> dict:
+    """(f): LONG_RECORDS independent records of LONG_BASES at k=21, whose
+    tables come from SparseKmerEngine (K1 on the card, one batch a record)
+    and whose union the auto plan declines: the host route. The tables
+    and all pairs against the plain reference. Returns the launch
+    counts."""
+    import numpy as np
+    import torch
+
+    from dna_kmeres_parallel_tpu_torch.models import sparse_engine
+
+    records = long_records(LONG_RECORDS, *LONG_BASES)
+    stream, starts, lengths = records
+    S, k = lengths.size, SPARSE_K
+    seqs = record_strings(*records)
+    name = "(f) long records"
+    info = {}
+    reset_launches()
+    t = time.perf_counter()
+    packed = sparse_engine.distance_sparse_packed(seqs, k, device=dev, info=info)
+    wall = time.perf_counter() - t
+    launches = {name: expect_launches(
+        name, {**dict.fromkeys(read_launches(), 0), "encode_packed": S})}
+    if info["route"] != "host/sparse":
+        raise AssertionError(f"{name}: route {info['route']}, the union is over the budget")
+    if dev.type == "cuda" and info["union_bytes"] <= sparse_engine.UNION_DIST_BUDGET:
+        raise AssertionError(f"{name}: union of {info['union_bytes']} bytes within the budget")
+    ref = reference_pair_tables(*records, k, False, dev)
+    if not same_tables(sparse_engine.build_pair_tables(seqs, k, False, dev), ref):
+        raise AssertionError(f"{name}: tables differ from the reference tables")
+    # Each pair's min-sum: the codes of one table looked up in the other
+    # (torch.searchsorted on the card; numpy.intersect1d would take a
+    # second a pair of 5 Mbase tables).
+    codes = torch.from_numpy(ref[0].view(np.int64)).to(dev)
+    counts = torch.from_numpy(ref[1]).to(dev)
+    offs = ref[2].tolist()
+    want = np.empty(S * (S - 1) // 2, np.float32)
+    w = 0
+    for a in range(S - 1):
+        ca, na = codes[offs[a] : offs[a + 1]], counts[offs[a] : offs[a + 1]]
+        for b in range(a + 1, S):
+            cb, nb = codes[offs[b] : offs[b + 1]], counts[offs[b] : offs[b + 1]]
+            pos = torch.searchsorted(cb, ca).clamp(max=max(cb.numel() - 1, 0))
+            hit = cb[pos] == ca if cb.numel() else torch.zeros_like(ca, dtype=torch.bool)
+            s = int(torch.minimum(na[hit], nb[pos[hit]]).sum()) if cb.numel() else 0
+            want[w] = np.float32(1.0) - np.float32(s) / np.float32(
+                min(lengths[a], lengths[b]) - k + 1)
+            w += 1
+    if not same_bits(packed, want):
+        raise AssertionError(f"{name}: distances differ from the reference")
+    report_run(f"(f) distance_sparse_packed(k={k}, {S} records of {int(lengths.min())}-"
+               f"{int(lengths.max())} bases)", wall, want.size, info["phases"],
+               f"route {info['route']}: union of {info.get('union_bins')} codes, "
+               f"{info.get('union_bytes')} bytes, declined; {S} K1 launches; tables and every "
+               "pair equal the reference", card)
+    return launches
+
+
+def phase_midk_path(records, dev, card: str, tmp: Path) -> dict:
+    """(g): dense mid k. KmerEngine(k=9).distance_sequences on the first
+    MIDK_ROWS distance records (K2's global route, K3 at 4^9 bins) and
+    distance_stream_to_csv at k=10 on the first MIDK_STREAM_ROWS (K2's
+    global route, K4 at 4^10 bins), each against the plain reference.
+    Returns the launch counts."""
+    import torch
+
+    from dna_kmeres_parallel_tpu_torch import KmerConfig
+    from dna_kmeres_parallel_tpu_torch.models.engine import KmerEngine
+
+    stream, starts, lengths = records
+    n = min(MIDK_ROWS, lengths.size)
+    seqs = record_strings(*first_records(records, n))
+    launches = {MIDK_MAIN: check_in_memory_run(
+        f"{MIDK_MAIN}: KmerEngine(k=9).distance_sequences({n} records)", 9, n,
+        lambda: KmerEngine(KmerConfig(k=9), device=dev).distance_sequences(seqs),
+        records, dev, card, {"counts_matrix": 1, "counts_matrix_global": 1, "min_sum_tri": 1})}
+
+    n = min(MIDK_STREAM_ROWS, lengths.size)
+    name = MIDK_STREAM
+    csv = tmp / "midk.csv"
+    reset_launches()
+    t = time.perf_counter()
+    out = KmerEngine(KmerConfig(k=10), device=dev).distance_stream_to_csv(seqs[:n], csv)
+    wall = time.perf_counter() - t
+    launches[name] = expect_launches(name, {**dict.fromkeys(read_launches(), 0), "counts_matrix": 1,
+                                            "counts_matrix_global": 1, "min_sum_rect": 1})
+    taken = routes_taken()
+    ref_counts = reference_counts(stream, starts[:n], lengths[:n], 10, False, dev)
+    ref_sums = reference_min_sums(ref_counts, ref_counts)
+    del ref_counts
+    want = reference_packed(ref_sums.cpu().numpy(), lengths[:n], lengths[:n], 10)
+    checked = check_csv(csv, want)
+    report_run(f"{name}: KmerEngine(k=10).distance_stream_to_csv({n} records)", wall, want.size,
+               out["phases"], f"K4 routes {taken}; {checked} CSV lines equal the reference", card)
+    csv.unlink()
+    del ref_sums
+    torch.cuda.empty_cache()
+    return launches
+
+
+def wide_counts(rows: int, B: int, kind: str, seed: int):
+    """Seeded int32 [rows, B] counts of the width of a union matrix or a
+    mid-k counts matrix: about 2,000 counts of 1-3 a row at random bins.
+    "small": every row sums below 2^16 (the u16x2 route); "wide": row 0
+    holds 16,384 counts of 4, summing to 65,536 (the i32 route)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    c = np.zeros((rows, B), np.int32)
+    hot = rng.integers(0, B, (rows, 2000))
+    c[np.arange(rows)[:, None], hot] = rng.integers(1, 4, (rows, 2000))
+    if kind == "wide":
+        c[0] = 0
+        c[0, rng.choice(B, 16_384, replace=False)] = 4
+    return c
+
+
+def phase_wide_kernels(dev, card: str, records, union_tables) -> dict:
+    """K2's global route, and K3/K4 at the widths of phases (d) and (g),
+    against their plain versions on the card (max_abs_err 0), each timed
+    at the path's shape beside its plain version, ``torch.cdist(p=1)`` and
+    its bound: K2 at (g)'s grids (k=9 and 10), on an edge grid (N runs,
+    rows shorter than k, canonical) and on 8 rows of 4 Mbase (split into
+    parts); K3 and K4 on (d)'s [2048, 131,072] union matrix and (g)'s
+    [1024, 4^9] counts (u16x2), and on slices of WIDE_ROWS rows whose row
+    sums reach 2^16 (i32); K4 on (g) k=10's own [256, 4^10] panel.
+    Returns the records by kernel."""
+    import numpy as np
+    import torch
+
+    from dna_kmeres_parallel_tpu_torch.models import sparse_engine
+    from dna_kmeres_parallel_tpu_torch.ops import distance, distance_cuda, histogram_cuda
+
+    worst = {"counts_matrix_global": 0, "min_sum_tri": 0, "min_sum_rect": 0}
+
+    def check(name, got, ref, what):
+        torch.cuda.synchronize()
+        err = max_abs_err((got,), (ref,))
+        log(f"kernel check {name} {what}: max_abs_err={err} [{card}]")
+        worst[name] = max(worst[name], err)
+        if err:
+            raise AssertionError(f"{name} disagrees with plain at {what}")
+
+    rng = np.random.default_rng(6)
+    g = rng.integers(0, 4, (300, 2000)).astype(np.uint8)
+    g[rng.random(g.shape) < 0.01] = INVALID
+    g[:30, 100:400] = INVALID
+    for r, n in enumerate(rng.integers(0, 2001, 300)):
+        g[r, n if r % 7 else r % 11 :] = INVALID
+    for k, rows in ((9, 300), (10, 300), (12, 16)):  # k=12: 64 MiB of counts a row
+        grid = torch.from_numpy(g[:rows]).to(dev)
+        for canonical in (False, True):
+            check("counts_matrix_global",
+                  histogram_cuda.counts_matrix_cuda(grid, k, 4**k, canonical),
+                  histogram_cuda.counts_matrix_reference(grid, k, 4**k, canonical),
+                  f"k={k} canonical={canonical} grid {tuple(grid.shape)}")
+        del grid
+        torch.cuda.empty_cache()
+    g = rng.integers(0, 4, K2_LONG_ROWS, dtype=np.uint8)
+    g[rng.random(K2_LONG_ROWS) < 0.001] = INVALID
+    grid = torch.from_numpy(g).to(dev)
+    check("counts_matrix_global", histogram_cuda.counts_matrix_cuda(grid, 9, 4**9),
+          histogram_cuda.counts_matrix_reference(grid, 9, 4**9), f"k=9 long rows {K2_LONG_ROWS}")
+    del grid, g
+    stream, starts, lengths = records
+    shapes = {"counts_matrix_global": [], "min_sum_tri": [], "min_sum_rect": []}
+    mats = {}
+    for run, k, n in ((MIDK_MAIN, 9, MIDK_ROWS), (MIDK_STREAM, 10, MIDK_STREAM_ROWS)):
+        sub = first_records(records, min(n, lengths.size))
+        grid = torch.from_numpy(record_grid(*sub)).to(dev)
+        S, L = grid.shape
+        got = histogram_cuda.counts_matrix_cuda(grid, k, 4**k)
+        check("counts_matrix_global", got, histogram_cuda.counts_matrix_reference(grid, k, 4**k),
+              f"{run} grid [{S}, {L}]")
+        mats[run] = got
+        bound = bound_ms(S * L + S * 4**k * 4, 0)
+        shapes["counts_matrix_global"].append(dict(
+            run=run, shape=f"k={k} grid [{S}, {L}]",
+            ms=time_ms(lambda: histogram_cuda.counts_matrix_cuda(grid, k, 4**k), 10),
+            plain_ms=time_ms(lambda: histogram_cuda.counts_matrix_reference(grid, k, 4**k), 2),
+            library_ms=None, bound_ms=bound[0], bound_by=bound[1]))
+        del grid, got
+        torch.cuda.empty_cache()
+
+    codes, cnts, offs = union_tables
+    plan = sparse_engine.union_dense_plan(codes, cnts, offs, device=dev, union="on")
+    mats[SPARSE_MAIN] = sparse_engine.union_on_device(codes, cnts, offs, plan, dev)
+    rates, plain = {}, {}
+    # K4's run on a path: (d)'s stream and (g)'s k=10 stream, whose one
+    # panel is its whole [256, 4^10] matrix; (g) k=10 has no K3 and no hold.
+    panel_runs = {SPARSE_MAIN: "(d) stream", MIDK_STREAM: MIDK_STREAM}
+    for run, mat in mats.items():
+        S, B = mat.shape
+        kinds = [("path", mat)]
+        if run != MIDK_STREAM:
+            kinds.append(("wide", torch.from_numpy(wide_counts(WIDE_ROWS, B, "wide", B)).to(dev)))
+        for kind, a in kinds:
+            rows = a.shape[0]
+            if run != MIDK_STREAM:
+                route = distance_cuda.product_route(*distance_cuda.check_counts(a))
+                out = torch.empty(rows, rows, dtype=torch.int32, device=dev)
+                distance_cuda.launch_min_sum_tri(a, out, route)
+                plain_ms = time_once_ms(lambda: plain.__setitem__(0, distance.min_sum_matrix(a)))
+                check("min_sum_tri", out, plain.pop(0), f"[{rows}, {B}] ({route})")
+                ms = time_ms(lambda: distance_cuda.launch_min_sum_tri(a, out, route), 3)
+                af = a.float()
+                bound = min_sum_bound([(rows, rows)], B, symmetric=True)
+                shapes["min_sum_tri"].append(dict(
+                    run=run if kind == "path" else None, shape=f"[{rows}, {B}] ({route})",
+                    ms=ms, plain_ms=plain_ms,
+                    library_ms=time_once_ms(lambda: torch.cdist(af, af, p=1)),
+                    bound_ms=bound[0], bound_by=bound[1]))
+                if kind == "path":
+                    # K3's rate in the gates' own terms: rows (rows - 1) / 2
+                    # pairs of B bins in the measured time
+                    rates[run] = rows * (rows - 1) / 2 * B / (ms / 1e3)
+                del out, af
+            # K4: the first panel of a stream over these rows.
+            p = a[: min(READ_PANEL_ROWS, rows)]
+            route = distance_cuda.product_route(*distance_cuda.check_counts(p, a))
+            out = torch.empty(p.shape[0], rows, dtype=torch.int32, device=dev)
+            distance_cuda.launch_min_sum_rect(p, a, out, route)
+            plain_ms = time_once_ms(lambda: plain.__setitem__(0, distance.min_sum_matrix(p, a)))
+            check("min_sum_rect", out, plain.pop(0),
+                  f"[{p.shape[0]}, {B}] x [{rows}, {B}] ({route})")
+            pf, cf = p.float(), a.float()
+            bound = min_sum_bound([(p.shape[0], rows)], B)
+            shapes["min_sum_rect"].append(dict(
+                run=panel_runs.get(run) if kind == "path" else None,
+                shape=f"[{p.shape[0]}, {B}] x [{rows}, {B}] ({route})",
+                ms=time_ms(lambda: distance_cuda.launch_min_sum_rect(p, a, out, route), 3),
+                plain_ms=plain_ms, library_ms=time_once_ms(lambda: torch.cdist(pf, cf, p=1)),
+                bound_ms=bound[0], bound_by=bound[1]))
+            del out, pf, cf, p, a
+            torch.cuda.empty_cache()
+    for name, recs in shapes.items():
+        for r in recs:
+            lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+            log(f"kernel time {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.3f} ms, torch.cdist {lib}, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}) [{card}]")
+    del mats
+    torch.cuda.empty_cache()
+    return {"shapes": shapes, "max_abs_err": worst, "tri_bin_pairs_per_sec": rates}
+
+
+def measure_gate_rates(dev, card: str, host_min_sum_s: float, union_tables, tri_rates: dict) -> dict:
+    """The rates the distance gates read (sparse_engine.DistanceRates), on
+    this card and host: K3's bin-pairs a second at (d)'s union matrix
+    (``phase_wide_kernels``), the two-pointer's
+    entry-pairs a second a thread (phase (d)'s host route), pinned H2D and
+    D2H of 256 MiB, and the round trip of a tiny K3 job (copy in, launch,
+    copy out, waited for; the median of 21)."""
+    import numpy as np
+    import torch
+
+    from dna_kmeres_parallel_tpu_torch.models import sparse_engine
+    from dna_kmeres_parallel_tpu_torch.ops import distance_cuda
+
+    codes, cnts, offs = union_tables
+    S = offs.size - 1
+    threads = sparse_engine.DistanceRates().host_threads()
+    entry_rate = S * (S - 1) / 2 * (codes.size / S) / (host_min_sum_s * threads)
+    host = torch.empty(256 << 20, dtype=torch.uint8).pin_memory()
+    card_buf = torch.empty_like(host, device=dev)
+    h2d = host.numel() / (time_ms(lambda: card_buf.copy_(host, non_blocking=True), 5) / 1e3)
+    d2h = host.numel() / (time_ms(lambda: host.copy_(card_buf, non_blocking=True), 5) / 1e3)
+    del host, card_buf
+    tiny = torch.ones(2, 128, dtype=torch.int32)
+    trips = []
+    for _ in range(21):
+        t = time.perf_counter()
+        distance_cuda.min_sum_matrix_tri(tiny.to(dev)).cpu()
+        trips.append(time.perf_counter() - t)
+    measured = dict(bin_pairs_per_sec=tri_rates[SPARSE_MAIN],
+                    sparse_entry_pairs_per_sec_per_thread=entry_rate, h2d_bytes_per_sec=h2d,
+                    d2h_bytes_per_sec=d2h, roundtrip_s=float(np.median(trips)), threads=threads)
+    log("gate rates measured: " + json.dumps(measured) + f"; defaults "
+        f"{json.dumps(sparse_engine.DistanceRates().__dict__)} [{card}]")
+    return measured
 
 
 def main() -> int:
@@ -2332,6 +3013,17 @@ def main() -> int:
             f"bases, written in {time.perf_counter() - t:.1f} s")
         dist = phase_distance_kernels(dev, card, records, so)
         dist_launches = phase_distance_path(records, path, dev, card)
+        # (d)-(g): sparse tables and dense mid k, then K2's global route
+        # and K3/K4 at their widths, and the gates' rates
+        work = Path(tmp.name)
+        union = phase_union_path(dev, card, work)
+        dist_launches.update(union["launches"])
+        dist_launches.update(phase_host_path(records, dev, card, work))
+        dist_launches.update(phase_long_path(dev, card))
+        dist_launches.update(phase_midk_path(records, dev, card, work))
+        wide = phase_wide_kernels(dev, card, records, union["tables"])
+        measure_gate_rates(dev, card, union["host_min_sum_s"], union["tables"],
+                           wide["tri_bin_pairs_per_sec"])
     finally:
         tmp.cleanup()
 
@@ -2374,9 +3066,12 @@ def main() -> int:
         if name == "counts_matrix":
             # every timed shape, with its run's launches (the long rows are
             # on no path)
-            extra["shapes"] = [{**sh, "launches": next(
-                (n[name] for key, n in dist_launches.items() if key.startswith(sh["run"])), 0)}
-                for sh in r["shapes"]]
+            extra["shapes"] = with_launches(r["shapes"], name, dist_launches)
+        else:
+            # the widths of phases (d) and (g), each with its run's launches
+            # (the i32 slices are on no path)
+            extra["shapes"] = with_launches(wide["shapes"][name], name, dist_launches)
+            r["max_abs_err"] = max(r["max_abs_err"], wide["max_abs_err"][name])
         kernels_json.append({
             "name": name,
             "route": "cuda",
@@ -2391,6 +3086,22 @@ def main() -> int:
             "library_ms": r["library_ms"],
             **extra,
         })
+    shapes = with_launches(wide["shapes"]["counts_matrix_global"], "counts_matrix_global",
+                           dist_launches)
+    kernels_json.append({
+        "name": "counts_matrix_global",
+        "route": "cuda",
+        "source": "dna_kmeres_parallel_tpu_torch/csrc/counts_matrix.cu",
+        "replaces": "dna_kmeres_parallel_tpu/ops/histogram_pallas.py:114",
+        "launches": dist_launches[MIDK_MAIN]["counts_matrix_global"],
+        "max_abs_err": wide["max_abs_err"]["counts_matrix_global"],
+        "ms": shapes[0]["ms"],
+        "plain_ms": shapes[0]["plain_ms"],
+        "bound_ms": shapes[0]["bound_ms"],
+        "bound_by": shapes[0]["bound_by"],
+        "library_ms": None,
+        "shapes": shapes,
+    })
     for name, replaces in (
         ("hist_planes", "histogram_pallas.py:814"),
         ("hist_u8", "histogram_pallas.py:604"),

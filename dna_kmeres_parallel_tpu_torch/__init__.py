@@ -25,7 +25,8 @@ easy to find)
                (``sharded_sparse``).
 - ``models/``  batch staging and the dense counting and distance engine
                (``engine``),
-               the sparse counting engine (``sparse_engine``), the
+               the sparse counting engine and the sparse-table
+               distances (``sparse_engine``), the
                resumable streaming counter (``pipeline``) and the
                resumable distance-CSV writer (``distance_stream``).
 - ``native/``  the C++ host library (parse, pack, radix compaction, merge,
@@ -38,8 +39,13 @@ What is ported: exact k-mer counting, k = 1..31, canonical or not, as a
 dense histogram where 4^k <= dense_bins_limit (k <= 12 by default) and as
 a sorted sparse table above, in one shot or streamed with checkpoint and
 resume (``models.pipeline.StreamingCounter``), and bucket-sharded over a
-mesh (``parallel.bucketed.count_bucket_auto``); dense pairwise k-mer
-distances, k <= 8, in memory or streamed to the reference's CSV. Every public entry takes an explicit ``device``:
+mesh (``parallel.bucketed.count_bucket_auto``); pairwise k-mer
+distances at k = 1..31, in memory or streamed to the reference's CSV: from
+dense counts (``KmerEngine``, k <= 15 where the [S, 4^k] matrix fits the
+memory gate) and from sparse per-sequence tables
+(``models.sparse_engine.distance_sparse_packed`` and
+``distance_sparse_stream_to_csv``). Every public entry takes an explicit
+``device``:
 ``"cuda"`` runs the hand-written kernels and raises where CUDA is missing;
 ``"cpu"`` runs the kernels' plain PyTorch versions.
 """
@@ -78,7 +84,9 @@ def count_sequences(
 
 def distance_file(path, k: int = 3, canonical: bool = False, device="cuda", **kw):
     """Packed pairwise k-mer distances of the records of a FASTA file ->
-    DistanceResult. k <= 8 (dense counts); larger k raises."""
+    DistanceResult, from dense counts: k <= 15 where the [S, 4^k] counts
+    matrix fits ``sparse_engine.dense_distance_feasible``; otherwise it
+    raises, and ``sparse_engine.distance_sparse_packed`` serves the k."""
     from dna_kmeres_parallel_tpu_torch.models.engine import KmerEngine
 
     cfg = KmerConfig(k=k, canonical=canonical, **kw)
@@ -89,8 +97,8 @@ def distance_sequences(
     seqs, k: int = 3, canonical: bool = False, device="cuda", ids=None, **kw
 ):
     """Packed pairwise k-mer distances of in-memory sequences (list of
-    ACGT strings) -> DistanceResult. k <= 8 (dense counts); larger k
-    raises."""
+    ACGT strings) -> DistanceResult, from dense counts, as
+    ``distance_file``."""
     from dna_kmeres_parallel_tpu_torch.models.engine import KmerEngine
 
     cfg = KmerConfig(k=k, canonical=canonical, **kw)

@@ -3,17 +3,17 @@
 // Replaces the TPU kernel
 //   dna_kmeres_parallel_tpu/ops/histogram_pallas.py::counts_matrix_pallas
 //   (body _make_counts_kernel),
-// and serves every dense bin count up to 4^8 = 65,536 with one entry. The
-// TPU kernel stops at 1,024 bins: its one-hot compare costs bins per
-// window, and above that the JAX engine counts with an XLA scatter, which
-// computes the same function.
+// and serves every dense bin count up to 4^15 with one entry. The TPU
+// kernel stops at 1,024 bins: its one-hot compare costs bins per window,
+// and above that the JAX engine counts with an XLA scatter, which computes
+// the same function.
 //
 // Input: a u8 grid [S, L], row-major, one sequence per row, base codes
 // 0..3 and anything else (0xFF pads a short row) invalid. Output: int32
 // [S, bins], row-major: out[s, c] = the number of windows of row s whose
 // k bases are all valid and whose code (the smaller of the code and its
 // reverse complement with canonical set) is c. Codes >= bins are dropped.
-// 1 <= k <= 15, so a code fits 30 bits; 1 <= bins <= 65,536.
+// 1 <= k <= 15, so a code fits 30 bits; 1 <= bins <= 4^15.
 //
 // Design. The grid is read as one stream of aligned 16-byte chunks
 // (windows.cuh, the window core K5 and K7 count with): a thread takes the
@@ -50,11 +50,20 @@
 //   carry into its neighbour: an item holds at most kMaxPartChunks * 16 <
 //   2^16 window starts. The flush widens two words into four int32 counts
 //   and writes them as one 16-byte streaming store.
+//   Above 65,536 bins (k = 9..15, the dense distances of mid k): the global
+//   route. No histogram fits shared memory (4^9 bins are 1 MB a row), so
+//   the C entry zeroes the output and every window adds one to its count
+//   in device memory with an atomic. Items are taken as in the warp route
+//   (rows split into parts of at least 256 chunks until 64 warps an SM
+//   have work); parts of one row need nothing more, since every add is an
+//   atomic. A row holds about L distinct codes among 4^k bins, so the
+//   atomics seldom collide.
 //
 // Bound: the bytes. Each base is read once and each count written once:
 // 1 B a base in, 4 B a bin out; the arithmetic is about a dozen integer
 // operations a window. At k <= 3 the grid dominates; at k = 8 the output
-// does (256 KB a row).
+// does (256 KB a row), and above it the zeroing of the output does (1 MB a
+// row at k = 9), the atomics adding one transaction a valid window.
 
 #include <cuda_runtime.h>
 
@@ -68,7 +77,8 @@ constexpr int kWarpThreads = 256;  // the warp route's block: 8 items at once
 constexpr int kWarpsPerBlock = kWarpThreads / 32;
 constexpr int kBlockThreads = 512;  // the block route's block
 constexpr int kWarpMaxBins = 4096;  // the warp route's widest histogram
-constexpr int kMaxBins = 65536;
+constexpr int kMaxBins = 65536;    // the widest shared-memory histogram
+constexpr int kMaxAnyBins = 1 << 30;  // 4^15: the global route's widest
 // The most chunks an item of the block route takes: 65,520 window starts,
 // so that no 16-bit half reaches 2^16.
 constexpr int64_t kMaxPartChunks = 4095;
@@ -216,6 +226,31 @@ counts_block_kernel(const uint8_t* __restrict__ grid, int64_t L, int k, int bins
   }
 }
 
+// Global route: a warp per item, bins > kMaxBins, each window added with a
+// device-memory atomic into an output zeroed first.
+template <bool kCanonical>
+__global__ void __launch_bounds__(kWarpThreads)
+counts_global_kernel(const uint8_t* __restrict__ grid, int64_t L, int k, int bins,
+                     int64_t items, int64_t parts, int64_t per, int64_t mis, int64_t end,
+                     int32_t* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int wib = threadIdx.x >> 5;
+  const uint8_t* abase = grid - mis;
+  const int64_t limit = L - k + 1;
+  const int64_t n_warps = static_cast<int64_t>(gridDim.x) * kWarpsPerBlock;
+  for (int64_t item = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + wib; item < items;
+       item += n_warps) {
+    const Item it = item_of(item, parts, per, L, k, mis);
+    int32_t* o = out + it.row * bins;
+    auto add = [&](uint32_t key) { atomicAdd(o + key, 1); };
+    // The loop bound is the warp's first chunk: all lanes shuffle together.
+    for (int64_t c0 = it.c0; c0 < it.c1; c0 += 32) {
+      count_chunk<kCanonical>(abase, c0 + lane, it, mis, end, limit, k,
+                              static_cast<uint32_t>(bins), add);
+    }
+  }
+}
+
 int sm_count() {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) == cudaSuccess) {
@@ -247,9 +282,30 @@ void plan_parts(int64_t S, int64_t span, int64_t fill, int64_t least, int64_t mo
   *parts = ceil_div(span, q);
 }
 
-// The warp route up to kWarpMaxBins bins, the block route above.
+// The global route above kMaxBins: the output zeroed, then every window
+// added with an atomic.
+cudaError_t launch_global(const uint8_t* grid, int64_t S, int64_t L, int k, int canonical,
+                          int bins, int32_t* out, cudaStream_t stream) {
+  const int64_t mis = static_cast<int64_t>(reinterpret_cast<uintptr_t>(grid) & 15);
+  const int64_t span = L >= k ? ((L - k) >> 4) + 2 : 1;
+  int64_t parts, per;
+  plan_parts(S, span, 64LL * sm_count(), kMinWarpPart, INT64_MAX / 2, &parts, &per);
+  const int64_t items = S * parts;
+  const cudaError_t err =
+      cudaMemsetAsync(out, 0, static_cast<size_t>(S) * bins * sizeof(int32_t), stream);
+  if (err != cudaSuccess) return err;
+  const int64_t blocks = ceil_div(items, kWarpsPerBlock);
+  auto kernel = canonical ? counts_global_kernel<true> : counts_global_kernel<false>;
+  kernel<<<static_cast<unsigned>(blocks < INT32_MAX ? blocks : INT32_MAX), kWarpThreads, 0,
+           stream>>>(grid, L, k, bins, items, parts, per, mis, S * L + mis, out);
+  return cudaGetLastError();
+}
+
+// The warp route up to kWarpMaxBins bins, the block route above, the global
+// route above kMaxBins.
 cudaError_t launch_counts(const uint8_t* grid, int64_t S, int64_t L, int k, int canonical,
                           int bins, int32_t* out, cudaStream_t stream) {
+  if (bins > kMaxBins) return launch_global(grid, S, L, k, canonical, bins, out, stream);
   const bool warp = bins <= kWarpMaxBins;
   const int64_t mis = static_cast<int64_t>(reinterpret_cast<uintptr_t>(grid) & 15);
   const int64_t span = L >= k ? ((L - k) >> 4) + 2 : 1;  // most chunks a row's starts touch
@@ -290,12 +346,12 @@ cudaError_t launch_counts(const uint8_t* grid, int64_t S, int64_t L, int k, int 
 }  // namespace
 
 // grid u8 [S, L] -> out int32 [S, bins], both row-major and contiguous.
-// 1 <= k <= 15, 1 <= bins <= 65536. Returns the cudaError_t of the launch.
+// 1 <= k <= 15, 1 <= bins <= 4^15. Returns the cudaError_t of the launch.
 extern "C" int kp_counts_matrix(const uint8_t* grid, long long S, long long L,
                                 int k, int canonical, int bins, int32_t* out,
                                 void* stream) {
   if (S <= 0) return 0;
-  if (L < 0 || k < 1 || k > 15 || bins < 1 || bins > kMaxBins) {
+  if (L < 0 || k < 1 || k > 15 || bins < 1 || bins > kMaxAnyBins) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(

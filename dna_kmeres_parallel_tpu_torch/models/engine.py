@@ -150,8 +150,6 @@ class CountResult:
 # Dense pairwise distances: the reference workload
 # ---------------------------------------------------------------------------
 
-#: largest k with dense distances: 4^8 = 65,536 bins, K2's widest
-MAX_DIST_K = 8
 #: bytes of one K2 launch's u8 grid (rows x the longest row of the chunk)
 GRID_BYTES = 1 << 30
 
@@ -207,9 +205,12 @@ class KmerEngine:
     from the histogram kernels (K5 from the encoder's planes, K6 and K7
     from bases) up to 65,536 bins (k <= 8), and from the sparse engine,
     densified, above.
-    Distances, k <= 8 (``distance_*``): the per-sequence counts matrix
+    Distances, k <= 15 (``distance_*``): the per-sequence counts matrix
     (K2), the (min,+) product (K3 for all pairs, K4 for a streamed panel),
-    and the float32 finish on the host."""
+    and the float32 finish on the host. Above 4^8 bins (k = 9..15) a run
+    must pass ``sparse_engine.dense_distance_feasible`` (the [S, 4^k] int32
+    matrix within 2 GiB): else it raises, and the sparse tables of
+    ``sparse_engine.distance_sparse_packed`` serve it."""
 
     def __init__(
         self,
@@ -227,12 +228,21 @@ class KmerEngine:
         self.device = runtime.resolve_device(device)
         native.load()
 
-    def _require_distance_k(self) -> None:
-        if self.config.k > MAX_DIST_K:
-            raise NotImplementedError(
-                f"distances at k={self.config.k} need more than 4^{MAX_DIST_K} "
-                "dense bins: they go through sparse tables, which are not "
-                "ported yet (ROADMAP item 8)"
+    def _require_distance_k(self, n_seqs: int) -> None:
+        """Raise unless the [n_seqs, 4^k] counts matrix of a distance run
+        may exist: any k <= 8, and above 4^8 bins what
+        ``dense_distance_feasible`` admits (the constructor has refused
+        k > 15 already)."""
+        from dna_kmeres_parallel_tpu_torch.models import sparse_engine
+
+        k = self.config.k
+        if self.config.bins > histogram_cuda.MAX_BINS and not (
+            sparse_engine.dense_distance_feasible(n_seqs, k)
+        ):
+            raise ValueError(
+                f"the dense [{n_seqs}, 4^{k}] counts matrix is over the memory "
+                "budget (sparse_engine.dense_distance_feasible): use "
+                "sparse_engine.distance_sparse_packed"
             )
 
     # ------------------------------------------------------------- counting
@@ -380,7 +390,7 @@ class KmerEngine:
 
     def counts_matrix(self, seqs: list[str]) -> np.ndarray:
         """Per-sequence count vectors, int32 [S, 4^k], on the host."""
-        self._require_distance_k()
+        self._require_distance_k(len(seqs))
         return self._counts_on_device(*seq_stream(seqs)).cpu().numpy()
 
     # ------------------------------------------------------------- distances
@@ -416,7 +426,7 @@ class KmerEngine:
         self, seqs: list[str], ids: list[str] | None = None
     ) -> DistanceResult:
         """Packed pairwise distances of in-memory sequences."""
-        self._require_distance_k()
+        self._require_distance_k(len(seqs))
         t0 = time.perf_counter()
         phases = dict.fromkeys(DIST_PHASES, 0.0)
         return self._distances(*seq_stream(seqs), ids, phases, t0)
@@ -425,7 +435,6 @@ class KmerEngine:
         """Packed pairwise distances of the records of a FASTA file (the
         native parser for a path with the modern record semantics, the
         Python parsers otherwise)."""
-        self._require_distance_k()
         cfg = self.config
         t0 = time.perf_counter()
         phases = dict.fromkeys(DIST_PHASES, 0.0)
@@ -435,6 +444,7 @@ class KmerEngine:
         else:
             records = self._parse(source)
             args = (*seq_stream([r.seq for r in records]), [r.id for r in records])
+        self._require_distance_k(len(args[2]))
         phases["parse"] = time.perf_counter() - t0
         return self._distances(*args, phases, t0)
 
@@ -456,7 +466,7 @@ class KmerEngine:
         (fsync, then checkpoint; a resumed run is byte-identical).
         max_panels bounds the panels of this call; row_lo/row_hi stream one
         row block. The result carries the writer's keys plus ``phases``."""
-        self._require_distance_k()
+        self._require_distance_k(len(seqs))
         cfg = self.config
         t0 = time.perf_counter()
         phases = dict.fromkeys(DIST_PHASES, 0.0)
@@ -489,7 +499,7 @@ class KmerEngine:
         panel_fn(r0, r1) -> float32 packed distances of rows r0..r1-1 (row
         i: columns i+1..S-1). Adds its seconds to ``phases`` (min_sum,
         d2h, finish) when given one."""
-        self._require_distance_k()
+        self._require_distance_k(len(counts))
         cfg, dev = self.config, self.device
         counts = torch.as_tensor(counts).to(dev)
         lengths = np.asarray(lengths, dtype=np.int64)

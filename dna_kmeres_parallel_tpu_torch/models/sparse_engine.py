@@ -15,6 +15,22 @@ with ``pallas_sort``, else ``torch.sort``) and merged on the host by the
 native row compactor, or one flat sort (``sort_row_len=0``) compacted by
 neighbour compares. ``compact`` belongs to the streaming counter
 (``models/pipeline``) and is ignored here, as the JAX engine ignores it.
+
+Pairwise distances over sparse per-sequence tables, at any k from 1 to 31
+(the JAX module's second half): ``build_pair_tables`` (the native host
+counter, or this engine for records of 4 Mbase and more), the memory and
+cost gates (``dense_distance_feasible``, ``dense_distance_preferred``,
+``union_dense_plan``), the union-indexed route (the tables re-indexed
+against the union of their codes, one dense matrix built on the device
+from the tables' entries, K3 or K4 on the card), the native threaded
+two-pointer (``native.min_sum_pairs_native``, ``min_sum_panel_native``)
+and its NumPy twins, the host float32 finish,
+and the one-shot (``distance_sparse_packed``) and streamed, resumable
+(``distance_sparse_stream_to_csv``) entries. The JAX package reads its
+gates' rates, thread count, budgets and union switch from a calibration
+file and the environment; here they are arguments (``DistanceRates``,
+``union``, the budgets), with the H100's measured rates as defaults. A
+kernel that fails raises: no route falls back to the host.
 """
 
 from __future__ import annotations
@@ -27,12 +43,15 @@ import numpy as np
 import torch
 
 from dna_kmeres_parallel_tpu_torch import native
+from dna_kmeres_parallel_tpu_torch.models import distance_stream
 from dna_kmeres_parallel_tpu_torch.models.engine import (
     batch_plan,
     host_to_device,
     pack_planes_np,
+    seq_stream,
 )
-from dna_kmeres_parallel_tpu_torch.ops import runtime
+from dna_kmeres_parallel_tpu_torch.ops import distance as dist_ops
+from dna_kmeres_parallel_tpu_torch.ops import distance_cuda, runtime
 from dna_kmeres_parallel_tpu_torch.ops import sparse as sparse_ops
 from dna_kmeres_parallel_tpu_torch.utils import codec, fasta
 from dna_kmeres_parallel_tpu_torch.utils.config import KmerConfig
@@ -345,3 +364,497 @@ class SparseKmerEngine:
             res = self.count_sequences(seqs)
         res.phases["parse"] = parse_s
         return res
+
+
+# ---------------------------------------------------------------------------
+# Pairwise distances over sparse per-sequence tables
+# ---------------------------------------------------------------------------
+
+#: record length from which ``build_pair_tables`` counts a record's table
+#: on the device (``SparseKmerEngine``, K1) rather than with the host
+#: rolling counter, as the JAX package routes it
+_TPU_TABLE_MIN_BASES = 4 << 20
+#: default memory budgets, in bytes, of the dense [S, 4^k] counts matrix
+#: (``dense_distance_feasible``) and of the union route's matrices
+#: (``union_dense_plan``): the JAX package's defaults
+DENSE_DIST_BUDGET = 2 << 30
+UNION_DIST_BUDGET = 2 << 30
+#: the union route's switch: "auto" asks the cost gate (and a card), "on"
+#: takes the route wherever the budget and int32 gates admit it, "off"
+#: never takes it
+UNION_MODES = ("auto", "on", "off")
+
+
+@dataclass(frozen=True)
+class DistanceRates:
+    """The rates the distance gates predict with, in place of the JAX
+    package's calibration file and environment.
+
+    Defaults: one NVIDIA H100 80GB HBM3 at 700.00 W (``nvidia-smi``'s name
+    and power limit) and its 8-core host, measured by ``chip_smoke.py``'s
+    phase (d) (PERF.md, section 7):
+
+    - ``bin_pairs_per_sec``: K3's (min,+) product
+      (``ops/distance.tri_time_per_pair``), the dense route's rate too;
+    - ``sparse_entry_pairs_per_sec_per_thread``: the native two-pointer,
+      table entries of a pair stepped per second by one thread;
+    - ``h2d_bytes_per_sec``, ``d2h_bytes_per_sec``: pinned copies to and
+      from the card; ``roundtrip_s``: a job's fixed cost on the card (a
+      launch, a copy and its wait);
+    - ``threads``: the two-pointer's threads; ``None`` takes the native
+      library's own count (the CPUs, at most 16)."""
+
+    bin_pairs_per_sec: float = dist_ops.TRI_BIN_PAIRS_PER_SEC
+    sparse_entry_pairs_per_sec_per_thread: float = 8.9e7
+    h2d_bytes_per_sec: float = 5.4e10
+    d2h_bytes_per_sec: float = 5.5e10
+    roundtrip_s: float = 1.9e-4
+    threads: int | None = None
+
+    def host_threads(self) -> int:
+        if self.threads is not None:
+            return max(int(self.threads), 1)
+        return min(max(os.cpu_count() or 1, 1), 16)
+
+
+def dense_distance_feasible(
+    n_seqs: int, k: int, budget_bytes: int = DENSE_DIST_BUDGET
+) -> bool:
+    """Whether the dense distance path's [S, 4^k] int32 counts matrix fits
+    ``budget_bytes``, as the JAX package models it: the rows padded to a
+    power of two with a 128-row floor, and never 8 GiB or more (so k >= 12
+    is never dense, whatever the budget). A memory gate, not a k
+    threshold."""
+    bins = 4**k
+    s_padded = max(128, 1 << max(int(n_seqs) - 1, 0).bit_length())
+    dense_bytes = s_padded * bins * 4
+    if dense_bytes >= (8 << 30):
+        return False
+    return dense_bytes <= budget_bytes
+
+
+def dense_distance_preferred(
+    n_seqs: int,
+    k: int,
+    seq_lengths=None,
+    budget_bytes: int = DENSE_DIST_BUDGET,
+    rates: DistanceRates = DistanceRates(),
+) -> bool:
+    """Dense or sparse distances, by predicted cost: dense iff feasible
+    and bins / bin_pairs_per_sec <= avg_table / (entry rate * threads),
+    where a table holds min(L - k + 1, 4^k) entries. k <= 8 and calls
+    without lengths keep the dense route wherever it is feasible."""
+    if not dense_distance_feasible(n_seqs, k, budget_bytes):
+        return False
+    if k <= 8 or seq_lengths is None:
+        return True
+    lengths = np.asarray(seq_lengths, dtype=np.float64)
+    if lengths.size == 0:
+        return True
+    bins = 4**k
+    avg_table = float(np.minimum(np.maximum(lengths - k + 1, 1), bins).mean())
+    dense_s_per_pair = bins / rates.bin_pairs_per_sec
+    sparse_s_per_pair = avg_table / (
+        rates.sparse_entry_pairs_per_sec_per_thread * rates.host_threads()
+    )
+    return dense_s_per_pair <= sparse_s_per_pair
+
+
+def sorted_unique(codes: np.ndarray) -> np.ndarray:
+    """``np.unique(codes)`` by one sort and a neighbour compare (NumPy
+    2.3's ``np.unique`` took 96 s for 40 M u64 codes where ``np.sort``
+    took 0.68 s on the H100's host, PERF.md)."""
+    u = np.sort(codes)
+    return u[np.concatenate([[True], u[1:] != u[:-1]])] if u.size else u
+
+
+def union_dense_plan(
+    codes,
+    cnts,
+    offs,
+    *,
+    device: torch.device,
+    union: str = "auto",
+    budget_bytes: int = UNION_DIST_BUDGET,
+    panel_rows: int | None = None,
+    rates: DistanceRates = DistanceRates(),
+    info: dict | None = None,
+) -> dict | None:
+    """The plan of the union-indexed dense route, or None for the host
+    two-pointer.
+
+    The pairwise min-sum only touches codes that occur, so re-indexing
+    every table against the sorted union of its codes gives a dense
+    [S, D] counts matrix (D = the union's size) with the same min-sums:
+    absent codes add min(0, .) = 0. Shapes are bucketed to powers of two
+    (Sp rows, at least 8; Dp columns, at least 128), and zero rows and
+    columns are exact. On the card K3 (one shot) or K4 (each streamed
+    panel) take the product; on the CPU their plain version.
+
+    Gates, in order (None keeps the host two-pointer):
+    - ``union``: "off" never plans; "auto" plans only on the card;
+    - the int32 matrix on the device, at most 40 bytes a table entry
+      while ``union_on_device`` builds it, and the output (the [Sp, Sp]
+      square and its packed triangle, or one [panel_rows, Sp] panel)
+      within ``budget_bytes``;
+    - every sequence's window total below 2^31 (int32 exactness);
+    - under "auto", the predicted device time (K3 over the padded pairs,
+      the round trip, the H2D of the entries that ``union_on_device``
+      ships, and the [S, S] D2H) below the host two-pointer's
+      (``rates``).
+
+    Counts ship as int8 (the plan's ``dtype``) where the power-of-two
+    bucket of the largest count is at most 127, else as int32.
+
+    ``info``, when given, takes the predicted times as soon as they are
+    known, also when the gate declines."""
+    if union not in UNION_MODES:
+        raise ValueError(f"union must be one of {UNION_MODES}, got {union!r}")
+    if union == "off":
+        return None
+    S = int(offs.shape[0] - 1)
+    N = int(codes.shape[0])
+    if S < 2 or N == 0:
+        return None
+    on_card = device.type == "cuda"
+    if union == "auto" and not on_card:
+        return None
+    codes_union = sorted_unique(codes)
+    D = int(codes_union.shape[0])
+    Sp = 1 << max(S - 1, 7).bit_length()
+    Dp = 1 << max(D - 1, 127).bit_length()
+    cmax_true = int(np.asarray(cnts).max(initial=0))
+    cmax_b = 1 << max(cmax_true - 1, 0).bit_length() if cmax_true > 0 else 0
+    dtype = np.int8 if cmax_b <= 127 else np.int32
+    out_bytes = Sp * Sp * 8 if panel_rows is None else min(panel_rows, Sp) * Sp * 8
+    approx_bytes = Sp * Dp * 4 + N * 40 + out_bytes
+    if info is not None:
+        info.update(union_bins=D, union_bytes=approx_bytes)
+    if approx_bytes > budget_bytes:
+        return None
+    # Window totals by a cumsum at the fences (a sequence shorter than k
+    # has an empty table).
+    cs = np.concatenate([[0], np.cumsum(np.asarray(cnts, dtype=np.int64))])
+    per_seq_windows = cs[np.asarray(offs[1:])] - cs[np.asarray(offs[:-1])]
+    if per_seq_windows.size and int(per_seq_windows.max()) >= (1 << 31):
+        return None
+    pairs = S * (S - 1) / 2.0
+    pairs_exec = Sp * (Sp - 1) / 2.0  # the padded rows run too
+    t_dev_pair = dist_ops.tri_time_per_pair(Dp, rates.bin_pairs_per_sec)
+    t_host_pair = (N / S) / (rates.sparse_entry_pairs_per_sec_per_thread * rates.host_threads())
+    t_dev_total = (
+        pairs_exec * t_dev_pair
+        + rates.roundtrip_s
+        + union_ship_bytes(N, D, S, dtype) / rates.h2d_bytes_per_sec
+        + S * S * 4 / rates.d2h_bytes_per_sec
+    )
+    t_host_total = pairs * t_host_pair
+    if info is not None:
+        info.update(t_dev_total=t_dev_total, t_host_total=t_host_total)
+    if union == "auto" and t_dev_total >= t_host_total:
+        return None
+    return {
+        "union": codes_union,
+        "D": D,
+        "Sp": Sp,
+        "Dp": Dp,
+        "cmax": cmax_b,
+        "cmax_true": cmax_true,
+        "dtype": dtype,
+        "impl": "cuda" if on_card else "plain",
+        "t_dev_total": t_dev_total,
+        "t_host_total": t_host_total,
+        "t_host_pair": t_host_pair,
+    }
+
+
+def union_ship_bytes(n_entries: int, n_union: int, n_seqs: int, dtype) -> int:
+    """Bytes ``union_on_device`` ships: each entry's code (8) and count
+    (``dtype``), the union's codes and the table fences (8 each)."""
+    return n_entries * (8 + np.dtype(dtype).itemsize) + (n_union + n_seqs) * 8
+
+
+def union_on_device(codes, cnts, offs, plan, device: torch.device) -> torch.Tensor:
+    """The [Sp, Dp] int32 union-indexed counts matrix of a plan, built on
+    ``device`` from the tables' entries (``union_ship_bytes``, not the
+    Sp x Dp matrix, cross the link): each entry's column is its code's
+    rank in the union (``torch.searchsorted``; codes of k <= 31 fit an
+    int64), its count (shipped as the plan's ``dtype``) is widened to
+    int32 and scattered into a zeroed matrix there."""
+    S = int(offs.shape[0] - 1)
+    codes_d = host_to_device(np.ascontiguousarray(codes, np.uint64).view(np.int64), device)
+    union_d = host_to_device(plan["union"].view(np.int64), device)
+    cnts_d = host_to_device(np.asarray(cnts).astype(plan["dtype"]), device)
+    sizes = host_to_device(np.diff(offs).astype(np.int64), device)
+    rows = torch.repeat_interleave(
+        torch.arange(S, device=device), sizes, output_size=codes_d.shape[0])
+    mat = torch.zeros(plan["Sp"], plan["Dp"], dtype=torch.int32, device=device)
+    mat[rows, torch.searchsorted(union_d, codes_d)] = cnts_d.to(torch.int32)
+    return mat
+
+
+def union_dense_min_sums(codes, cnts, offs, plan, device: torch.device) -> np.ndarray:
+    """Run a plan in one shot: the packed strict-upper-triangle int64
+    min-sums of the [S, S] product over the union matrix (K3 on the card,
+    its plain version on the CPU; the padding rows sliced off on the
+    device before the copy to the host). A failing kernel raises."""
+    S = int(offs.shape[0] - 1)
+    mat = union_on_device(codes, cnts, offs, plan, device)
+    sq = distance_cuda.min_sum_matrix_tri(mat)[:S, :S].cpu().numpy()
+    out = np.empty(S * (S - 1) // 2, dtype=np.int64)
+    w = 0
+    for i in range(S - 1):
+        m = S - 1 - i
+        out[w : w + m] = sq[i, i + 1 :]
+        w += m
+    return out
+
+
+def min_sum_pairs_python(codes, counts, offs) -> np.ndarray:
+    """NumPy twin of ``native.min_sum_pairs_native``: the packed pair
+    min-sums by ``np.intersect1d`` per pair."""
+    return min_sum_panel_python(codes, counts, offs, 0, offs.shape[0] - 2)
+
+
+def min_sum_panel_python(codes, counts, offs, r0: int, r1: int) -> np.ndarray:
+    """NumPy twin of ``native.min_sum_panel_native``: the pair min-sums of
+    rows [r0, r1), packed from row r0 on."""
+    S = offs.shape[0] - 1
+    r0, r1 = max(r0, 0), min(r1, max(S - 1, 0))
+    if r0 >= r1:
+        return np.zeros(0, dtype=np.int64)
+    parts = []
+    for i in range(r0, r1):
+        ci = codes[offs[i] : offs[i + 1]]
+        ni = counts[offs[i] : offs[i + 1]]
+        row = np.zeros(S - 1 - i, dtype=np.int64)
+        for w, j in enumerate(range(i + 1, S)):
+            cj = codes[offs[j] : offs[j + 1]]
+            nj = counts[offs[j] : offs[j + 1]]
+            _, ia, ib = np.intersect1d(ci, cj, assume_unique=True, return_indices=True)
+            row[w] = np.minimum(ni[ia], nj[ib]).sum()
+        parts.append(row)
+    return np.concatenate(parts)
+
+
+def _finish_packed_rows(
+    flat_sums: np.ndarray, lengths: np.ndarray, k: int, r0: int, r1: int
+) -> np.ndarray:
+    """Packed min-sums of rows r0..r1-1 -> float32 distances, a row at a
+    time: 1 - s / (min(L_i, L_j) - k + 1) with NumPy's IEEE division."""
+    S = lengths.shape[0]
+    out = np.empty(flat_sums.shape[0], dtype=np.float32)
+    w = 0
+    with np.errstate(divide="ignore", invalid="ignore"):
+        for i in range(r0, r1):
+            m = S - 1 - i
+            denom = (np.minimum(lengths[i], lengths[i + 1 :]) - k + 1).astype(np.float32)
+            out[w : w + m] = np.float32(1.0) - flat_sums[w : w + m].astype(np.float32) / denom
+            w += m
+    return out
+
+
+def finish_distances_packed(sums: np.ndarray, lengths: np.ndarray, k: int) -> np.ndarray:
+    """All packed pair min-sums -> float32 distances (the host finish, a
+    row at a time, with no [S, S] array)."""
+    S = lengths.shape[0]
+    return _finish_packed_rows(sums, lengths, k, 0, max(S - 1, 0))
+
+
+def build_pair_tables(
+    seqs: list[str], k: int, canonical: bool = False, device: torch.device | str = "cuda"
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-sequence sorted-unique tables, concatenated: (codes_u64,
+    counts_i64, offs_i64[S+1]), sequence i's table at [offs[i],
+    offs[i+1]). Records shorter than ``_TPU_TABLE_MIN_BASES`` are counted
+    together by the native host counter (``native.count_tables_native``,
+    one threaded call; each table equals ``count_sparse_host_native`` of
+    the record alone), each longer one by ``SparseKmerEngine`` on
+    ``device`` (K1 on the card)."""
+    device = runtime.resolve_device(device)
+    short = [i for i, s in enumerate(seqs) if len(s) < _TPU_TABLE_MIN_BASES]
+    codes, cnts, offs = native.count_tables_native(
+        *seq_stream([seqs[i] for i in short]), k, canonical)
+    if len(short) == len(seqs):
+        return codes, cnts, offs
+    engine = SparseKmerEngine(KmerConfig(k=k, canonical=canonical), device=device)
+    parts: list[tuple[np.ndarray, np.ndarray]] = []
+    j = 0  # the next short record's table
+    for i, s in enumerate(seqs):
+        if j < len(short) and short[j] == i:
+            parts.append((codes[offs[j] : offs[j + 1]], cnts[offs[j] : offs[j + 1]]))
+            j += 1
+        else:
+            sp = engine.count_sequences([s])
+            parts.append((sp.codes, sp.counts))
+    out_offs = np.concatenate([[0], np.cumsum([c.size for c, _ in parts])]).astype(np.int64)
+    return (np.concatenate([c for c, _ in parts]), np.concatenate([n for _, n in parts]),
+            out_offs)
+
+
+def _lap(phases: dict, name: str, t: float) -> float:
+    now = time.perf_counter()
+    phases[name] = phases.get(name, 0.0) + now - t
+    return now
+
+
+def distance_sparse_packed(
+    seqs: list[str],
+    k: int,
+    canonical: bool = False,
+    *,
+    device: str | torch.device = "cuda",
+    union: str = "auto",
+    union_budget_bytes: int = UNION_DIST_BUDGET,
+    rates: DistanceRates = DistanceRates(),
+    info: dict | None = None,
+) -> np.ndarray:
+    """Packed strict-upper-triangle float32 distances over sparse
+    per-sequence tables, at any k from 1 to 31: where the dense [S, 4^k]
+    counts matrix cannot exist (every k > 15, and mid k past the memory
+    budget).
+
+    The tables come from ``build_pair_tables``. Where ``union_dense_plan``
+    takes the union route, K3 takes the min-sums over the union matrix on
+    the card; otherwise the native threaded two-pointer does on the host.
+    A kernel that fails raises: nothing falls back to the host. The
+    float32 finish runs on the host either way.
+
+    ``info``, when given, receives the route ("union/cuda", "union/plain"
+    or "host/sparse"), the plan's predictions and the seconds of each
+    phase (tables, plan, min_sum, finish)."""
+    dev = runtime.resolve_device(device)
+    phases: dict[str, float] = {}
+    t = time.perf_counter()
+    codes, cnts, offs = build_pair_tables(seqs, k, canonical, dev)
+    lengths = np.array([len(s) for s in seqs], dtype=np.int64)
+    t = _lap(phases, "tables", t)
+    info = {} if info is None else info
+    plan = union_dense_plan(
+        codes, cnts, offs, device=dev, union=union, budget_bytes=union_budget_bytes,
+        rates=rates, info=info,
+    )
+    t = _lap(phases, "plan", t)
+    if plan is not None:
+        sums = union_dense_min_sums(codes, cnts, offs, plan, dev)
+        info.update(route=f"union/{plan['impl']}", cmax=plan["cmax"])
+    else:
+        sums = native.min_sum_pairs_native(codes, cnts, offs)
+        info["route"] = "host/sparse"
+    t = _lap(phases, "min_sum", t)
+    out = finish_distances_packed(sums, lengths, k)
+    _lap(phases, "finish", t)
+    info["phases"] = phases
+    return out
+
+
+def _require_no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "sparse distances over a mesh are not ported yet (ROADMAP item 10)"
+        )
+
+
+def make_sparse_panel_fn(
+    codes,
+    cnts,
+    offs,
+    lengths,
+    k: int,
+    panel_rows: int,
+    *,
+    device: str | torch.device = "cuda",
+    mesh=None,
+    union: str = "auto",
+    union_budget_bytes: int = UNION_DIST_BUDGET,
+    rates: DistanceRates = DistanceRates(),
+    info: dict | None = None,
+):
+    """Panel closure over per-sequence sparse tables: panel_fn(r0, r1) ->
+    float32 packed distances of rows r0..r1-1 (row i: columns i+1..S-1),
+    the sparse twin of ``KmerEngine.make_dense_panel_fn``.
+
+    One decision a job: where ``union_dense_plan`` takes the union route,
+    the union matrix goes to the device once (widened to int32 there) and
+    every panel is one K4 of its rows against the rows from r0 on; else
+    every panel runs the native two-pointer (``kp_min_sum_panel``). The
+    finish runs on the host. ``mesh`` raises: the mesh path is not ported."""
+    _require_no_mesh(mesh)
+    dev = runtime.resolve_device(device)
+    S = int(offs.shape[0] - 1)
+    lengths = np.asarray(lengths, dtype=np.int64)
+    info = {} if info is None else info
+    plan = union_dense_plan(
+        codes, cnts, offs, device=dev, union=union, budget_bytes=union_budget_bytes,
+        panel_rows=panel_rows, rates=rates, info=info,
+    )
+    if plan is not None:
+        mat = union_on_device(codes, cnts, offs, plan, dev)
+        info.update(route=f"union/{plan['impl']}", cmax=plan["cmax"], streamed=True)
+
+        def panel_fn(r0: int, r1: int) -> np.ndarray:
+            sums = distance_cuda.min_sum_matrix_rect(mat[r0:r1], mat[r0:S]).cpu().numpy()
+            return dist_ops.finish_upper(sums, lengths[r0:r1], lengths[r0:], k, r0, r0)
+
+        return panel_fn
+
+    info.update(route="host/sparse", streamed=True)
+
+    def panel_fn_host(r0: int, r1: int) -> np.ndarray:
+        sums = native.min_sum_panel_native(codes, cnts, offs, r0, r1)
+        return _finish_packed_rows(sums, lengths, k, r0, r1)
+
+    return panel_fn_host
+
+
+def distance_sparse_stream_to_csv(
+    seqs: list[str],
+    k: int,
+    output_path,
+    canonical: bool = False,
+    *,
+    panel_rows: int = 2048,
+    checkpoint_path=None,
+    max_panels: int | None = None,
+    mesh=None,
+    row_lo: int = 0,
+    row_hi: int | None = None,
+    device: str | torch.device = "cuda",
+    union: str = "auto",
+    union_budget_bytes: int = UNION_DIST_BUDGET,
+    rates: DistanceRates = DistanceRates(),
+    info: dict | None = None,
+) -> dict:
+    """Streamed, resumable sparse distances to the reference's CSV: panels
+    of ``panel_rows`` rows from ``make_sparse_panel_fn`` go through
+    ``distance_stream.stream_panels_to_csv`` (fsync, then checkpoint; a
+    resumed run is byte-identical). The tables are rebuilt on every leg,
+    resumed or not. row_lo/row_hi bound the rows this writer owns. The
+    result carries the writer's keys, ``route`` and ``phases`` (tables,
+    and the writer's write)."""
+    _require_no_mesh(mesh)
+    t = time.perf_counter()
+    dev = runtime.resolve_device(device)
+    codes, cnts, offs = build_pair_tables(seqs, k, canonical, dev)
+    lengths = np.array([len(s) for s in seqs], dtype=np.int64)
+    tables_s = time.perf_counter() - t
+    info = {} if info is None else info
+    panel_fn = make_sparse_panel_fn(
+        codes, cnts, offs, lengths, k, panel_rows, device=dev, union=union,
+        union_budget_bytes=union_budget_bytes, rates=rates, info=info,
+    )
+    meta = {
+        "k": k,
+        "canonical": canonical,
+        "n_seqs": len(seqs),
+        "regime": "sparse",
+        "input_sha": distance_stream.input_fingerprint(seqs),
+    }
+    report = distance_stream.stream_panels_to_csv(
+        output_path, len(seqs), panel_rows, panel_fn, meta=meta,
+        checkpoint_path=checkpoint_path, max_panels=max_panels,
+        row_lo=row_lo, row_hi=row_hi,
+    )
+    report["route"] = info["route"]
+    report["phases"] = {"tables": tables_s, "write": report["write_s"]}
+    return report

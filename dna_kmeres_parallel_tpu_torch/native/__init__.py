@@ -10,8 +10,10 @@ machine with another CPU builds its own.
 Entries: the FASTA parse, the 2-bit pack, the radix compactor of unsorted
 window words, the compactors of sorted words, row-sorted words, run-start
 flags and RLE records (the device-sort route's host half), the host-only
-sparse counter, the k-way merge of sorted (code, count) tables and the
-``%f`` CSV formatter. Nothing falls back: a failed build raises with the
+sparse counter (one stream, or per-record tables of many records), the
+k-way merge of sorted (code, count) tables, the pairwise min-sums of
+per-sequence sorted tables (the sparse distance path's two-pointer) and
+the ``%f`` CSV formatter. Nothing falls back: a failed build raises with the
 compiler's output.
 """
 
@@ -137,6 +139,12 @@ def load() -> ctypes.CDLL:
     lib.kp_rows_valid.argtypes = [vp, ci, vp, i64, i64]
     lib.kp_compact_rows.restype = i64
     lib.kp_compact_rows.argtypes = [vp, ci, vp, i64, i64, vp, vp]
+    lib.kp_count_tables.restype = i64
+    lib.kp_count_tables.argtypes = [vp, vp, vp, vp, i64, ci, ci, vp, vp, vp]
+    lib.kp_min_sum_pairs.restype = i64
+    lib.kp_min_sum_pairs.argtypes = [vp, vp, vp, i64, vp]
+    lib.kp_min_sum_panel.restype = i64
+    lib.kp_min_sum_panel.argtypes = [vp, vp, vp, i64, i64, i64, vp]
     return lib
 
 
@@ -382,6 +390,88 @@ def _merge(tables):
         _ptr(out_code), _ptr(out_cnt),
     )
     return out_code[:w], out_cnt[:w]
+
+
+def count_tables_native(
+    stream: np.ndarray, starts: np.ndarray, lengths: np.ndarray, k: int,
+    canonical: bool = False,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-record sorted-unique tables of the records of a u8 base stream
+    (record i is ``lengths[i]`` bases at ``starts[i]``), in one threaded
+    call: (codes_u64, counts_i64, offs_i64[S+1]), record i's table at
+    [offs[i], offs[i+1]). Each table equals ``count_sparse_host_native``
+    of the record alone."""
+    lib = load()
+    if not (1 <= k <= 31):
+        raise ValueError(f"k must be in [1, 31], got {k}")
+    stream = np.ascontiguousarray(stream, dtype=np.uint8)
+    starts = np.ascontiguousarray(starts, dtype=np.int64)
+    lengths = np.ascontiguousarray(lengths, dtype=np.int64)
+    S = lengths.size
+    if starts.shape != lengths.shape or (S and int((starts + lengths).max()) > stream.size):
+        raise ValueError("each record must lie inside the stream")
+    caps = np.maximum(lengths - k + 1, 0)
+    slot = np.concatenate([[0], np.cumsum(caps)]).astype(np.int64)
+    out_code = np.empty(int(slot[-1]), dtype=np.uint64)
+    out_cnt = np.empty(int(slot[-1]), dtype=np.int64)
+    out_len = np.zeros(S, dtype=np.int64)
+    lib.kp_count_tables(_ptr(stream), _ptr(starts), _ptr(lengths), _ptr(slot), S, k,
+                        int(bool(canonical)), _ptr(out_code), _ptr(out_cnt), _ptr(out_len))
+    row = np.repeat(np.arange(S), caps)
+    keep = np.arange(int(slot[-1])) - slot[:-1][row] < out_len[row]
+    offs = np.concatenate([[0], np.cumsum(out_len)]).astype(np.int64)
+    return out_code[keep], out_cnt[keep], offs
+
+
+def _pair_tables(codes, counts, offs):
+    """Contiguous (u64 codes, int64 counts, int64 fences) of concatenated
+    per-sequence tables, checked for one length and S + 1 fences."""
+    codes = np.ascontiguousarray(codes, dtype=np.uint64)
+    counts = np.ascontiguousarray(counts, dtype=np.int64)
+    offs = np.ascontiguousarray(offs, dtype=np.int64)
+    if codes.shape != counts.shape or offs.ndim != 1 or offs.size < 1:
+        raise ValueError("codes and counts must have one length, offs S + 1 fences")
+    if offs[0] != 0 or offs[-1] != codes.size or np.any(np.diff(offs) < 0):
+        raise ValueError("offs must rise from 0 to the tables' length")
+    return codes, counts, offs
+
+
+def min_sum_pairs_native(
+    codes: np.ndarray, counts: np.ndarray, offs: np.ndarray
+) -> np.ndarray:
+    """Per-sequence sorted-unique tables -> the packed strict upper
+    triangle of their pairwise min-sums, int64 [S*(S-1)/2], by the
+    threaded two-pointer intersection (``kp_min_sum_pairs``).
+
+    codes/counts: the tables concatenated; offs: int64 [S+1] fences
+    (sequence i's table is offs[i]..offs[i+1])."""
+    lib = load()
+    codes, counts, offs = _pair_tables(codes, counts, offs)
+    S = offs.shape[0] - 1
+    out = np.zeros(max(S * (S - 1) // 2, 1), dtype=np.int64)
+    w = lib.kp_min_sum_pairs(_ptr(codes), _ptr(counts), _ptr(offs), S, _ptr(out))
+    return out[: max(w, 0)]
+
+
+def min_sum_panel_native(
+    codes: np.ndarray, counts: np.ndarray, offs: np.ndarray, r0: int, r1: int
+) -> np.ndarray:
+    """The pair min-sums of rows [r0, r1) only (clamped to [0, S - 1)),
+    packed from row r0 on: the streamed sparse distances' unit of work
+    (``kp_min_sum_panel``)."""
+    lib = load()
+    codes, counts, offs = _pair_tables(codes, counts, offs)
+    S = offs.shape[0] - 1
+    r0 = max(int(r0), 0)
+    r1 = min(int(r1), max(S - 1, 0))
+    if r0 >= r1:
+        return np.zeros(0, dtype=np.int64)
+    n = (r1 - r0) * (S - 1) - (r1 * (r1 - 1) - r0 * (r0 - 1)) // 2
+    out = np.zeros(n, dtype=np.int64)
+    w = lib.kp_min_sum_panel(_ptr(codes), _ptr(counts), _ptr(offs), S, r0, r1, _ptr(out))
+    if w != n:
+        raise RuntimeError(f"kp_min_sum_panel wrote {w} pairs, sized for {n}")
+    return out
 
 
 def format_f6(values: np.ndarray) -> bytes:

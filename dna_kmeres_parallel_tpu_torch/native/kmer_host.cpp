@@ -1429,6 +1429,128 @@ int64_t kp_merge_tables(int64_t m, const uint64_t* const* codes,
   return w;
 }
 
+// Sorted-unique (code, count) tables of many records in one call: the
+// sparse distance path's per-sequence tables. Record i is the n[i] bases
+// at stream + start[i]. Threads claim records; a record's valid windows
+// (RollingWindows: the same codes and canonical form as
+// kp_count_sparse_host) are sorted and run-length counted into its slice
+// of out_code/out_cnt, which starts at slot[i] and holds n[i] - k + 1
+// entries; out_len[i] is its number of distinct codes. One call in place of
+// one kp_count_sparse_host a record, whose fixed cost (threads, scratch)
+// dwarfs a read of a few kbase. Returns 0, or -1 for a k outside 1..31.
+int64_t kp_count_tables(const uint8_t* stream, const int64_t* start,
+                        const int64_t* n, const int64_t* slot, int64_t S, int k,
+                        int canonical, uint64_t* out_code, int64_t* out_cnt,
+                        int64_t* out_len) {
+  if (k < 1 || k > 31) return -1;
+  int64_t total = 0;
+  for (int64_t i = 0; i < S; i++) total += std::max<int64_t>(n[i] - k + 1, 0);
+  const int nt = num_threads(total, 1 << 16);
+  std::atomic<int64_t> next{0};
+  std::vector<std::thread> ths;
+  for (int t = 0; t < nt; t++)
+    ths.emplace_back([&] {
+      std::vector<uint64_t> codes;
+      for (;;) {
+        const int64_t i = next.fetch_add(1);
+        if (i >= S) break;
+        const int64_t nw = n[i] - k + 1;
+        out_len[i] = 0;
+        if (nw <= 0) continue;
+        codes.clear();
+        RollingWindows rw(stream + start[i], k, canonical != 0);
+        rw.for_range(0, nw, [&](uint64_t c) { codes.push_back(c); });
+        std::sort(codes.begin(), codes.end());
+        uint64_t* oc = out_code + slot[i];
+        int64_t* on = out_cnt + slot[i];
+        int64_t m = 0;
+        for (size_t a = 0; a < codes.size();) {
+          size_t b = a + 1;
+          while (b < codes.size() && codes[b] == codes[a]) b++;
+          oc[m] = codes[a];
+          on[m] = static_cast<int64_t>(b - a);
+          m++;
+          a = b;
+        }
+        out_len[i] = m;
+      }
+    });
+  for (auto& th : ths) th.join();
+  return 0;
+}
+
+// Pairwise (min,+) over per-sequence sparse k-mer tables: the distance
+// core wherever the dense [S, 4^k] counts matrix cannot exist. Tables are
+// sorted-unique (code, count) runs concatenated in codes/counts, with
+// fences offs[S+1] (sequence i's table is offs[i]..offs[i+1]). For every
+// pair i < j with r0 <= i < r1, the min-sum sum_p min(cnt_i[p], cnt_j[p])
+// is a two-pointer sorted intersection, written in the packed strict
+// upper triangle of rows r0..r1-1, row-major (row r0's partners first).
+// Threads claim rows dynamically (early rows have more partners).
+// Returns the number of pairs written.
+static int64_t min_sum_rows(const uint64_t* codes, const int64_t* counts,
+                            const int64_t* offs, int64_t S, int64_t r0,
+                            int64_t r1, int64_t* out_sums) {
+  // packed start of row i, counted from row r0
+  auto row_start = [S, r0](int64_t i) {
+    return (i - r0) * (S - 1) - (i * (i - 1) - r0 * (r0 - 1)) / 2;
+  };
+  const int64_t n_pairs = row_start(r1);
+  const int nt = num_threads(n_pairs, 1 << 12);
+  std::atomic<int64_t> next{r0};
+  std::vector<std::thread> ths;
+  for (int t = 0; t < nt; t++)
+    ths.emplace_back([&] {
+      for (;;) {
+        const int64_t i = next.fetch_add(1);
+        if (i >= r1) break;
+        int64_t w = row_start(i);
+        const int64_t ia = offs[i], ib = offs[i + 1];
+        for (int64_t j = i + 1; j < S; j++, w++) {
+          int64_t a = ia, b = offs[j];
+          const int64_t bb = offs[j + 1];
+          int64_t sum = 0;
+          while (a < ib && b < bb) {
+            const uint64_t ca = codes[a], cb = codes[b];
+            if (ca == cb) {
+              sum += std::min(counts[a], counts[b]);
+              a++;
+              b++;
+            } else if (ca < cb) {
+              a++;
+            } else {
+              b++;
+            }
+          }
+          out_sums[w] = sum;
+        }
+      }
+    });
+  for (auto& th : ths) th.join();
+  return n_pairs;
+}
+
+// Every pair: out_sums holds S*(S-1)/2 min-sums, the packed strict upper
+// triangle. Returns the number of pairs written.
+int64_t kp_min_sum_pairs(const uint64_t* codes, const int64_t* counts,
+                         const int64_t* offs, int64_t S, int64_t* out_sums) {
+  if (S < 2) return 0;
+  return min_sum_rows(codes, counts, offs, S, 0, S - 1, out_sums);
+}
+
+// The pairs of rows [r0, r1) only (clamped to [0, S - 1)), packed from
+// row r0 on: the streamed distance path's unit of work. Returns the
+// number of pairs written.
+int64_t kp_min_sum_panel(const uint64_t* codes, const int64_t* counts,
+                         const int64_t* offs, int64_t S, int64_t r0,
+                         int64_t r1, int64_t* out_sums) {
+  if (S < 2) return 0;
+  if (r0 < 0) r0 = 0;
+  if (r1 > S - 1) r1 = S - 1;
+  if (r0 >= r1) return 0;
+  return min_sum_rows(codes, counts, offs, S, r0, r1, out_sums);
+}
+
 // Format n float32 values as the reference's one-float-per-line CSV body
 // ("%f\n" per value, the reference's main.cu:199-202 and 355-358) into
 // out. snprintf does the digits, so the bytes match the C library's %f

@@ -3,8 +3,9 @@
 D(i, j) = 1 - sum_p min(c_i[p], c_j[p]) / (min(L_i, L_j) - k + 1), float32
 (the reference's formula). The port of
 ``dna_kmeres_parallel_tpu/ops/distance.py``'s ``min_sum_matrix`` (the plain
-version of K3 and K4), ``finish_distances``, ``finish_distances_panel``
-and ``distance_matrix_packed``. The integer min-sums are exact on any
+version of K3 and K4), ``finish_distances``, ``finish_distances_panel``,
+``distance_matrix_packed`` and ``tri_time_per_pair`` (with the card's
+rates). The integer min-sums are exact on any
 device; the float32 finish runs on the host in NumPy, whose division is
 IEEE correctly rounded, so the distances are bit-reproducible.
 """
@@ -16,6 +17,19 @@ import torch
 
 #: elements of one block's [rows, S2, B] broadcast in the plain product
 _BLOCK_ELEMS = 1 << 24
+
+#: The per-pair time model of K3 and K4 on the card, which the distance
+#: gates of ``models/sparse_engine`` read: t = bins / rate a pair.
+#: Measured by ``chip_smoke.measure_gate_rates`` on one NVIDIA H100 80GB
+#: HBM3 at 700 W: K3 over phase (d)'s [2,048, 131,072] union matrix
+#: (6.77e12) (PERF.md, section 7).
+TRI_BIN_PAIRS_PER_SEC = 6.8e12
+
+
+def tri_time_per_pair(bins: int, rate: float = TRI_BIN_PAIRS_PER_SEC) -> float:
+    """Predicted seconds a pair of the (min,+) product over ``bins``
+    columns takes in K3 or K4."""
+    return bins / rate
 
 
 def min_sum_matrix(

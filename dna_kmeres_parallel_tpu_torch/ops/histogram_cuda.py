@@ -2,8 +2,10 @@
 
 - K2, the per-sequence counts matrix (``csrc/counts_matrix.cu``), replaces
   ``dna_kmeres_parallel_tpu/ops/histogram_pallas.py::counts_matrix_pallas``
-  and serves every bin count up to 65,536 (k <= 8), where the TPU kernel
-  stops at 1,024 and the JAX engine scatters above it.
+  and serves every bin count up to 4^15 (k <= 15), where the TPU kernel
+  stops at 1,024 and the JAX engine scatters above it: shared-memory
+  histograms up to 65,536 bins, device-memory atomics into a zeroed
+  output above.
 - K5-K8, the dense histogram of one batch (``csrc/histogram.cu``), replace
   ``histogram_bp2_packed_pallas`` (K5, from the encoder's u32 planes),
   ``histogram_bp2_pallas`` (K6), ``histogram_bitplane_pallas`` (K7) and
@@ -27,8 +29,11 @@ from dna_kmeres_parallel_tpu_torch.ops import encode as encode_ops
 from dna_kmeres_parallel_tpu_torch.ops import encode_cuda
 from dna_kmeres_parallel_tpu_torch.ops import histogram as hist_ops
 
-#: widest bin range K2, K5 and K6 serve (4^8)
+#: widest bin range K5 and K6 serve (4^8), and K2 in shared memory
 MAX_BINS = 1 << 16
+#: widest bin range K2 serves (4^15); above MAX_BINS it counts with
+#: device-memory atomics (its global route)
+MAX_COUNTS_BINS = 1 << 30
 #: widest bin range K7 serves, and the largest bins the routing sends it
 SMALL_BINS = 64
 #: widest bin range K8 serves (4^12)
@@ -46,8 +51,11 @@ WIDE_CLUSTER = 2
 # Kernel launches since the counts were last reset; each wrapper adds one
 # per launch of its kernel and nothing else touches them except a
 # caller's reset.
-#: K2 ``kp_counts_matrix``
+#: K2 ``kp_counts_matrix``, every route
 COUNTS_LAUNCHES = 0
+#: K2's launches on its global route (bins above MAX_BINS), counted beside
+#: COUNTS_LAUNCHES
+COUNTS_GLOBAL_LAUNCHES = 0
 #: K5 ``kp_hist_planes``
 PLANES_LAUNCHES = 0
 #: K6 ``kp_hist_u8``
@@ -77,8 +85,8 @@ def _check(grid: torch.Tensor, k: int, bins: int) -> None:
         )
     if not (1 <= k <= encode_ops.MAX_DENSE_K):
         raise ValueError(f"k must be in [1, {encode_ops.MAX_DENSE_K}], got {k}")
-    if not (1 <= bins <= MAX_BINS):
-        raise ValueError(f"bins must be in [1, {MAX_BINS}], got {bins}")
+    if not (1 <= bins <= MAX_COUNTS_BINS):
+        raise ValueError(f"bins must be in [1, {MAX_COUNTS_BINS}], got {bins}")
 
 
 def counts_matrix_cuda(
@@ -87,7 +95,7 @@ def counts_matrix_cuda(
     """Launch the CUDA kernel: u8 grid [S, L] on the card -> int32
     [S, bins] on the card. Raises on anything the kernel does not take,
     and if the launch fails."""
-    global COUNTS_LAUNCHES
+    global COUNTS_LAUNCHES, COUNTS_GLOBAL_LAUNCHES
     _check(grid, k, bins)
     if grid.device.type != "cuda":
         raise ValueError(f"counts_matrix_cuda needs a CUDA tensor, got {grid.device}")
@@ -110,6 +118,7 @@ def counts_matrix_cuda(
     if rc != 0:
         raise RuntimeError(f"kp_counts_matrix launch failed: cudaError_t {rc}")
     COUNTS_LAUNCHES += 1
+    COUNTS_GLOBAL_LAUNCHES += int(bins > MAX_BINS)
     return out
 
 

@@ -140,9 +140,10 @@ def counted_plain_versions(monkeypatch):
     plain_counts = histogram_cuda.counts_matrix_reference
     tri, rect = distance_cuda.min_sum_matrix_tri, distance_cuda.min_sum_matrix_rect
 
-    def counts(*a, **kw):
+    def counts(grid, k, bins, canonical=False):
         histogram_cuda.COUNTS_LAUNCHES += 1
-        return plain_counts(*a, **kw)
+        histogram_cuda.COUNTS_GLOBAL_LAUNCHES += int(bins > histogram_cuda.MAX_BINS)
+        return plain_counts(grid, k, bins, canonical)
 
     def counted_tri(c):
         distance_cuda.TRI_LAUNCHES += 1
@@ -474,3 +475,93 @@ def test_sort_path_rehearsal(records, tmp_path, monkeypatch, counted_sort_plain_
     assert set(refs) == {("table", 21, False), ("table", 11, True), ("dup", 1 << 16, 3),
                          ("dup", 1, 2), ("small", 13, False)}
     assert not (tmp_path / "dup.fasta").exists()
+
+
+def test_read_set_draws_reads_from_one_genome():
+    stream, starts, lengths = chip_smoke.read_set(60, 5000)
+    assert np.all((lengths >= 1000) & (lengths <= 2000))
+    assert stream.size == lengths.sum() + 59
+    assert np.all(stream[starts[1:] - 1] == chip_smoke.INVALID)
+    seqs = chip_smoke.record_strings(stream, starts, lengths)
+    # about 1,000 windows of each read occur in another read (shared
+    # genome), far more than random reads would share
+    tables = [set(s[i : i + 21] for i in range(len(s) - 20)) for s in seqs[:2]]
+    assert all(len(t) > 900 for t in tables)
+
+
+def test_long_records_layout():
+    stream, starts, lengths = chip_smoke.long_records(3, 5000, 6000)
+    assert np.all((lengths >= 5000) & (lengths <= 6000)) and lengths.size == 3
+    assert np.all(stream[starts[1:] - 1] == chip_smoke.INVALID)
+    sub = chip_smoke.first_records((stream, starts, lengths), 2)
+    assert sub[0].size == starts[1] + lengths[1] and sub[2].size == 2
+
+
+@pytest.mark.parametrize("canonical", [False, True])
+def test_reference_pair_tables_and_distances_match_oracle(canonical):
+    from dna_kmeres_parallel_tpu.models import sparse_engine as jax_sparse
+
+    records = chip_smoke.read_set(12, 3000)
+    seqs = chip_smoke.record_strings(*records)
+    tables = chip_smoke.reference_pair_tables(*records, 21, canonical, CPU)
+    want = jax_sparse.build_pair_tables(seqs, 21, canonical)
+    assert all(np.array_equal(g, w) for g, w in zip(tables, want))
+    packed = oracle.distance_matrix_packed_sparse(seqs, 21, canonical=canonical)
+    idx = np.array([0, 1, 10, 11, 37, packed.size - 1])
+    got = chip_smoke.reference_pair_distances(tables, records[2], 21, idx)
+    assert chip_smoke.same_bits(got, packed[idx])
+    rows, cols = chip_smoke.pair_rows(np.arange(packed.size), 12)
+    assert np.array_equal(rows, np.triu_indices(12, 1)[0])
+    assert np.array_equal(cols, np.triu_indices(12, 1)[1])
+
+
+@pytest.mark.parametrize("B", [65_536, 131_072])
+def test_wide_counts_meet_their_route(B):
+    from dna_kmeres_parallel_tpu_torch.ops import distance_cuda
+
+    for kind, route in (("small", "u16x2"), ("wide", "i32")):
+        c = chip_smoke.wide_counts(64, B, kind, B)
+        assert c.dtype == np.int32 and c.shape == (64, B) and c.min() >= 0
+        assert (np.count_nonzero(c, axis=1)[1:] > 1500).all()
+        bounds = distance_cuda.check_counts(torch.from_numpy(c))
+        assert distance_cuda.product_route(*bounds) == route
+    assert chip_smoke.wide_counts(64, B, "wide", B)[0].sum() == 65536
+
+
+def test_sparse_and_midk_path_rehearsal(tmp_path, monkeypatch, counted_plain_versions,
+                                        counted_dense_plain_versions):
+    # Phases (d)-(g) at a small size with the plain versions counted as
+    # launches: 40 reads of a 3,000-base genome in panels of 8 rows, 30
+    # records in panels of 4 (a child killed after 2 checkpoints), 3 long
+    # records over a lowered table threshold, and 12 and 6 records at k=9
+    # and 10.
+    from dna_kmeres_parallel_tpu_torch.models import sparse_engine
+
+    for name, value in (("READ_COUNT", 40), ("READ_GENOME_BASES", 3000), ("READ_PANEL_ROWS", 8),
+                        ("PAIR_SAMPLE", 300), ("HOST_RECORDS", 30), ("HOST_PANEL_ROWS", 4),
+                        ("LONG_RECORDS", 3), ("LONG_BASES", (3000, 4000)), ("MIDK_ROWS", 12),
+                        ("MIDK_STREAM_ROWS", 6)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(sparse_engine, "_TPU_TABLE_MIN_BASES", 2001)
+
+    def fired(launches):
+        return {n: c for n, c in launches.items() if c}
+
+    union = chip_smoke.phase_union_path(CPU, "cpu", tmp_path)
+    launches = union["launches"]
+    assert fired(launches["(d) union=on"]) == {"min_sum_tri": 1}
+    assert fired(launches["(d) union=off"]) == fired(launches["(d) union=auto"]) == {}
+    stream = next(n for key, n in launches.items() if key.startswith("(d) stream"))
+    assert fired(stream) == {"min_sum_rect": 5}
+    assert union["n_pairs"] == 780 and union["host_min_sum_s"] >= 0
+    records = chip_smoke.distance_records(40)
+    host = chip_smoke.phase_host_path(records, CPU, "cpu", tmp_path)
+    assert [fired(n) for n in host.values()] == [{}]
+    long = chip_smoke.phase_long_path(CPU, "cpu")
+    assert [fired(n) for n in long.values()] == [{"encode_packed": 3}]
+    midk = chip_smoke.phase_midk_path(records, CPU, "cpu", tmp_path)
+    assert fired(midk[chip_smoke.MIDK_MAIN]) == {
+        "counts_matrix": 1, "counts_matrix_global": 1, "min_sum_tri": 1}
+    assert fired(midk["(g) k=10 stream"]) == {
+        "counts_matrix": 1, "counts_matrix_global": 1, "min_sum_rect": 1}
+    assert not list(tmp_path.iterdir())

@@ -7,7 +7,9 @@ a chunk of 16 bytes of 0xFF skipped; the bytes turned into digits and
 validity bits (``digits4``, ``valid4``) and each run of 16 window starts
 counted by ``count16``'s funnel shifts, only the starts that lie in the
 row; rows cut into parts (the plan of ``plan_parts``) whose counts add
-into one output; the block route's 16-bit halves. The model is held
+into one output; the block route's 16-bit halves; above 65,536 bins the
+global route, every window added at row * bins + code of an output
+zeroed first. The model is held
 against ``histogram_cuda.counts_matrix_reference`` and against the JAX
 package's ``_counts_matrix_batch`` (its Pallas kernel in interpret mode,
 up to the 1,024 bins it serves).
@@ -34,6 +36,7 @@ WARP_MAX_BINS = 4096
 BLOCK_THREADS = 512
 MAX_PART_CHUNKS = 4095
 MIN_WARP_PART = 256
+MAX_SHARED_BINS = 1 << 16  # the global route above
 H100_SMS = 132
 
 
@@ -117,8 +120,9 @@ def span_of(L: int, k: int) -> int:
 
 
 def plan(S: int, L: int, k: int, bins: int, sms: int = H100_SMS) -> tuple[int, int]:
-    """The entry's plan: the warp route up to 4,096 bins, else the block route."""
-    if bins <= WARP_MAX_BINS:
+    """The entry's plan: the warp route up to 4,096 bins and the global
+    route above 65,536 (both a warp an item), else the block route."""
+    if bins <= WARP_MAX_BINS or bins > MAX_SHARED_BINS:
         return plan_parts(S, span_of(L, k), 64 * sms, MIN_WARP_PART, 1 << 62)
     return plan_parts(S, span_of(L, k), 2 * sms, BLOCK_THREADS, MAX_PART_CHUNKS)
 
@@ -138,12 +142,14 @@ def model_counts(grid: np.ndarray, k: int, bins: int, canonical: bool, mis: int 
     S, L = grid.shape
     if parts is None:
         parts, per = plan(S, L, k, bins)
-    warp = bins <= WARP_MAX_BINS
+    glob = bins > MAX_SHARED_BINS
+    warp = bins <= WARP_MAX_BINS or glob
     lanes = 32 if warp else BLOCK_THREADS
     ab = aligned_stream(grid, mis)
     words = ab.view("<u4").astype(np.uint64).reshape(-1, 4)  # chunk c: words[c]
     limit = L - k + 1
     out = np.zeros((S, bins), np.int64)
+    flat = out.reshape(-1)  # the global route's adds: row * bins + code
     counted = skipped = 0
     for item in range(S * parts):
         row, part = divmod(item, parts)
@@ -172,11 +178,15 @@ def model_counts(grid: np.ndarray, k: int, bins: int, canonical: bool, mis: int 
                 d |= digits4(w[:, i]) << np.uint64(8 * i)
                 v |= valid4(w[:, i]) << np.uint64(4 * i)
             keys = count16(d, v, 16 * c - row_lo, limit, k, bins, canonical)
-            if warp:
+            if glob:
+                np.add.at(flat, row * bins + keys, 1)
+            elif warp:
                 np.add.at(hist, keys, 1)
             else:
                 add = np.where(keys & 1, 1 << 16, 1).astype(np.uint32)
                 np.add.at(halves, keys >> 1, add)  # wraps as the card's u32 does
+        if glob:
+            continue
         if not warp:
             widened = np.stack([halves & 0xFFFF, halves >> 16], axis=1).reshape(-1)
             hist = widened[:bins].astype(np.int64)
@@ -261,6 +271,30 @@ def test_plan_splits_few_or_long_rows_and_caps_the_halves():
         parts, per = plan(S, L, 8, 65536)
         assert per <= MAX_PART_CHUNKS and 16 * per < 1 << 16
         assert parts * per >= span_of(L, 8)
+
+
+@pytest.mark.parametrize("canonical", [False, True])
+@pytest.mark.parametrize("k,bins", [(9, 4**9), (10, 4**10), (11, 70_000), (12, 4**12)])
+@pytest.mark.parametrize("L", [0, 8, 15, 17, 33, 2001])
+def test_global_route_model_matches_plain(k, bins, L, canonical):
+    """Above 65,536 bins: a warp an item as in the warp route, each window
+    added at row * bins + code; codes past ``bins`` dropped."""
+    grid = edge_grid(5, L, 7 * k + L)
+    want = plain(grid, k, bins, canonical)
+    for mis in (0, 9):
+        assert np.array_equal(model_counts(grid, k, bins, canonical, mis), want), f"mis={mis}"
+
+
+@pytest.mark.parametrize("per", [1, 5, 256])
+def test_global_route_split_rows_combine(per):
+    grid = edge_grid(3, 3001, per)
+    want = plain(grid, 9, 4**9, True)
+    parts = -(-span_of(3001, 9) // per)
+    assert np.array_equal(model_counts(grid, 9, 4**9, True, 5, parts=parts, per=per), want)
+    # The plan: the warp route's, with no cap on a part.
+    assert plan(1024, 2000, 9, 4**9) == (1, MIN_WARP_PART)
+    assert plan(8, 4_000_000, 9, 4**9) == (977, MIN_WARP_PART)
+    assert plan(100_000, 70_000, 10, 4**10) == (1, span_of(70_000, 10))
 
 
 def test_halves_hold_a_part_of_one_code():

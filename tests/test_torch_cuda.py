@@ -146,6 +146,66 @@ def test_counts_matrix_kernel_matches_plain(cuda_device, S, L, k, bins, offset, 
     assert torch.equal(got, ref)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("canonical", [False, True])
+@pytest.mark.parametrize(
+    "S,L,k,bins,offset",
+    [(37, L, k, 4**k, offset) for k in (9, 10) for L in COUNTS_LS for offset in (0, 5)]
+    # bins below 4^k drop the codes past them; k = 12, 13 and 15 at 4^k
+    + [(16, 200, 11, 70_000, 3), (40, 2000, 11, 4**11, 0), (5, 3000, 12, 4**12, 1),
+       (3, 20_000, 13, 4**13, 7), (1, 5000, 15, 4**15, 3)]
+    # rows split into parts: few long rows, one row, and phase (g)'s shape
+    + [(1, 4_000_000, 9, 4**9, 0), (2, 1_000_000, 10, 4**10, 3), (8, 300_000, 9, 4**9, 0),
+       (1, 2000, 9, 4**9, 0), (1024, 2000, 9, 4**9, 0), (256, 2000, 10, 4**10, 0)],
+)
+def test_counts_matrix_global_route_matches_plain(cuda_device, S, L, k, bins, offset, canonical):
+    # Above 65,536 bins K2 adds every window to its count in device memory
+    # with an atomic (its global route): rows shorter than k and N runs
+    # (base_grid), grids off the 16-byte grid, rows split into parts.
+    L = k - 1 if L == "k-1" else L
+    g = base_grid(S, L, S * 5 + L + k)
+    buf = torch.empty(S * L + offset, dtype=torch.uint8, device=cuda_device)
+    grid = buf[offset:].view(S, L)
+    grid.copy_(torch.from_numpy(g))
+    launches, wide = histogram_cuda.COUNTS_LAUNCHES, histogram_cuda.COUNTS_GLOBAL_LAUNCHES
+    got = histogram_cuda.counts_matrix_grid(grid, k, bins, canonical)
+    assert histogram_cuda.COUNTS_LAUNCHES == launches + 1
+    assert histogram_cuda.COUNTS_GLOBAL_LAUNCHES == wide + (S > 0)
+    ref = histogram_cuda.counts_matrix_reference(grid, k, bins, canonical)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.shape == (S, bins)
+    assert torch.equal(got, ref)
+
+
+#: the widths of the union route's matrices and of mid-k counts
+WIDE_BINS = (131_072, 262_144)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,route", [("small", "u16x2"), ("wide", "i32")])
+@pytest.mark.parametrize("B", WIDE_BINS)
+@pytest.mark.parametrize("S", [1, 129, 256])
+def test_min_sum_tri_at_wide_bins_matches_plain(cuda_device, S, B, kind, route):
+    a = torch.from_numpy(chip_smoke.wide_counts(S, B, kind, S + B)).to(cuda_device)
+    got, taken = routed(distance_cuda.min_sum_matrix_tri, a)
+    assert taken == route
+    torch.cuda.synchronize()
+    assert torch.equal(got, distance.min_sum_matrix(a))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,route", [("small", "u16x2"), ("wide", "i32")])
+@pytest.mark.parametrize("B", WIDE_BINS)
+@pytest.mark.parametrize("S,S2", [(1, 300), (129, 1), (256, 200)])
+def test_min_sum_rect_at_wide_bins_matches_plain(cuda_device, S, S2, B, kind, route):
+    a = torch.from_numpy(chip_smoke.wide_counts(S, B, kind, S + B)).to(cuda_device)
+    b = torch.from_numpy(chip_smoke.wide_counts(S2, B, kind, S2 + B + 1)).to(cuda_device)
+    got, taken = routed(distance_cuda.min_sum_matrix_rect, a, b)
+    assert taken == route
+    torch.cuda.synchronize()
+    assert torch.equal(got, distance.min_sum_matrix(a, b))
+
+
 def counts(S: int, B: int, seed: int, dev, cmax: int = 9) -> torch.Tensor:
     rng = np.random.default_rng(seed)
     return torch.from_numpy(rng.integers(0, cmax + 1, (S, B)).astype(np.int32)).to(dev)

@@ -186,11 +186,17 @@ def test_distance_matrix_packed_matches_jax(k):
 
 @pytest.mark.parametrize("entry", ["distance_file", "distance_sequences"])
 def test_large_k_distances_are_not_ported(tmp_path, entry):
+    # The dense entries serve k <= 15 where the counts matrix fits the
+    # memory gate; past it (k = 12) and above k = 15 they raise, and the
+    # sparse entries (models/sparse_engine) serve those k.
     path = tmp_path / "in.fasta"
     path.write_text(">a\nACGTACGTACGT\n")
     arg = str(path) if entry == "distance_file" else ["ACGTACGTACGT"]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        getattr(port, entry)(arg, k=9, device="cpu")
+    with pytest.raises(ValueError, match="distance_sparse_packed"):
+        getattr(port, entry)(arg, k=12, device="cpu")
+    with pytest.raises(NotImplementedError, match="k <= 15"):
+        getattr(port, entry)(arg, k=16, device="cpu")
+    assert getattr(port, entry)(arg, k=9, device="cpu").n == 1
 
 
 def test_row_chunks_bound_the_grid():

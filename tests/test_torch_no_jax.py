@@ -90,13 +90,29 @@ for name, k, kw, pallas_sort in (("k13 rows K11", 13, {"sort_row_len": 128}, Tru
 sc = StreamingCounter(port.KmerConfig(k=21, batch_bases=128, compact="device-rle"),
                       device="cpu")
 device_sort["k21 rle"] = sc.run(fasta_path).table()
+# Distances past the dense band: the sparse tables at k=21 on the host
+# route and the union route (K3's and K4's plain versions), streamed, and
+# the dense engine at k=9 (K2's plain version above 65,536 bins).
+from dna_kmeres_parallel_tpu_torch.models import sparse_engine
+from dna_kmeres_parallel_tpu_torch.models.engine import KmerEngine
+
+sparse = {}
+for union in ("off", "on"):
+    packed = sparse_engine.distance_sparse_packed(seqs, 21, device="cpu", union=union)
+    sparse[union] = packed.view("u4").tolist()
+    out = sys.argv[2] + f".{union}.csv"
+    sparse_engine.distance_sparse_stream_to_csv(seqs, 21, out, panel_rows=1, device="cpu",
+                                                union=union)
+    sparse[union + " csv"] = open(out, "rb").read().decode()
+sparse["k9"] = KmerEngine(port.KmerConfig(k=9), device="cpu").distance_sequences(
+    seqs).packed.view("u4").tolist()
 banned = [
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "dna_kmeres_parallel_tpu")
 ]
 assert not banned, banned
 print(json.dumps({"table": res.table(), "dense": dense, "streamed": streamed,
-                  "bucket": bucket, "device_sort": device_sort,
+                  "bucket": bucket, "device_sort": device_sort, "sparse": sparse,
                   "bits": dist.packed.view("u4").tolist()}))
 """
 
@@ -135,6 +151,12 @@ def test_port_runs_with_jax_refused(tmp_path):
     want = oracle.distance_matrix_packed(SEQS, 3)
     assert out["bits"] == want.view(np.uint32).tolist()
     assert csv.read_bytes() == "".join("%f\n" % v for v in want).encode()
+    sparse = oracle.distance_matrix_packed_sparse(SEQS, 21)
+    text = "".join("%f\n" % v for v in sparse)
+    for union in ("off", "on"):
+        assert out["sparse"][union] == sparse.view(np.uint32).tolist(), union
+        assert out["sparse"][union + " csv"] == text, union
+    assert out["sparse"]["k9"] == oracle.distance_matrix_packed(SEQS, 9).view(np.uint32).tolist()
 
 
 #: an import of jax, or any mention of the JAX package as a module
