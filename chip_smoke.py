@@ -119,9 +119,31 @@ exits nonzero:
    8 rows of 4 Mbase) and K3/K4 at (d)'s and (g)'s widths (u16x2) and on
    slices whose row sums reach 2^16 (i32) against their plain versions,
    each timed beside its plain version, ``torch.cdist(p=1)`` and its
-   bound; and the rates the distance gates read (K3's bin-pairs a
-   second, the two-pointer's entry-pairs a second a thread, pinned H2D
-   and D2H, a tiny job's round trip).
+   bound; and the rates the distance gates read, measured by
+   ``ops/calibrate`` (K3's bin-pairs a second at a dense [1024, 4^9] and
+   a union [2048, 131,072] matrix, the two-pointer's entry-pairs a second
+   a thread, pinned H2D and D2H, a tiny job's round trip) beside the same
+   rates read off the phases;
+10. the command line, ``kmer-gpu`` (``cli.main`` in this process, the
+   default ``--device cuda``): ``calibrate`` into a directory of the run
+   (its file loaded back as ``DistanceRates`` and printed beside the
+   defaults and phase 9's rates, and the router's decisions at (d) and
+   (g) under both), which the later commands read; ``count --k 21`` on
+   the main path's FASTA to ``.npz`` (its table against phase 4's
+   reference, its wall beside ``count_file``'s) and to CSV (its size and
+   100,000 sampled lines against the reference, and byte for byte
+   against ``count --engine native``); ``count --k 3`` and ``count --k 8
+   --canonical`` against phase 4's histograms; ``distance --k 3`` on the
+   first 2,048 distance records against the plain reference, and
+   streamed in panels of 256 with a checkpoint, stopped after 2 panels
+   and resumed, byte-identical to it; ``distance --k 21`` on (d)'s reads
+   through the router (its route printed) at (d)'s sampled pairs;
+   ``selftest`` at k=3, 8 and 21 on 32 records; ``stream --k 21`` with
+   checkpoints over the first 24,000 distance records against their
+   reference table, and
+   ``merge``, ``histo``, ``query`` and ``info`` on it; ``bench`` at k=8
+   and k=21, windows exact. Each run's launches are checked where its
+   route fixes them.
 
 The script imports the port and nothing of JAX or of the JAX package.
 
@@ -2553,7 +2575,8 @@ def phase_union_path(dev, card: str, tmp: Path) -> dict:
     report_run(f"(d) distance_sparse_packed(k={k}, canonical, {S} reads)", wall, n_pairs,
                info["phases"], f"route {info['route']}; {sub.size} sampled pairs equal the "
                "reference", card)
-    return {"launches": launches, "tables": tables, "host_min_sum_s": host_s, "n_pairs": n_pairs}
+    return {"launches": launches, "tables": tables, "host_min_sum_s": host_s, "n_pairs": n_pairs,
+            "records": records, "sample": (idx, want)}
 
 
 #: a child that streams sparse distances with checkpoints and SIGKILLs
@@ -2892,38 +2915,370 @@ def phase_wide_kernels(dev, card: str, records, union_tables) -> dict:
 
 def measure_gate_rates(dev, card: str, host_min_sum_s: float, union_tables, tri_rates: dict) -> dict:
     """The rates the distance gates read (sparse_engine.DistanceRates), on
-    this card and host: K3's bin-pairs a second at (d)'s union matrix
-    (``phase_wide_kernels``), the two-pointer's
-    entry-pairs a second a thread (phase (d)'s host route), pinned H2D and
-    D2H of 256 MiB, and the round trip of a tiny K3 job (copy in, launch,
-    copy out, waited for; the median of 21)."""
-    import numpy as np
-    import torch
-
+    this card and host, measured by ``ops/calibrate`` (what ``kmer-gpu
+    calibrate`` persists): pinned H2D and D2H of 256 MiB, a tiny K3 job's
+    round trip, K3's bin-pairs a second at a dense [1024, 4^9] counts
+    matrix and at a [2048, 131,072] union matrix, and the two-pointer's
+    entry-pairs a second a thread. Printed beside the same rates read off
+    this run's phases: K3 at (d)'s union matrix and (g)'s counts
+    (``phase_wide_kernels``) and the two-pointer over (d)'s tables."""
     from dna_kmeres_parallel_tpu_torch.models import sparse_engine
-    from dna_kmeres_parallel_tpu_torch.ops import distance_cuda
+    from dna_kmeres_parallel_tpu_torch.ops import calibrate
 
     codes, cnts, offs = union_tables
     S = offs.size - 1
     threads = sparse_engine.DistanceRates().host_threads()
-    entry_rate = S * (S - 1) / 2 * (codes.size / S) / (host_min_sum_s * threads)
-    host = torch.empty(256 << 20, dtype=torch.uint8).pin_memory()
-    card_buf = torch.empty_like(host, device=dev)
-    h2d = host.numel() / (time_ms(lambda: card_buf.copy_(host, non_blocking=True), 5) / 1e3)
-    d2h = host.numel() / (time_ms(lambda: host.copy_(card_buf, non_blocking=True), 5) / 1e3)
-    del host, card_buf
-    tiny = torch.ones(2, 128, dtype=torch.int32)
-    trips = []
-    for _ in range(21):
-        t = time.perf_counter()
-        distance_cuda.min_sum_matrix_tri(tiny.to(dev)).cpu()
-        trips.append(time.perf_counter() - t)
-    measured = dict(bin_pairs_per_sec=tri_rates[SPARSE_MAIN],
-                    sparse_entry_pairs_per_sec_per_thread=entry_rate, h2d_bytes_per_sec=h2d,
-                    d2h_bytes_per_sec=d2h, roundtrip_s=float(np.median(trips)), threads=threads)
-    log("gate rates measured: " + json.dumps(measured) + f"; defaults "
-        f"{json.dumps(sparse_engine.DistanceRates().__dict__)} [{card}]")
+    t = time.perf_counter()
+    measured = calibrate.calibrate(dev)
+    log(f"gate rates measured by ops/calibrate in {time.perf_counter() - t:.1f} s: "
+        + json.dumps(measured) + f"; defaults {json.dumps(sparse_engine.DistanceRates().__dict__)}"
+        f" [{card}]")
+    phase = {
+        "K3 at (d)": tri_rates[SPARSE_MAIN],
+        "K3 at (g)": tri_rates.get(MIDK_MAIN),
+        "two-pointer at (d)": S * (S - 1) / 2 * (codes.size / S) / (host_min_sum_s * threads),
+    }
+    log("gate rates read off this run's phases: " + json.dumps(phase) + f" [{card}]")
     return measured
+
+
+#: phase 10: kmer-gpu on the card. Distance records of the k=3 run, rows a
+#: streamed panel and panels before the stop, records of the selftest
+#: file, records of the stream (about 36 Mbase: three 16 Mbase batches)
+#: and bases between its checkpoints, the bench's bases and batch, and the
+#: table lines held against the reference
+CLI_DIST_ROWS = 2048
+CLI_PANEL_ROWS = 256
+CLI_STOP_PANELS = 2
+CLI_SELFTEST_ROWS = 32
+CLI_STREAM_ROWS = 24_000
+CLI_STREAM_EVERY = "16M"
+CLI_BENCH = ("256M", "16M")
+CLI_TABLE_SAMPLE = 100_000
+CLI_MAIN = "kmer-gpu count --k 21"
+
+
+def run_cli(argv) -> tuple[dict, float]:
+    """``kmer-gpu argv`` in this process (``cli.main``): its JSON report
+    (the last line it prints) and its wall. A nonzero exit code fails."""
+    import contextlib
+    import io
+
+    from dna_kmeres_parallel_tpu_torch import cli
+
+    argv = [str(a) for a in argv]
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    wall = time.perf_counter() - t
+    if rc != 0:
+        raise AssertionError(f"kmer-gpu {' '.join(argv)}: exit code {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1]), wall
+
+
+def same_file(a: Path, b: Path) -> bool:
+    """Whether two files hold the same bytes, read in 64 MiB blocks."""
+    if a.stat().st_size != b.stat().st_size:
+        return False
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        while block := fa.read(64 << 20):
+            if block != fb.read(len(block)):
+                return False
+    return True
+
+
+def kmer_of(code: int, k: int) -> str:
+    return "".join("ACGT"[(code >> (2 * (k - 1 - t))) & 3] for t in range(k))
+
+
+def check_table_csv(path: Path, k: int, codes, counts, n_sample: int) -> int:
+    """A ``kmer,count`` CSV against a reference table: its size is the
+    header plus every line's, and ``n_sample`` seeded lines, found by
+    their offsets, equal the reference's k-mer and count. Returns the
+    lines checked."""
+    import numpy as np
+
+    digits = np.ones(counts.size, np.int64)
+    for p in range(1, len(str(int(counts.max(initial=1))))):
+        digits += counts >= 10**p
+    line = k + 2 + digits
+    ends = 11 + np.cumsum(line)
+    size = int(ends[-1]) if ends.size else 11
+    if path.stat().st_size != size:
+        raise AssertionError(f"{path.name}: {path.stat().st_size} bytes, the reference "
+                             f"table's lines take {size}")
+    data = np.memmap(path, dtype=np.uint8, mode="r")
+    if data[:11].tobytes() != b"kmer,count\n":
+        raise AssertionError(f"{path.name}: header {data[:11].tobytes()!r}")
+    idx = np.sort(sample_lines(counts.size, n_sample))
+    for i in idx.tolist():
+        got = data[ends[i] - line[i] : ends[i]].tobytes()
+        want = f"{kmer_of(int(codes[i]), k)},{int(counts[i])}\n".encode()
+        if got != want:
+            raise AssertionError(f"{path.name} line {i + 1}: {got!r} != {want!r}")
+    del data
+    return idx.size
+
+
+def check_npz_table(path: Path, codes, counts, name: str) -> None:
+    import numpy as np
+
+    with np.load(path) as z:
+        if not (np.array_equal(z["codes"], codes) and np.array_equal(z["counts"], counts)):
+            raise AssertionError(f"{name}: the .npz table differs from the reference")
+
+
+def phase_cli(main_fasta: Path, main_table, hists, n_batches: int, dist_fasta: Path,
+              dist_records, union: dict, gate_rates: dict, dev, card: str, tmp: Path) -> dict:
+    """Phase 10: ``kmer-gpu`` (``cli.main``) with ``--device`` the type of
+    ``dev`` (cuda on the card), each output held against a plain
+    reference or the native engine. Returns the launch counts of each
+    run."""
+    import os
+
+    import numpy as np
+    import torch
+
+    import dna_kmeres_parallel_tpu_torch as port
+    from dna_kmeres_parallel_tpu_torch.models import sparse_engine
+    from dna_kmeres_parallel_tpu_torch.models import distance_stream
+    from dna_kmeres_parallel_tpu_torch.ops import calibrate
+
+    none = dict.fromkeys(read_launches(), 0)
+    on = ["--device", dev.type]  # cuda on the card, as the default
+    launches = {}
+    t_phase = time.perf_counter()
+
+    # calibrate into a directory of this run; every later command reads it
+    cal_dir = tmp / "cal"
+    saved_cal_dir = os.environ.get("KMER_GPU_CAL_DIR")
+    os.environ["KMER_GPU_CAL_DIR"] = str(cal_dir)
+    try:
+        report, wall = run_cli(["calibrate", *on])
+        path = Path(report["calibration_file"])
+        if path.parent != cal_dir or not path.exists():
+            raise AssertionError(f"calibrate wrote {path}, not into {cal_dir}")
+        rates = calibrate.load_rates(path)
+        default = sparse_engine.DistanceRates()
+        keys = ("bin_pairs_per_sec", "dense_bin_pairs_per_sec",
+                "sparse_entry_pairs_per_sec_per_thread", "h2d_bytes_per_sec",
+                "d2h_bytes_per_sec", "roundtrip_s", "threads")
+        for key in keys:
+            log(f"kmer-gpu calibrate {key}: file {getattr(rates, key)!r}, default "
+                f"{getattr(default, key)!r}, phase 9 {gate_rates.get(key)!r} [{card}]")
+        log(f"kmer-gpu calibrate: {path.name} in {wall:.2f} s; K3 dense at "
+            f"{report['dense_shape']} {rates.dense_bin_pairs_per_sec:.4g} bin-pairs/s, at the "
+            f"union shape {report['union_shape']} {rates.bin_pairs_per_sec:.4g}; two-pointer "
+            f"{rates.sparse_entry_pairs_per_sec_per_thread:.4g} entry-pairs/s a thread at "
+            f"{report['host_tables']} x {rates.host_threads()} threads [{card}]")
+        # the router's decisions at (d) and (g), under the defaults and the file
+        codes, cnts, offs = union["tables"]
+        g_lengths = dist_records[2][:MIDK_ROWS]
+        for label, r in (("defaults", default), ("calibrated", rates)):
+            # union="on" plans past the cost gate and reports its two
+            # predictions; "auto" on a card takes the cheaper
+            info = {}
+            sparse_engine.union_dense_plan(codes, cnts, offs, device=dev, union="on", rates=r,
+                                           info=info)
+            dense_g = sparse_engine.dense_distance_preferred(g_lengths.size, 9, g_lengths,
+                                                             rates=r)
+            union_d = ("declined by the budget" if "t_dev_total" not in info else
+                       f"{'union' if info['t_dev_total'] < info['t_host_total'] else 'host'} "
+                       f"(predicted card {info['t_dev_total']:.4f} s, host "
+                       f"{info['t_host_total']:.4f} s)")
+            log(f"router, {label}: (d) k={SPARSE_K} sparse tables, auto route {union_d}; "
+                f"(g) k=9 {g_lengths.size} records "
+                f"{'dense' if dense_g else 'sparse'} (dense {4**9 / r.dense_bin_pairs_per_sec:.3e}"
+                f" s a pair) [{card}]")
+
+        # count --k 21 on the main path's FASTA, beside count_file
+        main_codes, main_counts = main_table
+        t = time.perf_counter()
+        res = port.count_file(str(main_fasta), k=21, device=dev)
+        lib_wall = time.perf_counter() - t
+        if not (np.array_equal(res.codes, main_codes) and np.array_equal(res.counts, main_counts)):
+            raise AssertionError("count_file(k=21): table differs from the reference")
+        lib_parse = res.phases["parse"]
+        del res
+        npz = tmp / "cli21.npz"
+        reset_launches()
+        report, wall = run_cli(["count", *on, "--k", 21, main_fasta, "-o", npz])
+        launches[CLI_MAIN] = expect_launches(CLI_MAIN, {**none, "encode_packed": n_batches})
+        check_npz_table(npz, main_codes, main_counts, CLI_MAIN)
+        if report["distinct_kmers"] != main_codes.size or report["engine"] != "gpu/sparse":
+            raise AssertionError(f"{CLI_MAIN}: report {report}")
+        log(f"{CLI_MAIN} -o .npz: wall {wall:.3f} s (count {report['elapsed_s']:.3f} s, parse "
+            f"and write {wall - report['elapsed_s']:.3f} s; {npz.stat().st_size} bytes) against "
+            f"count_file(k=21) {lib_wall:.3f} s (parse {lib_parse:.3f} s); table equal to the "
+            f"reference; {n_batches} K1 launches [{card}]")
+        npz.unlink()
+        csv = tmp / "cli21.csv"
+        reset_launches()
+        report, wall = run_cli(["count", *on, "--k", 21, main_fasta, "-o", csv])
+        expect_launches(f"{CLI_MAIN} -o .csv", {**none, "encode_packed": n_batches})
+        checked = check_table_csv(csv, 21, main_codes, main_counts, CLI_TABLE_SAMPLE)
+        log(f"{CLI_MAIN} -o .csv: wall {wall:.3f} s (count {report['elapsed_s']:.3f} s); "
+            f"{csv.stat().st_size} bytes, {checked} sampled lines and the size equal the "
+            f"reference's [{card}]")
+        native_csv = tmp / "cli21_native.csv"
+        reset_launches()
+        report, wall = run_cli(["count", "--k", 21, "--engine", "native", main_fasta, "-o",
+                                native_csv])
+        expect_launches("kmer-gpu count --engine native", none)
+        if not same_file(csv, native_csv):
+            raise AssertionError("count --engine native: CSV differs from the gpu engine's")
+        csv.unlink()
+        native_csv.unlink()
+        log(f"kmer-gpu count --k 21 --engine native -o .csv: wall {wall:.3f} s (count "
+            f"{report['elapsed_s']:.3f} s); byte-identical to the gpu engine's CSV [{card}]")
+        del main_codes, main_counts
+
+        # dense counts against phase 4's histograms
+        for name, k, canonical, kernel in (("kmer-gpu count --k 3", 3, False, "hist_packed_small"),
+                                           ("kmer-gpu count --k 8 --canonical", 8, True,
+                                            "hist_planes")):
+            out = tmp / f"dense{k}.npz"
+            reset_launches()
+            report, wall = run_cli(["count", *on, "--k", k, *(["--canonical"] if canonical else []),
+                                    main_fasta, "-o", out])
+            launches[name] = expect_launches(name, {**none, kernel: n_batches})
+            with np.load(out) as z:
+                if not np.array_equal(z["hist"], hists[k, canonical]):
+                    raise AssertionError(f"{name}: histogram differs from the reference")
+            out.unlink()
+            log(f"{name} -o .npz: wall {wall:.3f} s (count {report['elapsed_s']:.3f} s); "
+                f"histogram equal to the reference [{card}]")
+
+        # distances: k=3 on the first records, k=21 on (d)'s reads, and a
+        # streamed k=3 run stopped and resumed
+        stream, starts, lengths = dist_records
+        n = min(CLI_DIST_ROWS, lengths.size)
+        ref_counts = reference_counts(stream, starts[:n], lengths[:n], 3, False, dev)
+        want = reference_packed(reference_min_sums(ref_counts, ref_counts).cpu().numpy(),
+                                lengths[:n], lengths[:n], 3)
+        del ref_counts
+        one_shot = tmp / "cli_d3.csv"
+        name = "kmer-gpu distance --k 3"
+        reset_launches()
+        report, wall = run_cli(["distance", *on, "--k", 3, "--max-seqs", n, dist_fasta, "-o",
+                                one_shot])
+        launches[name] = expect_launches(name, {**none, "counts_matrix": 1, "min_sum_tri": 1})
+        checked = check_csv(one_shot, want)
+        log(f"{name} ({n} records): wall {wall:.3f} s (distances {report['elapsed_s']:.3f} s), "
+            f"engine {report['engine']}; {checked} CSV lines equal the reference [{card}]")
+        name = f"kmer-gpu distance --k 3 --stream-panel {CLI_PANEL_ROWS} --checkpoint"
+        csv, ckpt = tmp / "cli_d3s.csv", tmp / "cli_d3s.json"
+        argv = ["distance", *on, "--k", 3, "--max-seqs", n, "--stream-panel", CLI_PANEL_ROWS,
+                "--checkpoint", ckpt, dist_fasta, "-o", csv]
+        writer = distance_stream.stream_panels_to_csv
+        distance_stream.stream_panels_to_csv = (
+            lambda *a, **kw: writer(*a, **{**kw, "max_panels": CLI_STOP_PANELS}))
+        reset_launches()
+        try:
+            first, wall1 = run_cli(argv)
+        finally:
+            distance_stream.stream_panels_to_csv = writer
+        second, wall2 = run_cli(argv)
+        n_panels = len(panel_shapes(n, CLI_PANEL_ROWS))
+        launches[name] = expect_launches(name, {**none, "counts_matrix": 2,
+                                                "min_sum_rect": n_panels})
+        if first["completed"] or not (second["resumed"] and second["completed"]):
+            raise AssertionError(f"{name}: legs {first}, {second}")
+        if csv.read_bytes() != one_shot.read_bytes():
+            raise AssertionError(f"{name}: the resumed CSV differs from the one-shot CSV")
+        log(f"{name}: stopped after {CLI_STOP_PANELS} panels ({wall1:.3f} s) and resumed "
+            f"({wall2:.3f} s); {n_panels} K4 launches; CSV byte-identical to the one-shot "
+            f"run's [{card}]")
+        for p in (csv, ckpt, one_shot):
+            p.unlink()
+        reads = tmp / "reads.fasta"
+        write_fasta(reads, *union["records"])
+        idx, want = union["sample"]
+        csv = tmp / "cli_d21.csv"
+        name = f"kmer-gpu distance --k {SPARSE_K}"
+        reset_launches()
+        report, wall = run_cli(["distance", *on, "--k", SPARSE_K, reads, "-o", csv])
+        unioned = report["engine"].startswith("union/")
+        launches[name] = expect_launches(name, {**none, "min_sum_tri": int(unioned)})
+        S = union["records"][2].size
+        checked = check_csv_lines(csv, S * (S - 1) // 2, idx, want)
+        log(f"{name} ((d)'s {S} reads): wall {wall:.3f} s (distances {report['elapsed_s']:.3f} "
+            f"s), router: route {report['engine']}; {checked} sampled CSV lines equal the "
+            f"reference [{card}]")
+        csv.unlink()
+
+        # selftest at k = 3, 8 and 21 on a small file
+        small = tmp / "small.fasta"
+        write_fasta(small, *first_records(dist_records, CLI_SELFTEST_ROWS))
+        for k in (3, 8, SPARSE_K):
+            verdict, wall = run_cli(["selftest", *on, "--k", k, small])
+            log(f"kmer-gpu selftest --k {k}: rc 0, {json.dumps(verdict)} ({wall:.1f} s) [{card}]")
+
+        # stream --k 21 with checkpoints, then merge, histo, query and info
+        table = tmp / "stream21.npz"
+        ckpt = tmp / "stream21.ckpt.npz"
+        name = "kmer-gpu stream --k 21 --checkpoint"
+        reset_launches()
+        n = min(CLI_STREAM_ROWS, lengths.size)
+        report, wall = run_cli(["stream", *on, "--k", 21, "--max-seqs", n, "--checkpoint", ckpt,
+                                "--checkpoint-every", CLI_STREAM_EVERY, dist_fasta, "-o", table])
+        launches[name] = read_launches()
+        ref_codes, ref_counts = reference_table(first_records(dist_records, n)[0], 21, False, dev)
+        torch.cuda.empty_cache()
+        check_npz_table(table, ref_codes, ref_counts, name)
+        counters = report["metrics"]["counters"]
+        if counters.get("checkpoints", 0) < 1 or not ckpt.exists():
+            raise AssertionError(f"{name}: {counters.get('checkpoints')} checkpoints")
+        log(f"{name} ({n} records): wall {wall:.3f} s, {counters['checkpoints']} checkpoints, launches "
+            f"{ {n: c for n, c in launches[name].items() if c} }; table equal to the reference "
+            f"[{card}]")
+        merged = tmp / "merged.npz"
+        report, wall = run_cli(["merge", table, table, "-o", merged])
+        check_npz_table(merged, ref_codes, 2 * ref_counts, "kmer-gpu merge")
+        merged.unlink()
+        log(f"kmer-gpu merge (the stream's table twice): wall {wall:.3f} s; counts doubled, "
+            f"codes equal [{card}]")
+        report, wall = run_cli(["histo", *on, table, "--max-count", 100])
+        spectrum = np.bincount(np.minimum(ref_counts, 100), minlength=101)
+        if report["spectrum_head"] != spectrum[1:11].tolist() or (
+                report["distinct_kmers"], report["total_kmers"]) != (ref_codes.size,
+                                                                     int(ref_counts.sum())):
+            raise AssertionError(f"kmer-gpu histo: {report}")
+        picks = sample_lines(ref_codes.size, 5)
+        kmers = [kmer_of(int(ref_codes[i]), 21) for i in picks]
+        report, _ = run_cli(["query", table, *kmers])
+        if report["counts"] != {m: int(ref_counts[i]) for m, i in zip(kmers, picks)}:
+            raise AssertionError(f"kmer-gpu query: {report}")
+        report, _ = run_cli(["info", *on, dist_fasta])
+        n_invalid = int((stream == INVALID).sum()) - lengths.size + 1
+        if (report["n_seqs"], report["total_bases"], report["invalid_bases"]) != (
+                lengths.size, int(lengths.sum()), n_invalid):
+            raise AssertionError(f"kmer-gpu info: {report}")
+        log(f"kmer-gpu histo, query ({len(kmers)} k-mers) and info: equal to the reference "
+            f"[{card}]")
+        for p in (table, ckpt, small, reads):
+            p.unlink(missing_ok=True)
+        del ref_codes, ref_counts
+
+        # bench at k=8 and k=21
+        for k in (8, 21):
+            name = f"kmer-gpu bench --k {k}"
+            report, wall = run_cli(["bench", *on, "--k", k, "--bases", CLI_BENCH[0], "--batch",
+                                    CLI_BENCH[1]])
+            if not (report["timing_valid"]
+                    and report["windows_counted"] == report["windows_expected"]):
+                raise AssertionError(f"{name}: {report}")
+            log(f"{name}: {report['gbases_per_sec']} Gbase/s over {report['total_bases']} bases "
+                f"({report.get('route', report.get('encoder'))}), windows "
+                f"{report['windows_counted']} = expected [{card}]")
+    finally:
+        if saved_cal_dir is None:
+            os.environ.pop("KMER_GPU_CAL_DIR", None)
+        else:
+            os.environ["KMER_GPU_CAL_DIR"] = saved_cal_dir
+    log(f"phase 10 (kmer-gpu) in {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return launches
 
 
 def main() -> int:
@@ -2978,9 +3333,11 @@ def main() -> int:
     k9 = phase_stream_kernel(dev, card)
 
     # 4. the main path, the dense path and the streaming path, on one FASTA
+    # (kept, with the references phase 10 reads, until the end)
     t = time.perf_counter()
     records = smoke_records(args.bases)
-    tmp = tempfile.TemporaryDirectory(prefix="kmer_smoke_")
+    main_tmp = tempfile.TemporaryDirectory(prefix="kmer_smoke_")
+    tmp = main_tmp
     refs: dict = {}
     try:
         path = Path(tmp.name) / "smoke.fasta"
@@ -2998,8 +3355,13 @@ def main() -> int:
         bucket_launches = phase_bucket_path(records, path, dev, card, refs)
         row_sort = phase_sort_kernel(dev, card)
         sort_launches = phase_sort_path(records, path, dev, card, refs)
-    finally:
-        tmp.cleanup()
+    except BaseException:
+        main_tmp.cleanup()
+        raise
+    main_fasta = path
+    main_table = refs[("table", 21, False)]
+    hists = {key[1:]: refs[key] for key in (("hist", 3, False), ("hist", 8, True))}
+    n_batches = math.ceil(stream.size / batch_plan(stream.size, 21, KmerConfig().batch_bases)[0])
     del records, stream, refs
 
     # 5-6. the distance kernels and the distance path
@@ -3022,10 +3384,15 @@ def main() -> int:
         dist_launches.update(phase_long_path(dev, card))
         dist_launches.update(phase_midk_path(records, dev, card, work))
         wide = phase_wide_kernels(dev, card, records, union["tables"])
-        measure_gate_rates(dev, card, union["host_min_sum_s"], union["tables"],
-                           wide["tri_bin_pairs_per_sec"])
+        gate_rates = measure_gate_rates(dev, card, union["host_min_sum_s"], union["tables"],
+                                        wide["tri_bin_pairs_per_sec"])
+
+        # 10. the command line, kmer-gpu, on the card
+        phase_cli(main_fasta, main_table, hists, n_batches, path, records, union, gate_rates,
+                  dev, card, work)
     finally:
         tmp.cleanup()
+        main_tmp.cleanup()
 
     ms, plain_ms, err = timed[(21, False)]
     T = batch_plan(1 << 40, 21, KmerConfig().batch_bases)[1]

@@ -6,11 +6,13 @@ staging (``pack_planes_np``, ``stage_batch_planes``), and its
 ``KmerEngine`` with the dense counting entries (``count_stream``,
 ``count_sequences``, ``count_file``) and the distance entries
 (``counts_matrix``, ``distance_sequences``, ``distance_file``,
-``distance_stream_to_csv``, ``make_dense_panel_fn``).
+``distance_stream_to_csv``, ``make_dense_panel_fn``) and the
+differential check against the NumPy oracle (``verify_against_oracle``).
 """
 
 from __future__ import annotations
 
+import math
 import os
 import time
 from dataclasses import dataclass, field
@@ -225,6 +227,11 @@ class KmerEngine:
                 f"the dense engine serves k <= {encode_ops.MAX_DENSE_K}; "
                 f"SparseKmerEngine counts k={self.config.k}"
             )
+        if math.prod(self.config.mesh_shape) > 1:
+            raise NotImplementedError(
+                "a mesh of more than one device (the partner-sharded distance "
+                "panels) is not ported yet (ROADMAP item 10)"
+            )
         self.device = runtime.resolve_device(device)
         native.load()
 
@@ -263,18 +270,25 @@ class KmerEngine:
         arrays, or their tensors from ``pin_host``) to the device and add
         its histogram into ``acc``. Returns the event marks before the
         copy, after it and after the kernel."""
-        cfg, dev = self.config, self.device
-        planes = cfg.pack_input and cfg.k >= 4
+        dev = self.device
         m0 = runtime.mark(dev)
         staged = tuple(host_to_device(a, dev) for a in host)
         m1 = runtime.mark(dev)
-        if planes:
+        self.count_staged(staged, n_own, acc)
+        return m0, m1, runtime.mark(dev)
+
+    def count_staged(self, staged: tuple, n_own: int, acc: torch.Tensor) -> None:
+        """Add the histogram of one batch, staged on the device as
+        ``_stage`` made it, into ``acc``: K5 from planes, K7 from the
+        packed batch, K7 or K6 from u8 bases (the plain versions on the
+        CPU)."""
+        cfg = self.config
+        if cfg.pack_input and cfg.k >= 4:
             histogram_cuda.histogram_planes(*staged, n_own, cfg.k, cfg.canonical, acc)
         elif cfg.pack_input:
             histogram_cuda.histogram_packed(*staged, n_own, cfg.k, cfg.bins, cfg.canonical, acc)
         else:
             histogram_cuda.histogram_stream(*staged, n_own, cfg.k, cfg.bins, cfg.canonical, acc)
-        return m0, m1, runtime.mark(dev)
 
     def count_stream(self, flat: np.ndarray, total_bases: int, n_seqs: int) -> CountResult:
         """Count a flat base stream (u8 codes, one 0xFF between records).
@@ -520,3 +534,24 @@ class KmerEngine:
             return flat
 
         return panel_fn
+
+    # ------------------------------------------------------------- verification
+    def verify_against_oracle(self, seqs: list[str]) -> dict:
+        """Differential check against the NumPy oracle: the summed
+        histogram and the packed distances, each exactly equal."""
+        from dna_kmeres_parallel_tpu_torch.models import oracle
+
+        cfg = self.config
+        got = self.count_sequences(seqs)
+        want = sum(
+            (oracle.count_vector(s, cfg.k, cfg.canonical) for s in seqs),
+            np.zeros(cfg.bins, dtype=np.int64),
+        )
+        d_got = self.distance_sequences(seqs).packed
+        d_want = oracle.distance_matrix_packed(seqs, cfg.k, cfg.canonical)
+        return {
+            "counts_equal": bool(np.array_equal(got.hist, want)),
+            "distances_equal": bool(np.array_equal(d_got, d_want)),
+            "n_seqs": len(seqs),
+            "total_kmers": int(want.sum()),
+        }

@@ -241,6 +241,18 @@ class SparseCountResult:
             for c, n in zip(self.codes, self.counts)
         }
 
+    def count_of(self, kmer: str) -> int:
+        """The count of one k-mer (0 if absent); a canonical table folds
+        the query, so either strand's spelling finds its count."""
+        code = codec.kmer_to_code(kmer)
+        if self.canonical:
+            code = min(code, codec.kmer_to_code(codec.revcomp_str(kmer)))
+        code = np.uint64(code)
+        i = np.searchsorted(self.codes, code)
+        if i < self.codes.shape[0] and self.codes[i] == code:
+            return int(self.counts[i])
+        return 0
+
 
 class SparseKmerEngine:
     """Single-device sparse engine over any k in 1..31.
@@ -388,14 +400,20 @@ UNION_MODES = ("auto", "on", "off")
 @dataclass(frozen=True)
 class DistanceRates:
     """The rates the distance gates predict with, in place of the JAX
-    package's calibration file and environment.
+    package's calibration file and environment. ``ops/calibrate`` measures
+    them on the card and host it runs on (``kmer-gpu calibrate``) and
+    loads them back as one of these.
 
     Defaults: one NVIDIA H100 80GB HBM3 at 700.00 W (``nvidia-smi``'s name
-    and power limit) and its 8-core host, measured by ``chip_smoke.py``'s
-    phase (d) (PERF.md, section 7):
+    and power limit) and its 8-core host, measured by ``chip_smoke.py``
+    (PERF.md, section 7):
 
-    - ``bin_pairs_per_sec``: K3's (min,+) product
-      (``ops/distance.tri_time_per_pair``), the dense route's rate too;
+    - ``bin_pairs_per_sec``: K3's (min,+) product at a union-matrix shape,
+      [2,048, 131,072] (``ops/distance.tri_time_per_pair``), the rate
+      ``union_dense_plan`` reads;
+    - ``dense_bin_pairs_per_sec``: K3 at a dense [S, 4^k] counts matrix,
+      [1,024, 4^9], the rate ``dense_distance_preferred`` reads (K3's rate
+      falls with its row tiles: 36 there against 136 at the union shape);
     - ``sparse_entry_pairs_per_sec_per_thread``: the native two-pointer,
       table entries of a pair stepped per second by one thread;
     - ``h2d_bytes_per_sec``, ``d2h_bytes_per_sec``: pinned copies to and
@@ -405,6 +423,7 @@ class DistanceRates:
       library's own count (the CPUs, at most 16)."""
 
     bin_pairs_per_sec: float = dist_ops.TRI_BIN_PAIRS_PER_SEC
+    dense_bin_pairs_per_sec: float = 1.7e12
     sparse_entry_pairs_per_sec_per_thread: float = 8.9e7
     h2d_bytes_per_sec: float = 5.4e10
     d2h_bytes_per_sec: float = 5.5e10
@@ -441,7 +460,8 @@ def dense_distance_preferred(
     rates: DistanceRates = DistanceRates(),
 ) -> bool:
     """Dense or sparse distances, by predicted cost: dense iff feasible
-    and bins / bin_pairs_per_sec <= avg_table / (entry rate * threads),
+    and bins / dense_bin_pairs_per_sec <= avg_table / (entry rate *
+    threads),
     where a table holds min(L - k + 1, 4^k) entries. k <= 8 and calls
     without lengths keep the dense route wherever it is feasible."""
     if not dense_distance_feasible(n_seqs, k, budget_bytes):
@@ -453,7 +473,7 @@ def dense_distance_preferred(
         return True
     bins = 4**k
     avg_table = float(np.minimum(np.maximum(lengths - k + 1, 1), bins).mean())
-    dense_s_per_pair = bins / rates.bin_pairs_per_sec
+    dense_s_per_pair = bins / rates.dense_bin_pairs_per_sec
     sparse_s_per_pair = avg_table / (
         rates.sparse_entry_pairs_per_sec_per_thread * rates.host_threads()
     )

@@ -125,6 +125,8 @@ def load() -> ctypes.CDLL:
     lib.kp_merge_tables.argtypes = [i64, vp, vp, vp, vp, vp]
     lib.kp_format_f6.restype = i64
     lib.kp_format_f6.argtypes = [vp, i64, ctypes.c_char_p, i64]
+    lib.kp_format_count_lines.restype = i64
+    lib.kp_format_count_lines.argtypes = [vp, vp, i64, ci, vp, i64]
     lib.kp_count_starts.restype = i64
     lib.kp_count_starts.argtypes = [vp, i64]
     lib.kp_compact_rle.restype = i64
@@ -488,3 +490,26 @@ def format_f6(values: np.ndarray) -> bytes:
     if m < 0:
         raise RuntimeError("kp_format_f6: output buffer too small")
     return buf.raw[:m]
+
+
+def format_count_lines(codes: np.ndarray, counts: np.ndarray, k: int,
+                       out: np.ndarray | None = None) -> memoryview:
+    """A table's ``kmer,count`` CSV lines (no header), formatted on several
+    threads: the k-mer spelled from each code, the count in decimal. The
+    lines are formatted into ``out`` (u8, at least 64 bytes an entry;
+    allocated here if None) and returned as a view of it."""
+    lib = load()
+    codes = np.ascontiguousarray(codes, dtype=np.uint64)
+    counts = np.ascontiguousarray(counts, dtype=np.int64)
+    n = codes.shape[0]
+    if counts.shape[0] != n:
+        raise ValueError(f"{n} codes but {counts.shape[0]} counts")
+    if n == 0:
+        return memoryview(b"")
+    buf = np.empty(64 * n, dtype=np.uint8) if out is None else out
+    if buf.dtype != np.uint8 or not buf.flags.c_contiguous or buf.size < 64 * n:
+        raise ValueError(f"out must be a contiguous u8 array of at least {64 * n} bytes")
+    m = lib.kp_format_count_lines(_ptr(codes), _ptr(counts), n, int(k), _ptr(buf), buf.size)
+    if m < 0:
+        raise ValueError(f"kp_format_count_lines: k={k} outside 1..31")
+    return memoryview(buf[:m])

@@ -1596,6 +1596,55 @@ int64_t kp_format_f6(const float* v, int64_t n, char* out, int64_t out_cap) {
   return w;
 }
 
+// Count-table CSV lines: "kmer,count\n" for each (code, count) of a
+// table, the k-mer spelled from its big-endian 2-bit code (A, C, G, T),
+// the count in decimal as printf's %lld writes it. Each line is at most
+// 31 + 1 + 20 + 1 < 64 bytes: threads format slabs at a 64-byte stride,
+// compacted as kp_format_f6's. Returns bytes written, or -1 if out_cap <
+// 64 * n or k is outside 1..31.
+int64_t kp_format_count_lines(const uint64_t* codes, const int64_t* counts,
+                              int64_t n, int k, char* out, int64_t out_cap) {
+  if (n <= 0) return 0;
+  if (out_cap < 64 * n || k < 1 || k > 31) return -1;
+  const int nt = num_threads(n, 1 << 18);
+  std::vector<int64_t> begin(nt + 1), len(nt, 0);
+  for (int t = 0; t <= nt; t++) begin[t] = n * t / nt;
+  {
+    std::vector<std::thread> ths;
+    for (int t = 0; t < nt; t++)
+      ths.emplace_back([&, t] {
+        static const char kBases[4] = {'A', 'C', 'G', 'T'};
+        char* p = out + 64 * begin[t];
+        char* q = p;
+        for (int64_t i = begin[t]; i < begin[t + 1]; i++) {
+          const uint64_t c = codes[i];
+          for (int j = 0; j < k; j++) q[j] = kBases[(c >> (2 * (k - 1 - j))) & 3];
+          q[k] = ',';
+          q += k + 1;
+          const int64_t v = counts[i];
+          uint64_t u = v < 0 ? 0 - static_cast<uint64_t>(v) : static_cast<uint64_t>(v);
+          char digits[20];
+          int m = 0;
+          do {
+            digits[m++] = static_cast<char>('0' + u % 10);
+            u /= 10;
+          } while (u);
+          if (v < 0) *q++ = '-';
+          while (m) *q++ = digits[--m];
+          *q++ = '\n';
+        }
+        len[t] = q - p;
+      });
+    for (auto& th : ths) th.join();
+  }
+  int64_t w = len.empty() ? 0 : len[0];
+  for (int t = 1; t < nt; t++) {
+    memmove(out + w, out + 64 * begin[t], len[t]);
+    w += len[t];
+  }
+  return w;
+}
+
 // Compact masked RLE output (device sparse tables) into dense arrays.
 // starts: bool mask [n]; returns number of set entries written to
 // out_hi/out_lo/out_cnt (caller allocates capacity >= popcount(starts);

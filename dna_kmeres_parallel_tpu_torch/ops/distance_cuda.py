@@ -175,6 +175,26 @@ def min_sum_rect_cuda(counts: torch.Tensor, counts_other: torch.Tensor) -> torch
     return out
 
 
+def tri_launcher(counts: torch.Tensor):
+    """(run, route): ``run()`` computes the symmetric product of ``counts``
+    into one output allocated here and returns it, with the checks and
+    the route decided once (K3 on the card, route ``PACKED`` or ``WIDE``;
+    the plain version on the CPU, route "plain"). For timing the kernel
+    alone: ``min_sum_matrix_tri`` reads the row sums back on every call."""
+    route = product_route(*check_counts(counts))
+    if counts.device.type == "cpu":
+        return (lambda: dist_ops.min_sum_matrix(counts)), "plain"
+    _cuda_ready(counts)  # raises off the card
+    out = torch.empty(counts.shape[0], counts.shape[0], dtype=torch.int32, device=counts.device)
+
+    def run() -> torch.Tensor:
+        if counts.shape[0]:
+            launch_min_sum_tri(counts, out, route)
+        return out
+
+    return run, route
+
+
 def min_sum_matrix_tri(counts: torch.Tensor) -> torch.Tensor:
     """Symmetric int32 [S, S] min-sums: K3 on the card, the plain version
     on the CPU."""

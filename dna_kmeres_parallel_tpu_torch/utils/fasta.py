@@ -8,6 +8,8 @@
 - ``parse_fasta_reference``: the reference's two record splitters,
   ``importSeqs`` (variant "blank_line") and ``importSeqsNoNL``
   ("no_blank_line"), with their ``max_seqs`` cap.
+- ``iter_fasta_records``: the records of ``parse_fasta`` a chunk of the
+  file at a time; ``write_fasta``: records out.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import io
 import os
 from dataclasses import dataclass
+from typing import Iterable, Iterator
 
 
 @dataclass(frozen=True)
@@ -211,3 +214,84 @@ def parse_fasta_reference(
         else:
             i += 1
     return records
+
+
+def iter_fasta_records(
+    source, chunk_bytes: int = 1 << 20
+) -> Iterator[FastaRecord]:
+    """Yield the (id, seq) records of a FASTA source ``chunk_bytes`` at a
+    time, each as soon as it is complete, with ``parse_fasta``'s record
+    semantics. A gzip path is sniffed from its magic bytes; FASTQ is not
+    read here (``parse_fasta`` dispatches it)."""
+    if isinstance(source, (str, os.PathLike)):
+        with open(source, "rb") as probe:
+            magic = probe.read(2)
+        if magic == b"\x1f\x8b":
+            import gzip
+
+            f = gzip.open(source, "rb")
+        else:
+            f = open(source, "rb")
+        close = True
+    elif isinstance(source, bytes):
+        f = io.BytesIO(source)
+        close = True
+    else:
+        f = source
+        close = False
+    try:
+        header: bytes | None = None
+        parts: list[bytes] = []
+        tail = b""
+        while True:
+            chunk = f.read(chunk_bytes)
+            if not chunk:
+                break
+            data = tail + chunk
+            lines = data.split(b"\n")
+            tail = lines.pop()  # possibly-incomplete last line
+            for raw in lines:
+                line = raw.rstrip(b"\r")
+                if not line:
+                    continue
+                if line.startswith(b">"):
+                    if header is not None:
+                        yield FastaRecord(
+                            header.decode("ascii", errors="replace"),
+                            b"".join(parts).decode("ascii", errors="replace"),
+                        )
+                    header = line
+                    parts = []
+                elif header is not None:
+                    parts.append(line)
+        last = tail.rstrip(b"\r")
+        if last:
+            if last.startswith(b">"):
+                if header is not None:
+                    yield FastaRecord(
+                        header.decode("ascii", errors="replace"),
+                        b"".join(parts).decode("ascii", errors="replace"),
+                    )
+                header, parts = last, []
+            elif header is not None:
+                parts.append(last)
+        if header is not None:
+            yield FastaRecord(
+                header.decode("ascii", errors="replace"),
+                b"".join(parts).decode("ascii", errors="replace"),
+            )
+    finally:
+        if close:
+            f.close()
+
+
+def write_fasta(path, records: Iterable[tuple[str, str]], width: int = 70):
+    """Write records as FASTA (used by tests and fixture generators)."""
+    with open(path, "w", encoding="ascii") as f:
+        for rid, seq in records:
+            if not rid.startswith(">"):
+                rid = ">" + rid
+            f.write(rid + "\n")
+            for off in range(0, len(seq), width):
+                f.write(seq[off : off + width] + "\n")
+            f.write("\n")

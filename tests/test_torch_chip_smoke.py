@@ -565,3 +565,72 @@ def test_sparse_and_midk_path_rehearsal(tmp_path, monkeypatch, counted_plain_ver
     assert fired(midk["(g) k=10 stream"]) == {
         "counts_matrix": 1, "counts_matrix_global": 1, "min_sum_rect": 1}
     assert not list(tmp_path.iterdir())
+
+
+def test_table_csv_check_catches_a_wrong_line(tmp_path):
+    from dna_kmeres_parallel_tpu_torch.utils import io
+
+    codes = np.array([1, 7, 4**20, 4**21 - 1], np.uint64)
+    counts = np.array([1, 12, 9, 1000], np.int64)
+    path = tmp_path / "t.csv"
+    io.write_count_codes_csv(path, 21, codes, counts)
+    assert chip_smoke.check_table_csv(path, 21, codes, counts, 10) == 4
+    bad = counts.copy()
+    bad[2] = 8
+    with pytest.raises(AssertionError, match="line 3"):
+        chip_smoke.check_table_csv(path, 21, codes, bad, 10)
+    with pytest.raises(AssertionError, match="bytes"):
+        chip_smoke.check_table_csv(path, 21, codes[:3], counts[:3], 10)
+    other = tmp_path / "u.csv"
+    other.write_bytes(path.read_bytes())
+    assert chip_smoke.same_file(path, other)
+    other.write_bytes(path.read_bytes()[:-2] + b"2\n")
+    assert not chip_smoke.same_file(path, other)
+    other.write_bytes(path.read_bytes() + b"\n")
+    assert not chip_smoke.same_file(path, other)
+
+
+def test_cli_path_rehearsal(records, tmp_path, monkeypatch, counted_plain_versions,
+                            counted_dense_plain_versions):
+    # Phase 10 at a small size with the plain versions counted as
+    # launches: the main path's two records, 40 distance records (30 in
+    # the k=3 runs, panels of 8, 6 in the selftests), 40 reads of a
+    # 3,000-base genome, and a bench of 64 kbase.
+    from dna_kmeres_parallel_tpu_torch.models import sparse_engine
+
+    for name, value in (("CLI_DIST_ROWS", 30), ("CLI_PANEL_ROWS", 8), ("CLI_SELFTEST_ROWS", 6),
+                        ("CLI_STREAM_EVERY", "16K"), ("CLI_BENCH", ("64K", "16K")),
+                        ("CLI_TABLE_SAMPLE", 300), ("MIDK_ROWS", 12)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    stream = records[0]
+    main_fasta = tmp_path / "smoke.fasta"
+    chip_smoke.write_fasta(main_fasta, *records)
+    main_table = chip_smoke.reference_table(stream, 21, False, CPU)
+    hists = {(3, False): chip_smoke.reference_hist(stream, 3, False, CPU),
+             (8, True): chip_smoke.reference_hist(stream, 8, True, CPU)}
+    dist = chip_smoke.distance_records(40)
+    dist_fasta = tmp_path / "dist.fasta"
+    chip_smoke.write_fasta(dist_fasta, *dist)
+    reads = chip_smoke.read_set(40, 3000)
+    seqs = chip_smoke.record_strings(*reads)
+    S = reads[2].size
+    idx = np.sort(chip_smoke.sample_lines(S * (S - 1) // 2, 300))
+    ref = chip_smoke.reference_pair_tables(*reads, 21, False, CPU)
+    union = {"records": reads, "tables": sparse_engine.build_pair_tables(seqs, 21, False, CPU),
+             "sample": (idx, chip_smoke.reference_pair_distances(ref, reads[2], 21, idx))}
+    work = tmp_path / "work"
+    work.mkdir()
+    launches = chip_smoke.phase_cli(main_fasta, main_table, hists, 1, dist_fasta, dist, union,
+                                    {}, CPU, "cpu", work)
+
+    def fired(name):
+        return {n: c for n, c in launches[name].items() if c}
+
+    assert fired(chip_smoke.CLI_MAIN) == {"encode_packed": 1}
+    assert fired("kmer-gpu count --k 3") == {"hist_packed_small": 1}
+    assert fired("kmer-gpu count --k 8 --canonical") == {"hist_planes": 1}
+    assert fired("kmer-gpu distance --k 3") == {"counts_matrix": 1, "min_sum_tri": 1}
+    assert fired("kmer-gpu distance --k 3 --stream-panel 8 --checkpoint") == {
+        "counts_matrix": 2, "min_sum_rect": 4}
+    assert fired("kmer-gpu distance --k 21") == {}  # the CPU: the host route
+    assert sorted(p.name for p in work.iterdir()) == ["cal"]

@@ -1228,3 +1228,61 @@ def test_device_rle_on_card_equals_cpu(cuda_device, tmp_path, k, pack):
     got = StreamingCounter(cfg, device="cuda").run(str(path))
     want = StreamingCounter(cfg.replace(compact="host"), device="cpu").run(str(path))
     assert np.array_equal(got.codes, want.codes) and np.array_equal(got.counts, want.counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,bins,scale", [(1, 64, 3), (130, 64, 3), (129, 4096, 70_000)])
+def test_tri_launcher_equals_min_sum_tri(cuda_device, rows, bins, scale):
+    # The benches' and calibration's launcher: one output, the route
+    # decided once (u16x2, and i32 where a row sums to 2^16 or more).
+    g = torch.Generator(device=cuda_device).manual_seed(rows)
+    counts = torch.randint(0, scale, (rows, bins), generator=g, device=cuda_device,
+                           dtype=torch.int32)
+    run, route = distance_cuda.tri_launcher(counts)
+    assert route == distance_cuda.product_route(*distance_cuda.check_counts(counts))
+    assert torch.equal(run(), distance_cuda.min_sum_tri_cuda(counts))
+    assert torch.equal(run(), distance.min_sum_matrix(counts))
+
+
+@pytest.mark.cuda
+def test_benches_and_calibration_on_card(cuda_device):
+    from dna_kmeres_parallel_tpu_torch.models import benchmarks
+    from dna_kmeres_parallel_tpu_torch.ops import calibrate
+
+    for r in (benchmarks.run_count_bench(k=8, total_bases=4 << 20, batch_bases=1 << 20),
+              benchmarks.run_count_bench(k=3, total_bases=4 << 20, batch_bases=1 << 20,
+                                         pack_input=False),
+              benchmarks.run_sparse_bench(k=21, total_bases=4 << 20, batch_bases=1 << 20),
+              benchmarks.run_sparse_bench(k=13, total_bases=2 << 20, batch_bases=1 << 20,
+                                          device_sort=True, row_len=2048, pallas_sort=True),
+              benchmarks.run_distance_bench(n_seqs=300, seq_len=500, k=5)):
+        assert r["timing_valid"] and r["windows_counted"] == r["windows_expected"], r
+    assert all(r["exact"] for r in benchmarks.run_impl_matrix_bench(ks=(3, 6),
+                                                                    total_bases=1 << 20))
+    cal = calibrate.calibrate(cuda_device, link_only=True)
+    assert cal["fingerprint"] == calibrate.fingerprint(cuda_device)
+    assert "sm_" in cal["fingerprint"] and cal["h2d_bytes_per_sec"] > 1e9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("argv", [
+    ["count", "--k", "21"], ["count", "--k", "4", "--canonical"], ["distance", "--k", "3"],
+    ["distance", "--k", "21"], ["histo", "--k", "13"],
+])
+def test_cli_on_card_equals_cpu(cuda_device, tmp_path, capsys, argv):
+    import json
+
+    from dna_kmeres_parallel_tpu_torch import cli
+    from dna_kmeres_parallel_tpu_torch.utils import datagen
+
+    path = tmp_path / "in.fasta"
+    datagen.random_fasta(str(path), 40, (500, 1500), seed=5, invalid_frac=0.01)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        out = tmp_path / f"{dev}.out"
+        assert cli.main(argv + ["--device", dev, str(path), "-o", str(out)]) == 0
+        report = json.loads(capsys.readouterr().out)
+        outs[dev] = (out.read_bytes(), {k: v for k, v in report.items()
+                                        if k not in ("elapsed_s", "bases_per_sec", "output",
+                                                     "engine")})
+    assert outs["cuda"] == outs["cpu"]

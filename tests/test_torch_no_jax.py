@@ -159,6 +159,91 @@ def test_port_runs_with_jax_refused(tmp_path):
     assert out["sparse"]["k9"] == oracle.distance_matrix_packed(SEQS, 9).view(np.uint32).tolist()
 
 
+_NO_JAX_CLI = r"""
+import contextlib
+import io as _io
+import json
+import sys
+
+class RefuseJax:
+    def find_spec(self, name, path=None, target=None):
+        if (
+            name == "jax"
+            or name.startswith(("jax.", "jaxlib"))
+            or name == "dna_kmeres_parallel_tpu"
+            or name.startswith("dna_kmeres_parallel_tpu.")
+        ):
+            raise ImportError(f"import refused: {name}")
+        return None
+
+sys.meta_path.insert(0, RefuseJax())
+
+from dna_kmeres_parallel_tpu_torch import cli
+from dna_kmeres_parallel_tpu_torch.models import benchmarks, oracle
+from dna_kmeres_parallel_tpu_torch.utils import datagen, fasta
+
+work = sys.argv[1]
+datagen.random_fasta(work + "/in.fasta", 5, (200, 400), seed=3, invalid_frac=0.01)
+datagen.realistic_fasta(work + "/reads.fasta", genome_len=2000, coverage=2.0, seed=3)
+out = {}
+for name, argv in (
+    ("count21", ["count", "--k", "21", "in.fasta", "-o", "t21.csv"]),
+    ("count4", ["count", "--k", "4", "in.fasta", "-o", "t4.npz"]),
+    ("distance3", ["distance", "--k", "3", "in.fasta", "-o", "d3.csv"]),
+    ("distance21", ["distance", "--k", "21", "reads.fasta", "-o", "d21.csv"]),
+    ("selftest3", ["selftest", "--k", "3", "in.fasta"]),
+    ("selftest21", ["selftest", "--k", "21", "in.fasta"]),
+    ("calibrate", ["calibrate", "--link-only"]),
+):
+    argv = [a if not a.endswith((".fasta", ".csv", ".npz")) else work + "/" + a for a in argv]
+    buf = _io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv[:1] + ["--device", "cpu"] + argv[1:])
+    out[name] = [rc, json.loads(buf.getvalue().strip().splitlines()[-1])]
+seqs = [r.seq for r in fasta.parse_fasta(work + "/in.fasta")]
+out["oracle21"] = len(oracle.count_table_any_k(seqs, 21))
+out["bench"] = benchmarks.run_sparse_bench(k=21, total_bases=4096, batch_bases=2048,
+                                           device="cpu")["windows_counted"]
+banned = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "dna_kmeres_parallel_tpu")]
+assert not banned, banned
+print(json.dumps(out))
+"""
+
+
+def test_cli_runs_with_jax_refused(tmp_path):
+    # kmer-gpu's count, distance, selftest and calibrate, the oracle, the
+    # data generator and the benchmarks, with jax and the JAX package
+    # refused; the outputs against the JAX package's oracle here.
+    from dna_kmeres_parallel_tpu.utils import fasta as jax_fasta
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p]
+    )
+    env["KMER_GPU_CAL_DIR"] = str(tmp_path / "cal")
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_JAX_CLI, str(tmp_path)],
+        capture_output=True, text=True, timeout=300, env=env, cwd=str(REPO),
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert all(v[0] == 0 for v in out.values() if isinstance(v, list))
+    seqs = [r.seq for r in jax_fasta.parse_fasta(str(tmp_path / "in.fasta"))]
+    table = oracle.count_table_any_k(seqs, 21)
+    assert out["oracle21"] == len(table) == out["count21"][1]["distinct_kmers"]
+    lines = (tmp_path / "t21.csv").read_text().splitlines()
+    assert lines[0] == "kmer,count" and len(lines) == len(table) + 1
+    assert (tmp_path / "d3.csv").read_bytes() == "".join(
+        "%f\n" % v for v in oracle.distance_matrix_packed(seqs, 3)).encode()
+    reads = [r.seq for r in jax_fasta.parse_fasta(str(tmp_path / "reads.fasta"))]
+    assert (tmp_path / "d21.csv").read_bytes() == "".join(
+        "%f\n" % v for v in oracle.distance_matrix_packed_sparse(reads, 21)).encode()
+    for name in ("selftest3", "selftest21"):
+        assert out[name][1]["counts_equal"] and out[name][1]["distances_equal"]
+    assert out["calibrate"][1]["calibration_file"].startswith(str(tmp_path / "cal"))
+    assert out["bench"] == 2 * (2048 - 20)
+
+
 #: an import of jax, or any mention of the JAX package as a module
 #: (``dna_kmeres_parallel_tpu`` followed by a dot, a space or a quote)
 _FORBIDDEN = re.compile(

@@ -255,7 +255,8 @@ def test_dense_distance_feasible_matches_jax(S, k, budget):
 
 #: rates of a made-up card and host, injected into the gates
 RATES = sparse_engine.DistanceRates(
-    bin_pairs_per_sec=1e12, sparse_entry_pairs_per_sec_per_thread=1e8,
+    bin_pairs_per_sec=1e12, dense_bin_pairs_per_sec=1e12,
+    sparse_entry_pairs_per_sec_per_thread=1e8,
     h2d_bytes_per_sec=1e10, d2h_bytes_per_sec=1e10, roundtrip_s=0.0, threads=4,
 )
 
@@ -284,7 +285,7 @@ def test_dense_distance_preferred_matches_jax_at_its_rates(monkeypatch):
 
     threads = max(os.cpu_count() or 1, 1)
     jax_rates = sparse_engine.DistanceRates(
-        bin_pairs_per_sec=jax_sparse._DENSE_BIN_PAIRS_PER_SEC,
+        dense_bin_pairs_per_sec=jax_sparse._DENSE_BIN_PAIRS_PER_SEC,
         sparse_entry_pairs_per_sec_per_thread=jax_sparse._SPARSE_ENTRY_PAIRS_PER_SEC_PER_THREAD,
         threads=threads,
     )
