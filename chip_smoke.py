@@ -143,7 +143,27 @@ exits nonzero:
    reference table, and
    ``merge``, ``histo``, ``query`` and ``info`` on it; ``bench`` at k=8
    and k=21, windows exact. Each run's launches are checked where its
-   route fixes them.
+   route fixes them;
+11. the mesh and super-k-mer routes (run after phase 8 for the counting,
+   after phase 10 for the rest): ``StreamingCounter`` over a
+   ``LocalMesh`` of 4 shards of the card on the main path's FASTA, k=21
+   through K1 and through K9 (``pack_input=False``), canonical k=11 with
+   ``device_sort`` and ``pallas_sort`` (K1, K11), dense k=3 (K7) and
+   canonical k=8 (K6), each against phase 4's reference;
+   ``count_sharded`` at 3,000 bins (K8); dense k=8 with a checkpoint
+   every 64 Mbase on the mesh, a child on the mesh SIGKILLed after its
+   second checkpoint and resumed on one device; ``compact="device-super"``
+   at k=21 and canonical k=31 and ``auto`` (its super-k-mer counters) on
+   the first 256 records, with the records' D2H bytes and the peak device
+   memory; on meshes of 4 and 3 shards, (a) and (c) bit and byte
+   identical to phase 6's and (d)'s union stream in panels of 256 byte
+   identical to phase 9's; ``count_sharded`` and
+   ``min_sum_panel_sharded`` on a 1-rank NCCL group against
+   ``LocalMesh(1)``; ``kmer-gpu count --k 17``, ``stream --k 21`` and
+   ``distance --k 3`` with ``--mesh 4`` byte-identical to the same
+   commands without it; ``graft_entry.dryrun_multichip(4)``. Every run's
+   launches against its shards (D per batch or panel); the kernels line
+   gains each kernel's ``phase11_launches``.
 
 The script imports the port and nothing of JAX or of the JAX package.
 
@@ -938,9 +958,10 @@ def phase_stream_kernel(dev, card: str) -> dict:
     return dict(ms=ms, plain_ms=plain_ms, bound=bound, max_abs_err=0)
 
 
-#: the child of the kill-and-resume run: counts on ``dev`` with a
-#: checkpoint every ``every`` bases and SIGKILLs itself once its second
-#: checkpoint is published
+#: the child of the kill-and-resume runs: counts k-mers of length ``k`` on
+#: a mesh of ``mesh`` shards of ``dev`` (1: one device) with a checkpoint
+#: every ``every`` bases and SIGKILLs itself once its second checkpoint is
+#: published
 _KILLED_CHILD = r"""
 import os, signal, sys
 sys.path.insert(0, sys.argv[1])
@@ -948,7 +969,7 @@ from dna_kmeres_parallel_tpu_torch import KmerConfig
 from dna_kmeres_parallel_tpu_torch.models.pipeline import StreamingCounter
 from dna_kmeres_parallel_tpu_torch.utils import checkpoint
 
-root, path, ckpt, dev, every, batch = sys.argv[1:7]
+root, path, ckpt, dev, every, batch, k, mesh = sys.argv[1:9]
 save = checkpoint.save_checkpoint
 published = []
 
@@ -961,8 +982,8 @@ def save_then_die(*a, **kw):
 
 checkpoint.save_checkpoint = save_then_die
 kw = {} if batch == "None" else {"batch_bases": int(batch)}
-StreamingCounter(KmerConfig(k=21, **kw), device=dev, checkpoint_path=ckpt,
-                 checkpoint_every_bases=int(every)).run(path)
+StreamingCounter(KmerConfig(k=int(k), mesh_shape=(int(mesh),), **kw), device=dev,
+                 checkpoint_path=ckpt, checkpoint_every_bases=int(every)).run(path)
 """
 
 
@@ -1073,7 +1094,7 @@ def phase_stream_path(records, path: Path, dev, card: str, refs: dict | None = N
     t = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-c", _KILLED_CHILD, str(ROOT), str(path), str(ckpt), str(dev),
-         str(STREAM_CKPT_BASES), str(STREAM_BATCH_BASES)],
+         str(STREAM_CKPT_BASES), str(STREAM_BATCH_BASES), "21", "1"],
         capture_output=True, text=True, timeout=600, cwd=str(ROOT),
     )
     child_s = time.perf_counter() - t
@@ -2245,11 +2266,12 @@ def routes_taken() -> dict:
 
 
 def check_in_memory_run(name: str, k: int, n: int, run, records, dev, card: str,
-                        want: dict) -> dict:
+                        want: dict, keep: dict | None = None) -> dict:
     """Run ``run()`` (in-memory dense distances of the first n records)
     with the launch counts reset, expect ``want`` launches, and hold its
     counts, K3's min-sums of them and its distances to the plain
-    reference. Returns the launch counts."""
+    reference. Returns the launch counts; ``keep`` (when given) receives
+    the packed distances under the run's first three characters."""
     import numpy as np
     import torch
 
@@ -2274,14 +2296,18 @@ def check_in_memory_run(name: str, k: int, n: int, run, records, dev, card: str,
         raise AssertionError(f"{name}: distances differ from the reference")
     report_run(name, wall, want_packed.size, res.phases,
                f"K3 routes {taken}; counts, min-sums and distances equal the reference", card)
+    if keep is not None:
+        keep[name[:3]] = res.packed
     del counts, ref_sums, ref_counts, res
     torch.cuda.empty_cache()
     return launches
 
 
-def phase_distance_path(records, path: Path, dev, card: str) -> dict:
+def phase_distance_path(records, path: Path, dev, card: str, keep: dict | None = None) -> dict:
     """Runs (a), (b) and (c) of the distance path, each checked against the
-    plain reference. Returns each run's launch counts."""
+    plain reference. Returns each run's launch counts; ``keep`` (when
+    given) receives (a)'s packed distances and the path of (c)'s CSV, which
+    is then left in place, for phase 11 to compare with."""
     import torch
 
     import dna_kmeres_parallel_tpu_torch as port
@@ -2299,7 +2325,7 @@ def phase_distance_path(records, path: Path, dev, card: str) -> dict:
     name = f"(a) distance_file(k=3, max_seqs={na})"
     launches[name] = check_in_memory_run(
         name, 3, na, lambda: port.distance_file(str(path), k=3, device=dev, max_seqs=na),
-        records, dev, card, in_memory)
+        records, dev, card, in_memory, keep)
     name = f"(b) KmerEngine(k=8).distance_sequences({nb} records)"
     launches[name] = check_in_memory_run(
         name, 8, nb, lambda: KmerEngine(KmerConfig(k=8), device=dev).distance_sequences(seqs[:nb]),
@@ -2331,7 +2357,10 @@ def phase_distance_path(records, path: Path, dev, card: str) -> dict:
     report_run(name, wall, want.size, out["phases"],
                f"K4 routes {taken}; counts, min-sums and distances equal the reference, "
                f"{csv.stat().st_size} CSV bytes, {checked} sampled lines equal %f", card)
-    csv.unlink()
+    if keep is None:
+        csv.unlink()
+    else:
+        keep["(c)"] = csv
     return launches
 
 
@@ -2559,6 +2588,7 @@ def phase_union_path(dev, card: str, tmp: Path) -> dict:
                f"CSV byte-identical to the one-shot CSV", card)
     for path in (*csvs.values(), csv, ckpt):
         path.unlink()
+    one_shot_csv = first
 
     name = "(d) canonical"
     info = {}
@@ -2576,7 +2606,7 @@ def phase_union_path(dev, card: str, tmp: Path) -> dict:
                info["phases"], f"route {info['route']}; {sub.size} sampled pairs equal the "
                "reference", card)
     return {"launches": launches, "tables": tables, "host_min_sum_s": host_s, "n_pairs": n_pairs,
-            "records": records, "sample": (idx, want)}
+            "records": records, "sample": (idx, want), "csv": one_shot_csv}
 
 
 #: a child that streams sparse distances with checkpoints and SIGKILLs
@@ -3281,6 +3311,341 @@ def phase_cli(main_fasta: Path, main_table, hists, n_batches: int, dist_fasta: P
     return launches
 
 
+#: phase 11: the mesh and super-k-mer routes. Shards of the local mesh on
+#: the card, and of the second mesh of the distance runs (not a divisor of
+#: their row counts); records of the super-k-mer runs (the main path's
+#: first records, about 64 Mbase) and the batch of their 'auto' run;
+#: records of the command-line counts and distances
+MESH_D = 4
+MESH_D_ODD = 3
+SUPER_RECORDS = 256
+SUPER_AUTO_BATCH = 4 << 20
+CLI_MESH_ROWS = 24_000
+MESH_MAIN = f"StreamingCounter(k=21, mesh_shape=({MESH_D},))"
+
+
+def phase_mesh_count(records, path: Path, dev, card: str, refs: dict) -> dict:
+    """Phase 11, counting: ``StreamingCounter`` over a ``LocalMesh`` of
+    MESH_D shards of the card on the main path's FASTA (k=21 through K1 and
+    through K9, canonical k=11 with ``device_sort`` and ``pallas_sort``
+    through K1 and K11, dense k=3 through K7 and canonical k=8 through K6),
+    ``count_sharded`` at 3,000 bins (K8), dense k=8 with a checkpoint
+    every STREAM_CKPT_BASES bases on the mesh, a child on the mesh killed
+    after its second checkpoint and resumed on one device; then
+    ``compact="device-super"`` at k=21 and canonical k=31 and ``auto``
+    (its super-k-mer counters) on the first SUPER_RECORDS records. Each
+    result against phase 4's cached reference, each run's launches against
+    MESH_D per batch. Returns each run's launch counts."""
+    import signal
+
+    import numpy as np
+    import torch
+
+    from dna_kmeres_parallel_tpu_torch import KmerConfig
+    from dna_kmeres_parallel_tpu_torch.models.engine import batch_plan
+    from dna_kmeres_parallel_tpu_torch.models.pipeline import StreamingCounter
+    from dna_kmeres_parallel_tpu_torch.parallel import bucketed, sharded_count
+    from dna_kmeres_parallel_tpu_torch.parallel.mesh import LocalMesh
+    from dna_kmeres_parallel_tpu_torch.utils import checkpoint
+
+    t_phase = time.perf_counter()
+    stream, _, lengths = records
+    D = MESH_D
+    none = dict.fromkeys(read_launches(), 0)
+    size = {} if STREAM_BATCH_BASES is None else {"batch_bases": STREAM_BATCH_BASES}
+    launches = {}
+
+    def n_batches(data, k, batch_bases=None):
+        bb = batch_bases or KmerConfig(**size).batch_bases
+        return math.ceil(data.size / batch_plan(data.size, k, bb)[0])
+
+    def reference(data, key, k, canonical):
+        if key[0] == "hist":
+            return cached(refs, key, lambda: reference_hist(data, k, canonical, dev))
+        table = cached(refs, key, lambda: reference_table(data, k, canonical, dev))
+        torch.cuda.empty_cache()
+        if k > 12:
+            return table
+        hist = np.zeros(4**k, np.int64)
+        hist[table[0].astype(np.int64)] = table[1]
+        return hist
+
+    def run(name, k, canonical, kw, want, data=stream, fasta=path, key=None, **sc_kw):
+        cfg = KmerConfig(k=k, canonical=canonical, **{**size, **kw})
+        sc = StreamingCounter(cfg, device=dev, **sc_kw)
+        reset_launches()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        res = sc.run(str(fasta))
+        wall = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+        got = read_launches() if want is None else expect_launches(name, {**none, **want})
+        launches[name] = got
+        key = key or (("hist" if k <= 8 else "table"), k, canonical)
+        ref = reference(data, key, k, canonical)
+        ok = (np.array_equal(res.hist, ref) if hasattr(res, "hist") else
+              np.array_equal(res.codes, ref[0]) and np.array_equal(res.counts, ref[1]))
+        if not ok:
+            raise AssertionError(f"{name}: result differs from the reference")
+        phases = " ".join(f"{p}={s:.3f}" for p, s in sc.metrics.phase_seconds.items())
+        fired = {n: c for n, c in got.items() if c}
+        log(f"{name}: equal to the reference; wall {wall:.3f} s, "
+            f"{res.total_bases / wall / 1e9:.4f} Gbase/s; phases s: {phases}; counters "
+            f"{dict(sc.metrics.counters)}; launches {fired or 'none'}; peak device memory "
+            f"{peak} bytes [{card}]")
+        return res, sc.metrics, got, peak
+
+    n21, n11, n8 = n_batches(stream, 21), n_batches(stream, 11), n_batches(stream, 8)
+    mesh = {"mesh_shape": (D,)}
+    run(MESH_MAIN, 21, False, mesh, {"encode_packed": D * n21})
+    run(f"StreamingCounter(k=21, mesh_shape=({D},), pack_input=False)", 21, False,
+        {**mesh, "pack_input": False}, {"encode_stream": D * n21})
+    run(f"StreamingCounter(k=11, canonical, mesh_shape=({D},), device_sort, pallas_sort)", 11,
+        True, {**mesh, "device_sort": True}, {"encode_packed": D * n11, "row_sort": D * n11},
+        pallas_sort=True)
+    run(f"StreamingCounter(k=3, mesh_shape=({D},))", 3, False, mesh,
+        {"hist_u8_small": D * n_batches(stream, 3)})
+    run(f"StreamingCounter(k=8, canonical, mesh_shape=({D},))", 8, True, mesh,
+        {"hist_u8": D * n8})
+
+    name, k, bins = ANY_RUN
+    name = f"count_sharded(k={k}, bins={bins}, LocalMesh({D}))"
+    lmesh = LocalMesh(D, dev)
+    ref = reference_hist(stream, k, False, dev, bins)
+    reset_launches()
+    t = time.perf_counter()
+    got = sharded_count.count_sharded(sharded_count.shard_stream(stream, lmesh), k, bins, False,
+                                      lmesh).cpu().numpy()
+    wall = time.perf_counter() - t
+    launches[name] = expect_launches(name, {**none, "hist_u8_any": D})
+    if got.shape != (bins,) or not np.array_equal(got, ref):
+        raise AssertionError(f"{name}: histogram differs from the reference")
+    log(f"{name} over {stream.size} bases: {int(got.sum())} windows, equal to the reference; "
+        f"{D} hist_u8_any launches; wall {wall:.3f} s [{card}]")
+
+    # Dense k=8 with checkpoints on the mesh; then a child on the mesh
+    # SIGKILLs itself after its second checkpoint, and one device resumes.
+    ckpt = path.with_name("mesh8.npz")
+    name = f"StreamingCounter(k=8, mesh_shape=({D},), checkpoint_every_bases={STREAM_CKPT_BASES})"
+    _, m, _, _ = run(name, 8, False, mesh, {"hist_u8": D * n8}, checkpoint_path=str(ckpt),
+                     checkpoint_every_bases=STREAM_CKPT_BASES)
+    if m.counters["checkpoints"] < 2:
+        raise AssertionError(f"{name}: {m.counters['checkpoints']} checkpoints")
+    ckpt.unlink()
+    name = f"StreamingCounter(k=8) on the mesh killed after its second checkpoint, resumed on one device"
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _KILLED_CHILD, str(ROOT), str(path), str(ckpt), str(dev),
+         str(STREAM_CKPT_BASES), str(STREAM_BATCH_BASES), "8", str(D)],
+        capture_output=True, text=True, timeout=600, cwd=str(ROOT),
+    )
+    child_s = time.perf_counter() - t
+    if proc.returncode != -signal.SIGKILL:
+        raise AssertionError(f"{name}: the child exited {proc.returncode}: {proc.stderr[-2000:]}")
+    saved = checkpoint.load_checkpoint(ckpt)
+    batch = batch_plan(stream.size, 8, KmerConfig(**size).batch_bases)[0]
+    per_ckpt = -(-STREAM_CKPT_BASES // batch) * batch
+    if not saved.dense or saved.cursor != 2 * per_ckpt:
+        raise AssertionError(f"{name}: the child's checkpoint is at {saved.cursor}")
+    left = math.ceil((stream.size - saved.cursor) / batch)
+    _, m, _, _ = run(name, 8, False, {}, {"hist_planes": left}, checkpoint_path=str(ckpt),
+                     checkpoint_every_bases=1 << 62)
+    if m.counters.get("resumed_from_base") != saved.cursor:
+        raise AssertionError(f"{name}: resumed from {m.counters.get('resumed_from_base')}")
+    log(f"{name}: child killed by SIGKILL after {child_s:.1f} s with its checkpoint at base "
+        f"{saved.cursor}; {left} batches resumed on one device [{card}]")
+    ckpt.unlink()
+
+    # The super-k-mer route on the first records: forced, then under auto.
+    sub = first_records(records, min(SUPER_RECORDS, lengths.size))
+    sub_path = path.with_name("super.fasta")
+    write_fasta(sub_path, *sub)
+    real = bucketed.table_from_superkmers
+    d2h = {"bytes": 0, "records": 0}
+
+    def counted(planes, meta, n_records, *a):
+        # The bytes table_from_superkmers fetches: n_records, then its
+        # power-of-two bucket (at least 128) of each record plane and meta.
+        m_rec, n = int(n_records), int(meta.shape[0])
+        mp = min(max(1 << (m_rec - 1).bit_length(), 128), n) if m_rec else 0
+        d2h["bytes"] += 4 + mp * 4 * (len(planes) + 1)
+        d2h["records"] += m_rec
+        return real(planes, meta, n_records, *a)
+
+    bucketed.table_from_superkmers = counted
+    try:
+        for k, canonical in ((21, False), (31, True)):
+            d2h.update(bytes=0, records=0)
+            name = (f"StreamingCounter(k={k}{', canonical' if canonical else ''}, "
+                    "compact=device-super)")
+            res, _, _, peak = run(name, k, canonical, {"compact": "device-super"}, {},
+                                  data=sub[0], fasta=sub_path, key=("super", k, canonical))
+            windows = int(res.total_kmers)
+            words = windows * (6 if k <= 23 else 8)
+            log(f"{name}: {d2h['records']} records for {windows} windows, D2H "
+                f"{d2h['bytes']} bytes ({d2h['bytes'] / max(windows, 1):.3f} B a window; the "
+                f"words route's planes {words} bytes), peak device memory {peak} bytes at "
+                f"{KmerConfig(**size).batch_bases}-base batches [{card}]")
+        name = "StreamingCounter(k=21, compact=auto)"
+        nb = n_batches(sub[0], 21, SUPER_AUTO_BATCH)
+        _, m, got, _ = run(name, 21, False, {"compact": "auto", "batch_bases": SUPER_AUTO_BATCH},
+                           None, data=sub[0], fasta=sub_path, key=("super", 21, False))
+        if {n for n, c in got.items() if c} - {"encode_packed"} or got["encode_packed"] > nb:
+            raise AssertionError(f"{name}: launches {got} for {nb} batches")
+        log(f"{name} on {sub[0].size} bases in {nb} batches: host selected "
+            f"{m.counters.get('compact_host_selected')}, {m.counters.get('compact_mode_flips', 0)} "
+            f"flips, {m.counters.get('compact_super_batches', 0)} super-k-mer batches, "
+            f"{m.counters.get('compact_super_flips', 0)} super flips, "
+            f"{got['encode_packed']} K1 batches [{card}]")
+    finally:
+        bucketed.table_from_superkmers = real
+        sub_path.unlink()
+    log(f"phase 11 (counting on the mesh, super-k-mer route) in "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return launches
+
+
+def phase_mesh_distance(dist_path: Path, dist_records, keep: dict, union: dict, dev, card: str,
+                        tmp: Path) -> dict:
+    """Phase 11, distances and the rest: on meshes of MESH_D and MESH_D_ODD
+    shards of the card, (a) ``distance_file(k=3)`` bit for bit and (c)
+    ``distance_stream_to_csv(k=3)``'s CSV byte for byte against phase 6's,
+    and (d)'s union stream in panels of READ_PANEL_ROWS byte for byte
+    against phase 9's one-shot CSV; ``count_sharded`` and
+    ``min_sum_panel_sharded`` on a 1-rank NCCL process group against
+    ``LocalMesh(1)``; ``kmer-gpu count --k 17``, ``stream --k 21`` and
+    ``distance --k 3`` with ``--mesh MESH_D`` byte for byte against the
+    same commands without it; ``graft_entry.dryrun_multichip(MESH_D)``.
+    Each run's launches against its shards. Returns them."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import dna_kmeres_parallel_tpu_torch as port
+    from dna_kmeres_parallel_tpu_torch import KmerConfig, graft_entry
+    from dna_kmeres_parallel_tpu_torch.models import sparse_engine
+    from dna_kmeres_parallel_tpu_torch.models.engine import KmerEngine, batch_plan
+    from dna_kmeres_parallel_tpu_torch.parallel import sharded_count
+    from dna_kmeres_parallel_tpu_torch.parallel.mesh import LocalMesh, ProcessGroupMesh
+
+    t_phase = time.perf_counter()
+    none = dict.fromkeys(read_launches(), 0)
+    launches = {}
+    stream, starts, lengths = dist_records
+    S = lengths.size
+    seqs = record_strings(stream, starts, lengths)
+    na = min(DIST_ROWS_A, S)
+    reads = record_strings(*union["records"])
+    n_read_panels = len(panel_shapes(len(reads), READ_PANEL_ROWS))
+
+    def timed(name, want, fn):
+        reset_launches()
+        t = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t
+        launches[name] = expect_launches(name, {**none, **want})
+        return out, wall
+
+    for D in (MESH_D, MESH_D_ODD):
+        name = f"(a) distance_file(k=3, max_seqs={na}, mesh_shape=({D},))"
+        res, wall = timed(name, {"counts_matrix": 1, "min_sum_rect": D}, lambda: port.distance_file(
+            str(dist_path), k=3, device=dev, max_seqs=na, mesh_shape=(D,)))
+        if not same_bits(res.packed, keep["(a)"]):
+            raise AssertionError(f"{name}: distances differ from phase 6's")
+        report_run(name, wall, res.packed.size, res.phases,
+                   f"K4 routes {routes_taken()}; distances bit-identical to phase 6's", card)
+        del res
+        name = f"(c) distance_stream_to_csv(k=3, panel_rows={PANEL_ROWS}, max_panels=1, " \
+               f"mesh_shape=({D},))"
+        csv = tmp / f"mesh{D}_c.csv"
+        eng = KmerEngine(KmerConfig(k=3, mesh_shape=(D,)), device=dev)
+        out, wall = timed(name, {"counts_matrix": 1, "min_sum_rect": D},
+                          lambda: eng.distance_stream_to_csv(seqs, csv, panel_rows=PANEL_ROWS,
+                                                             max_panels=1))
+        if not same_file(csv, keep["(c)"]):
+            raise AssertionError(f"{name}: CSV differs from phase 6's")
+        report_run(name, wall, out["n_pairs"], out["phases"],
+                   f"K4 routes {routes_taken()}; CSV byte-identical to phase 6's", card)
+        csv.unlink()
+        name = f"(d) distance_sparse_stream_to_csv(k={SPARSE_K}, union=on, panel_rows=" \
+               f"{READ_PANEL_ROWS}, LocalMesh({D}))"
+        csv = tmp / f"mesh{D}_d.csv"
+        out, wall = timed(name, {"min_sum_rect": D * n_read_panels},
+                          lambda: sparse_engine.distance_sparse_stream_to_csv(
+                              reads, SPARSE_K, csv, panel_rows=READ_PANEL_ROWS, device=dev,
+                              union="on", mesh=LocalMesh(D, dev)))
+        if csv.read_bytes() != union["csv"]:
+            raise AssertionError(f"{name}: CSV differs from phase 9's")
+        report_run(name, wall, out["n_pairs"], out["phases"],
+                   f"route {out['route']}, K4 routes {routes_taken()}; CSV byte-identical to "
+                   "phase 9's one-shot CSV", card)
+        csv.unlink()
+        torch.cuda.empty_cache()
+
+    # A 1-rank process group (NCCL on the card) against LocalMesh(1).
+    flat = stream[: 1 << 20]
+    counts = torch.from_numpy(np.random.default_rng(11).integers(0, 50, (96, 64), np.int32))
+    with tempfile.TemporaryDirectory(prefix="kmer_pg_") as pg_tmp:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group(backend, init_method=f"file://{pg_tmp}/pg", rank=0, world_size=1)
+        try:
+            got = {}
+            for label, mesh in (("group", ProcessGroupMesh(dev)), ("local", LocalMesh(1, dev))):
+                rows = sharded_count.shard_stream(flat, mesh)
+                got[label] = (
+                    sharded_count.count_sharded(rows, 3, 64, False, mesh, n_own=flat.size - 5)
+                    .cpu().numpy(),
+                    sharded_count.min_sum_panel_sharded(counts[:8].to(dev), counts.to(dev), mesh)
+                    .cpu().numpy(),
+                )
+        finally:
+            dist.destroy_process_group()
+    if not all(np.array_equal(a, b) for a, b in zip(got["group"], got["local"])):
+        raise AssertionError(f"a 1-rank {backend} group differs from LocalMesh(1)")
+    log(f"count_sharded and min_sum_panel_sharded on a 1-rank {backend} process group: equal to "
+        f"LocalMesh(1) ({int(got['group'][0].sum())} windows, a {got['group'][1].shape} panel) "
+        f"[{card}]")
+
+    # kmer-gpu with --mesh, against the same command without it
+    on = ["--device", dev.type]
+    n = min(CLI_MESH_ROWS, S)
+    nd = min(CLI_DIST_ROWS, S)
+    sub = first_records(dist_records, n)[0]
+    per = math.ceil(sub.size / batch_plan(sub.size, 21, KmerConfig().batch_bases)[0])
+    for argv, out, want in (
+        (["count", "--k", 17, "--max-seqs", n], "c17.csv", {"encode_packed": MESH_D * per}),
+        (["stream", "--k", 21, "--max-seqs", n], "s21.csv", {"encode_packed": MESH_D * per}),
+        (["distance", "--k", 3, "--max-seqs", nd], "d3.csv",
+         {"counts_matrix": 1, "min_sum_rect": MESH_D}),
+    ):
+        name = f"kmer-gpu {' '.join(map(str, argv))} --mesh {MESH_D}"
+        plain, meshed = tmp / f"plain_{out}", tmp / f"mesh_{out}"
+        _, wall = run_cli([argv[0], *on, *argv[1:], dist_path, "-o", plain])
+        reset_launches()
+        _, wall_mesh = run_cli([argv[0], *on, *argv[1:], "--mesh", MESH_D, dist_path, "-o",
+                                meshed])
+        launches[name] = expect_launches(name, {**none, **want})
+        if not same_file(plain, meshed):
+            raise AssertionError(f"{name}: output differs from the run without a mesh")
+        log(f"{name}: wall {wall_mesh:.3f} s (without the mesh {wall:.3f} s); "
+            f"{meshed.stat().st_size} bytes, byte-identical; launches "
+            f"{ {k: c for k, c in launches[name].items() if c} } [{card}]")
+        plain.unlink()
+        meshed.unlink()
+
+    reset_launches()
+    t = time.perf_counter()
+    graft_entry.dryrun_multichip(MESH_D, device=dev)
+    log(f"graft_entry.dryrun_multichip({MESH_D}) in {time.perf_counter() - t:.2f} s; launches "
+        f"{ {k: c for k, c in read_launches().items() if c} } [{card}]")
+    log(f"phase 11 (distances on meshes of {MESH_D} and {MESH_D_ODD}, a process group, kmer-gpu "
+        f"--mesh) in {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--bases", type=int, default=256_000_000,
@@ -3355,6 +3720,8 @@ def main() -> int:
         bucket_launches = phase_bucket_path(records, path, dev, card, refs)
         row_sort = phase_sort_kernel(dev, card)
         sort_launches = phase_sort_path(records, path, dev, card, refs)
+        # 11. the mesh and super-k-mer routes, counting (distances below)
+        phase11 = phase_mesh_count(records, path, dev, card, refs)
     except BaseException:
         main_tmp.cleanup()
         raise
@@ -3374,7 +3741,8 @@ def main() -> int:
         log(f"distance fasta: {records[2].size} records, {int(records[2].sum())} "
             f"bases, written in {time.perf_counter() - t:.1f} s")
         dist = phase_distance_kernels(dev, card, records, so)
-        dist_launches = phase_distance_path(records, path, dev, card)
+        keep: dict = {}
+        dist_launches = phase_distance_path(records, path, dev, card, keep)
         # (d)-(g): sparse tables and dense mid k, then K2's global route
         # and K3/K4 at their widths, and the gates' rates
         work = Path(tmp.name)
@@ -3390,6 +3758,10 @@ def main() -> int:
         # 10. the command line, kmer-gpu, on the card
         phase_cli(main_fasta, main_table, hists, n_batches, path, records, union, gate_rates,
                   dev, card, work)
+
+        # 11. the mesh routes of the distances, a process group, kmer-gpu --mesh
+        phase11.update(phase_mesh_distance(path, records, keep, union, dev, card, work))
+        keep.clear()
     finally:
         tmp.cleanup()
         main_tmp.cleanup()
@@ -3530,6 +3902,11 @@ def main() -> int:
         "bound_by": row_sort["bound"][1],
         "library_ms": row_sort["library_ms"],
     })
+    for entry in kernels_json:
+        # this kernel's launches in each phase-11 run (on a mesh, D a batch
+        # or panel)
+        entry["phase11_launches"] = {run: got[entry["name"]] for run, got in phase11.items()
+                                     if got.get(entry["name"])}
     log(json.dumps({"kernels": kernels_json}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -20,9 +20,11 @@ easy to find)
 - ``csrc/``    CUDA C++ sources for Hopper (``sm_90a``), built with nvcc at
                first use.
 - ``parallel/`` meshes (``mesh``: D shards on one device, or one per rank
-               of a ``torch.distributed`` group), the bucket-sharded count
-               (``bucketed``) and its shards' staging
-               (``sharded_sparse``).
+               of a ``torch.distributed`` group, with their
+               collectives), data-parallel dense counting and
+               distances (``sharded_count``) and sparse counting
+               (``sharded_sparse``), and the bucket-sharded count
+               (``bucketed``).
 - ``models/``  batch staging and the dense counting and distance engine
                (``engine``),
                the sparse counting engine and the sparse-table
@@ -38,8 +40,9 @@ easy to find)
 What is ported: exact k-mer counting, k = 1..31, canonical or not, as a
 dense histogram where 4^k <= dense_bins_limit (k <= 12 by default) and as
 a sorted sparse table above, in one shot or streamed with checkpoint and
-resume (``models.pipeline.StreamingCounter``), and bucket-sharded over a
-mesh (``parallel.bucketed.count_bucket_auto``); pairwise k-mer
+resume (``models.pipeline.StreamingCounter``, data parallel over a mesh
+with ``mesh_shape``), and bucket-sharded over a mesh
+(``parallel.bucketed.count_bucket_auto``); pairwise k-mer
 distances at k = 1..31, in memory or streamed to the reference's CSV: from
 dense counts (``KmerEngine``, k <= 15 where the [S, 4^k] matrix fits the
 memory gate) and from sparse per-sequence tables

@@ -95,8 +95,11 @@ def _add_common(p: argparse.ArgumentParser):
         type=int,
         default=None,
         metavar="N",
-        help="run over an N-device mesh (N > 1 is not ported yet: ROADMAP "
-        "item 10)",
+        help="run over a mesh of N shards on the --device: data-parallel "
+        "counting (count and stream: per-shard partials merged exactly) and "
+        "partner-sharded distances (distance, incl. --stream-panel: dense "
+        "panels always, sparse panels when the union route runs); "
+        "bit-identical output at any N",
     )
     p.add_argument(
         "--device-sort",
@@ -114,7 +117,8 @@ def _add_common(p: argparse.ArgumentParser):
         "words ('device'), from the host-resident stream with the native "
         "engine ('host'), race the two ('auto'), or have the device sort "
         "and collapse runs and ship only distinct (code, count) pairs "
-        "('device-rle'); 'device-super' is not ported yet (ROADMAP item 11)",
+        "('device-rle'), or ship super-k-mer records, about 1.5-2 B a "
+        "window instead of 6-8 ('device-super')",
     )
 
 

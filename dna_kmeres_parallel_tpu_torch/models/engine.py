@@ -192,6 +192,22 @@ def row_chunks(lengths: np.ndarray, max_bytes: int = GRID_BYTES) -> list[tuple[i
     return out
 
 
+def min_sum_panel_mesh(panel: torch.Tensor, other: torch.Tensor, mesh) -> torch.Tensor:
+    """int32 [Pr, S2] min-sums of a row panel against partner rows over a
+    mesh (``sharded_count.min_sum_panel_sharded``, K4 per shard): the
+    partner rows padded with zero-count rows to a multiple of D (their
+    min-sums are 0) and the padding's columns sliced off. A shard's route
+    (``distance_cuda.product_route``) follows its own rows' sums; either
+    route gives the same sums."""
+    from dna_kmeres_parallel_tpu_torch.parallel.sharded_count import min_sum_panel_sharded
+
+    S2 = other.shape[0]
+    pad = (-S2) % mesh.size
+    if pad:
+        other = torch.cat([other, other.new_zeros(pad, other.shape[1])])
+    return min_sum_panel_sharded(panel, other, mesh)[:, :S2]
+
+
 def seq_stream(seqs: list[str]) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Sequences -> (flat u8 stream with one separator between records,
     int64 record offsets, int64 lengths)."""
@@ -201,7 +217,8 @@ def seq_stream(seqs: list[str]) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
 
 
 class KmerEngine:
-    """Single-device dense engine.
+    """The dense engine: one device, and with ``mesh_shape`` its distance
+    panels partner-sharded over a mesh of that many shards on the device.
 
     Counting, k <= 15 (``count_*``): a dense int64 histogram of 4^k bins,
     from the histogram kernels (K5 from the encoder's planes, K6 and K7
@@ -227,13 +244,18 @@ class KmerEngine:
                 f"the dense engine serves k <= {encode_ops.MAX_DENSE_K}; "
                 f"SparseKmerEngine counts k={self.config.k}"
             )
-        if math.prod(self.config.mesh_shape) > 1:
-            raise NotImplementedError(
-                "a mesh of more than one device (the partner-sharded distance "
-                "panels) is not ported yet (ROADMAP item 10)"
-            )
         self.device = runtime.resolve_device(device)
         native.load()
+
+    def _mesh(self):
+        """The mesh of the distance panels (``KmerConfig.mesh_shape``): a
+        ``LocalMesh`` of its devices' product on the engine's device, or
+        None for one device (whose triangle kernel beats a mesh of one).
+        Counting ignores it, as the JAX engine's does."""
+        from dna_kmeres_parallel_tpu_torch.parallel.mesh import make_mesh
+
+        n = math.prod(self.config.mesh_shape)
+        return make_mesh(n, self.device) if n > 1 else None
 
     def _require_distance_k(self, n_seqs: int) -> None:
         """Raise unless the [n_seqs, 4^k] counts matrix of a distance run
@@ -414,7 +436,12 @@ class KmerEngine:
         m0 = runtime.mark(dev)
         counts = self._counts_on_device(stream, offsets, lengths)
         m1 = runtime.mark(dev)
-        sums = distance_cuda.min_sum_matrix_tri(counts)
+        mesh = self._mesh()
+        if mesh is not None and len(lengths):
+            # The whole square as one partner-sharded panel (K4 per shard).
+            sums = min_sum_panel_mesh(counts, counts, mesh)
+        else:
+            sums = distance_cuda.min_sum_matrix_tri(counts)
         m2 = runtime.mark(dev)
         sums_np = sums.cpu().numpy()  # waits for the device
         counts_np = counts.cpu().numpy()
@@ -518,11 +545,15 @@ class KmerEngine:
         counts = torch.as_tensor(counts).to(dev)
         lengths = np.asarray(lengths, dtype=np.int64)
         phases = dict.fromkeys(DIST_PHASES, 0.0) if phases is None else phases
+        mesh = self._mesh()
 
         def panel_fn(r0: int, r1: int) -> np.ndarray:
             t = time.perf_counter()
             m0 = runtime.mark(dev)
-            sums = distance_cuda.min_sum_matrix_rect(counts[r0:r1], counts[r0:])
+            if mesh is not None:
+                sums = min_sum_panel_mesh(counts[r0:r1], counts[r0:], mesh)
+            else:
+                sums = distance_cuda.min_sum_matrix_rect(counts[r0:r1], counts[r0:])
             m1 = runtime.mark(dev)
             host = sums.cpu().numpy()  # waits for the device
             min_sum = runtime.span_s(m0, m1)

@@ -33,13 +33,25 @@ prefetch thread never touches the card's streams.
   crosses the link). ``"auto"``: device batches 2-3 and host batch 4
   race, the faster route carries on, and every ``_COMPACT_RECHECK``-th
   batch re-probes the loser, flipping when its EWMA rate beats the
-  winner's by ``_COMPACT_HYSTERESIS``.
+  winner's by ``_COMPACT_HYSTERESIS``. Once the device arm wins, it races
+  its own two formats the same way (k >= 13): the words, and the
+  super-k-mer records. ``"device-super"``: the card cuts each batch into
+  super-k-mer records (runs of windows sharing a minimizer position,
+  ``bucketed.superkmer_records_device``), only the records come back,
+  and the host expands and counts them (``bucketed.table_from_superkmers``).
 
-Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-``compact="device-super"`` (super-k-mer records) and a mesh. The JAX
-counter's "auto" also probes the super-k-mer records as a sub-route of
-its device arm; that probe stays off here until ``device-super`` is
-ported, which changes which route runs and never a table.
+A mesh (``KmerConfig.mesh_shape`` of more than one device: a
+``LocalMesh`` of D shards on the counter's device) runs each batch data
+parallel, as the JAX counter does. Dense: the batch's u8 bases as D equal
+shards (``sharded_count.shard_rows``), each counting its windows with
+the next shard's head as its halo, the D histograms summed into the one
+accumulator (``sharded_count.count_sharded``: K7, K6 or K8 per shard).
+Sparse: D halo-carrying shards (``bucketed.shard_stream_with_halo``),
+staged as planes with ``pack_input``, encoded (and row-sorted with
+``device_sort``) shard by shard (``sharded_sparse.encode_shards``), one
+compaction a shard in the drain. A mesh always takes the device arm, and
+refuses ``device-rle`` and ``device-super``. Checkpoints hold no mesh: a
+run stopped on a mesh resumes on one device, and the reverse.
 """
 
 from __future__ import annotations
@@ -71,6 +83,8 @@ from dna_kmeres_parallel_tpu_torch.models.sparse_engine import (
 )
 from dna_kmeres_parallel_tpu_torch.ops import histogram_cuda, runtime
 from dna_kmeres_parallel_tpu_torch.ops import sparse as sparse_ops
+from dna_kmeres_parallel_tpu_torch.parallel import bucketed, sharded_count, sharded_sparse
+from dna_kmeres_parallel_tpu_torch.parallel.mesh import make_mesh
 from dna_kmeres_parallel_tpu_torch.utils import checkpoint as ckpt_mod
 from dna_kmeres_parallel_tpu_torch.utils import codec, fasta
 from dna_kmeres_parallel_tpu_torch.utils.config import KmerConfig
@@ -83,6 +97,9 @@ _COMPACT_RECHECK = 16
 #: 'auto' flips routes only when the loser's EWMA rate beats the winner's
 #: by this factor (a guard against flapping)
 _COMPACT_HYSTERESIS = 1.25
+
+#: minimizer length of the super-k-mer records (the JAX counter's)
+_SUPER_M = 7
 
 #: exception names or messages that mark a failure worth retrying
 _TRANSIENT = ("Internal", "Unavailable", "DataLoss", "RESOURCE")
@@ -106,10 +123,18 @@ def _prefetched(items, fn, depth: int = 2):
             yield done_item, fut.result()
 
 
-def _count_batch(eng: KmerEngine, staged: tuple, n_own: int, acc: torch.Tensor) -> None:
+def _count_batch(eng: KmerEngine, staged: tuple, n_own: int, acc: torch.Tensor,
+                 mesh=None) -> None:
     """The dense arm's device call: ship one staged batch and add its
-    histogram into ``acc`` (``KmerEngine._ship_and_count``)."""
-    eng._ship_and_count(staged, n_own, acc)
+    histogram into ``acc`` (``KmerEngine._ship_and_count``; on a mesh,
+    ``sharded_count.count_sharded`` of its u8 shard rows)."""
+    if mesh is None:
+        eng._ship_and_count(staged, n_own, acc)
+        return
+    rows = host_to_device(staged[0], mesh.device)
+    cfg = eng.config
+    sharded_count.count_sharded(rows, cfg.k, cfg.bins, cfg.canonical, mesh, n_own=n_own,
+                                acc=acc)
 
 
 def _start_fetch(words: tuple):
@@ -154,11 +179,6 @@ class StreamingCounter:
         ``device_sort=True``, sort single-word rows with the row-sort
         kernel K11 (``SparseKmerEngine``'s argument)."""
         self.config = config or KmerConfig()
-        if math.prod(self.config.mesh_shape) > 1:
-            raise NotImplementedError(
-                "a mesh (data-parallel streaming over several cards) is not "
-                "ported yet (ROADMAP item 10)"
-            )
         self.device = runtime.resolve_device(device)
         sparse_engine.require_native()
         self.checkpoint_path = checkpoint_path
@@ -184,6 +204,13 @@ class StreamingCounter:
                 if not transient or attempt == self.max_retries:
                     raise
                 self.metrics.count("batch_retries")
+
+    def _mesh(self):
+        """The mesh of a data-parallel stream (``KmerConfig.mesh_shape``):
+        a ``LocalMesh`` of its devices' product on the counter's device,
+        or None for one device (a mesh of one is the single-device path)."""
+        n = math.prod(self.config.mesh_shape)
+        return make_mesh(n, self.device) if n > 1 else None
 
     # ------------------------------------------------------------------
     def _load_stream(self, source):
@@ -312,9 +339,16 @@ class StreamingCounter:
                 acc.zero_()
                 acc_windows = 0
 
+        mesh = self._mesh()
+
         def prep(bounds):
             start, end, T = bounds
-            return pin_host(eng._stage(self._padded(flat, start, end, T)), dev)
+            padded = self._padded(flat, start, end, T)
+            if mesh is not None:
+                # Data parallel: u8 shard rows, as the JAX counter stages
+                # its mesh batches (K7, K6 or K8 per shard, not K5).
+                return pin_host((sharded_count.shard_rows(padded, mesh),), dev)
+            return pin_host(eng._stage(padded), dev)
 
         for (start, end, _), staged in _prefetched(self._batches(total, cursor), prep):
             if self.max_batches is not None and done_batches >= self.max_batches:
@@ -327,7 +361,7 @@ class StreamingCounter:
             if flush_first(acc_windows, end - start, cfg.batch_bases):
                 flush()
             with self.metrics.phase("device"):
-                self._with_retry(lambda: _count_batch(eng, staged, end - start, acc))
+                self._with_retry(lambda: _count_batch(eng, staged, end - start, acc, mesh))
             self.metrics.count("bases", end - start)
             self.metrics.count("batches")
             since_ckpt += end - start
@@ -348,18 +382,23 @@ class StreamingCounter:
             elapsed_s=time.perf_counter() - t0,
         )
 
-    def _resolve_compact(self) -> bool | None:
+    def _resolve_compact(self, mesh) -> bool | None:
         """KmerConfig.compact -> host_mode: True counts on the host, False
-        on the device, None is undecided ('auto': race, then re-check)."""
+        on the device, None is undecided ('auto': race, then re-check). A
+        mesh takes the device arm: racing its shards against one host core
+        means nothing."""
         cfg = self.config
-        if cfg.compact == "device-super":
-            raise NotImplementedError(
-                "compact='device-super' (super-k-mer records) is not ported "
-                "yet (ROADMAP item 11)"
-            )
         if cfg.compact == "host":
             return True
-        if cfg.compact in ("device", "device-rle"):
+        if cfg.compact in ("device-rle", "device-super"):
+            if mesh is not None:
+                raise ValueError(
+                    f"compact={cfg.compact!r} is a single-chip D2H mode; "
+                    "mesh streams route compressed records/codes over ICI "
+                    "instead (parallel/bucketed.py exchanges)"
+                )
+            return False
+        if cfg.compact == "device" or mesh is not None:
             return False
         return None
 
@@ -367,7 +406,8 @@ class StreamingCounter:
         cfg, dev = self.config, self.device
         k, canonical = cfg.k, cfg.canonical
         total = flat.shape[0]
-        host_mode = self._resolve_compact()
+        mesh = self._mesh()
+        host_mode = self._resolve_compact(mesh)
         tables = MergeLadder()
         cursor = 0
         ck = self._maybe_resume(total)
@@ -379,35 +419,62 @@ class StreamingCounter:
         since_ckpt = 0
         done_batches = 0
         stopped = False
+        rle = cfg.compact == "device-rle"
+        forced_super = cfg.compact == "device-super"
         # 'auto': EWMA bases/s of each route. The first decision races the
         # drain walls of device batches 2 and 3 (batch 1 pays the kernels'
         # load) against host batch 4, and is re-checked for the rest of
         # the stream.
         adaptive = host_mode is None
-        rate: dict[str, float | None] = {"device": None, "host": None}
+        rate: dict[str, float | None] = {"device": None, "host": None, "super": None}
+        # The device arm's super-k-mer sub-route ('auto'): once the race
+        # picks the device arm, batches probe the records format (the first
+        # one only warms), and the EWMA then picks words or records by the
+        # same hysteresis, the loser re-probed half a cycle off the host's
+        # probe. When the host route wins, records (host counting plus a
+        # copy) cannot beat it, so they are not probed.
+        super_eligible = adaptive and k >= 13
+        device_route = "words"
+        super_warm = False
 
         def rate_update(key: str, n_bases: int, wall: float) -> None:
             r = n_bases / max(wall, 1e-9)
             rate[key] = r if rate[key] is None else 0.5 * rate[key] + 0.5 * r
 
-        def stage(start: int, end: int, T: int):
-            padded = self._padded(flat, start, end, T)
+        def stage_words(padded):
             return pin_host(sparse_engine.stage_words(padded, cfg.pack_input), dev)
+
+        def stage_u8(padded):
+            return pin_host((padded,), dev)
+
+        def stage_shards(padded, start: int, end: int):
+            # Data parallel: halo-carrying shards, as planes for K1 or as
+            # u8 for K9, and each shard's owned windows.
+            shards, n_own = bucketed.shard_stream_with_halo(padded, k, mesh, total_own=end - start)
+            inputs = sharded_sparse.stage_shard_planes(shards) if cfg.pack_input else (shards,)
+            return pin_host(inputs, dev), n_own
 
         def prep(bounds):
             # Reads the CURRENT mode: around an 'auto' flip the thread may
-            # stage a batch or two that the host route then never ships.
-            return None if host_mode is True else stage(*bounds)
+            # stage a batch or two in a format the batch then does not use.
+            if host_mode is True:
+                return None
+            padded = self._padded(flat, *bounds)
+            if mesh is not None:
+                return stage_shards(padded, *bounds[:2])
+            if forced_super or (super_eligible and device_route == "super"):
+                return stage_u8(padded)  # the records read the u8 bases
+            return stage_words(padded)
 
         # The device arm's output: "words" (unsorted, radix compaction),
-        # "sorted" (device_sort: the compactor of sorted words or rows) or
-        # "rle" (distinct codes and counts, fetched by their count).
-        kind = "rle" if cfg.compact == "device-rle" else (
-            "sorted" if cfg.device_sort else "words")
+        # "sorted" (device_sort: the compactor of sorted words or rows),
+        # "rle" (distinct codes and counts, fetched by their count) or
+        # "super" (super-k-mer records, fetched by their count).
+        words_kind = "rle" if rle else ("sorted" if cfg.device_sort else "words")
 
         # Software pipelining: batch t is drained (words to the host,
         # compaction) only after batch t+1 has been dispatched.
-        pending = None  # (words, ready event, start, end, batch number)
+        pending = None  # (words, ready event, start, end, batch number, kind)
 
         def book(p_start: int, p_end: int) -> None:
             nonlocal since_ckpt
@@ -424,38 +491,61 @@ class StreamingCounter:
                 since_ckpt = 0
 
         def maybe_flip() -> None:
-            nonlocal host_mode
+            nonlocal host_mode, device_route
             if not adaptive or host_mode is None:
                 return
-            if rate["device"] is None or rate["host"] is None:
+            if super_eligible and None not in (rate["super"], rate["device"]):
+                # The device arm's format: words or records.
+                cur = "super" if device_route == "super" else "device"
+                other = "device" if cur == "super" else "super"
+                if rate[other] > _COMPACT_HYSTERESIS * rate[cur]:
+                    device_route = "super" if other == "super" else "words"
+                    self.metrics.count("compact_super_flips")
+            # In host mode only the words re-probe, so the device arm's rate
+            # is the words'; in device mode, the format that runs.
+            dev_key = ("super" if not host_mode and device_route == "super"
+                       and rate["super"] is not None else "device")
+            if rate[dev_key] is None or rate["host"] is None:
                 return
-            cur, other = ("host", "device") if host_mode else ("device", "host")
+            cur, other = ("host", dev_key) if host_mode else (dev_key, "host")
             if rate[other] > _COMPACT_HYSTERESIS * rate[cur]:
                 host_mode = not host_mode
+                if not host_mode:
+                    device_route = "words"  # the sub-probe re-rates records
                 self.metrics.count("compact_mode_flips")
 
         def drain(p) -> None:
-            words, ready, p_start, p_end, p_idx = p
+            nonlocal super_warm
+            words, ready, p_start, p_end, p_idx, kind = p
             t_d = time.perf_counter()
             with self.metrics.phase("compact"):
                 with self.metrics.phase("fetch"):
                     if ready is not None:
                         ready.synchronize()
                     if kind == "rle":
-                        table = sparse_engine.table_from_rle(*words)
-                    else:
+                        new = [sparse_engine.table_from_rle(*words)]
+                    elif kind != "super":
                         host = sparse_engine.fetch_words(words)
-                if kind == "sorted":
-                    table = sparse_engine.compact_table(host)
+                if kind == "super":
+                    new = [bucketed.table_from_superkmers(*words, k, _SUPER_M, canonical)]
+                elif mesh is not None:
+                    new = sharded_sparse.compact_shards(host, k, kind == "sorted")
+                elif kind == "sorted":
+                    new = [sparse_engine.compact_table(host)]
                 elif kind == "words":
-                    table = sparse_engine.compact_unsorted(host, k)
-                tables.push(table)
+                    new = [sparse_engine.compact_unsorted(host, k)]
+                for table in new:
+                    tables.push(table)
             if adaptive and p_idx >= 2:
                 # The device route's whole cost per batch in the pipelined
                 # steady state: the wait for the device and the D2H copy,
-                # then the compaction.
-                rate_update("device", p_end - p_start, time.perf_counter() - t_d)
-                maybe_flip()
+                # then the compaction. The records' first batch only warms.
+                if kind == "super" and not super_warm:
+                    super_warm = True
+                else:
+                    rate_update("super" if kind == "super" else "device", p_end - p_start,
+                                time.perf_counter() - t_d)
+                    maybe_flip()
             book(p_start, p_end)
 
         for (start, end, T), staged in _prefetched(self._batches(total, cursor), prep):
@@ -496,32 +586,70 @@ class StreamingCounter:
                 if adaptive:
                     rate_update("host", end - start, time.perf_counter() - t_h)
                 book(start, end)
-                if adaptive and host_mode is None and None not in rate.values():
+                if adaptive and host_mode is None and None not in (rate["device"], rate["host"]):
                     host_mode = rate["host"] > rate["device"]
                     self.metrics.count("compact_host_selected", int(host_mode))
                 elif adaptive:
                     maybe_flip()
                 continue
-            if staged is None:  # staged for the host route: stage it now
-                staged = stage(start, end, T)
+            # The device arm's format for THIS batch: records probe once
+            # the race has picked the device arm, then the loser re-probes
+            # half a recheck cycle off the host's probe.
+            batch_route = "words"
+            if super_eligible and host_mode is False:
+                sub_probe = rate["super"] is None or (
+                    _COMPACT_RECHECK > 0
+                    and done_batches % _COMPACT_RECHECK == max(_COMPACT_RECHECK // 2, 1)
+                    and not probe
+                )
+                if sub_probe and rate["super"] is None:
+                    batch_route = "super"
+                elif sub_probe:
+                    batch_route = "words" if device_route == "super" else "super"
+                else:
+                    batch_route = device_route
+                if batch_route == "super":
+                    self.metrics.count("compact_super_batches")
+            want_super = forced_super or batch_route == "super"
+            if mesh is None and (staged is None or (len(staged) == 1) != (
+                    want_super or not cfg.pack_input)):
+                # Staged for the host route, or in the other format (a probe,
+                # or the batch or two around a flip): stage it now.
+                padded = self._padded(flat, start, end, T)
+                staged = stage_u8(padded) if want_super else stage_words(padded)
             with self.metrics.phase("device"):
                 n_own = end - start
-                words = self._with_retry(
-                    lambda: sparse_engine.encode_staged(
-                        tuple(host_to_device(a, dev) for a in staged), n_own, k, canonical
-                    )
-                )
-                if kind == "sorted":
-                    words = sparse_ops.sort_encoded(
-                        words, n_own, cfg.sort_row_len, self.pallas_sort)
-                if kind == "rle":
-                    words = sparse_ops.rle_sorted(sparse_ops.sort_encoded(words, n_own, 0))
-                    ready = None  # the drain waits on n_distinct
-                else:
+                ready = None  # rle and records: the drain waits on their count
+                if mesh is not None:
+                    inputs, n_own_d = staged
+                    words = self._with_retry(lambda: sharded_sparse.encode_shards(
+                        inputs, n_own_d, k, canonical, mesh, device_sort=bool(cfg.device_sort),
+                        row_len=cfg.sort_row_len or sharded_sparse.ROW_LEN,
+                        pallas_sort=self.pallas_sort))
+                    kind = words_kind
                     words, ready = _start_fetch(words)
+                elif want_super:
+                    bases = host_to_device(staged[0], dev)
+                    words = self._with_retry(
+                        lambda: bucketed.superkmer_records_device(bases, n_own, k, _SUPER_M))
+                    kind = "super"
+                else:
+                    words = self._with_retry(
+                        lambda: sparse_engine.encode_staged(
+                            tuple(host_to_device(a, dev) for a in staged), n_own, k, canonical
+                        )
+                    )
+                    kind = words_kind
+                    if kind == "sorted":
+                        words = sparse_ops.sort_encoded(
+                            words, n_own, cfg.sort_row_len, self.pallas_sort)
+                    if kind == "rle":
+                        words = sparse_ops.rle_sorted(sparse_ops.sort_encoded(words, n_own, 0))
+                    else:
+                        words, ready = _start_fetch(words)
             if pending is not None:
                 drain(pending)
-            pending = (words, ready, start, end, done_batches)
+            pending = (words, ready, start, end, done_batches, kind)
         if pending is not None:
             drain(pending)
         with self.metrics.phase("merge"):

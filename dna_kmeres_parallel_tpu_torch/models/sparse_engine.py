@@ -47,6 +47,7 @@ from dna_kmeres_parallel_tpu_torch.models import distance_stream
 from dna_kmeres_parallel_tpu_torch.models.engine import (
     batch_plan,
     host_to_device,
+    min_sum_panel_mesh,
     pack_planes_np,
     seq_stream,
 )
@@ -768,13 +769,6 @@ def distance_sparse_packed(
     return out
 
 
-def _require_no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "sparse distances over a mesh are not ported yet (ROADMAP item 10)"
-        )
-
-
 def make_sparse_panel_fn(
     codes,
     cnts,
@@ -796,10 +790,11 @@ def make_sparse_panel_fn(
 
     One decision a job: where ``union_dense_plan`` takes the union route,
     the union matrix goes to the device once (widened to int32 there) and
-    every panel is one K4 of its rows against the rows from r0 on; else
-    every panel runs the native two-pointer (``kp_min_sum_panel``). The
-    finish runs on the host. ``mesh`` raises: the mesh path is not ported."""
-    _require_no_mesh(mesh)
+    every panel is one K4 of its rows against the rows from r0 on (over a
+    ``mesh``, those partner rows padded to a multiple of D and sharded, K4
+    per shard: ``engine.min_sum_panel_mesh``); else every panel runs the
+    native two-pointer (``kp_min_sum_panel``), which no mesh shards. The
+    finish runs on the host."""
     dev = runtime.resolve_device(device)
     S = int(offs.shape[0] - 1)
     lengths = np.asarray(lengths, dtype=np.int64)
@@ -813,7 +808,11 @@ def make_sparse_panel_fn(
         info.update(route=f"union/{plan['impl']}", cmax=plan["cmax"], streamed=True)
 
         def panel_fn(r0: int, r1: int) -> np.ndarray:
-            sums = distance_cuda.min_sum_matrix_rect(mat[r0:r1], mat[r0:S]).cpu().numpy()
+            if mesh is not None:
+                sums = min_sum_panel_mesh(mat[r0:r1], mat[r0:S], mesh)
+            else:
+                sums = distance_cuda.min_sum_matrix_rect(mat[r0:r1], mat[r0:S])
+            sums = sums.cpu().numpy()
             return dist_ops.finish_upper(sums, lengths[r0:r1], lengths[r0:], k, r0, r0)
 
         return panel_fn
@@ -851,8 +850,7 @@ def distance_sparse_stream_to_csv(
     resumed run is byte-identical). The tables are rebuilt on every leg,
     resumed or not. row_lo/row_hi bound the rows this writer owns. The
     result carries the writer's keys, ``route`` and ``phases`` (tables,
-    and the writer's write)."""
-    _require_no_mesh(mesh)
+    and the writer's write). ``mesh``: see ``make_sparse_panel_fn``."""
     t = time.perf_counter()
     dev = runtime.resolve_device(device)
     codes, cnts, offs = build_pair_tables(seqs, k, canonical, dev)
@@ -860,7 +858,7 @@ def distance_sparse_stream_to_csv(
     tables_s = time.perf_counter() - t
     info = {} if info is None else info
     panel_fn = make_sparse_panel_fn(
-        codes, cnts, offs, lengths, k, panel_rows, device=dev, union=union,
+        codes, cnts, offs, lengths, k, panel_rows, device=dev, mesh=mesh, union=union,
         union_budget_bytes=union_budget_bytes, rates=rates, info=info,
     )
     meta = {

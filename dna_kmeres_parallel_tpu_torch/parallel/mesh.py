@@ -21,7 +21,21 @@ its overflow flag, and a mesh runs it:
 Every mesh has ``size`` (D), ``device``, ``local_shards`` (the shard
 indices this process runs), ``exchange`` (run the shard program, all_to_all
 its planes), ``max_reduce`` (the overflow flags, over every shard) and
-``gather`` (one object per local shard -> every shard's, in shard order).
+``gather`` (one object per local shard -> every shard's, in shard order),
+and the collectives that ``shard_map`` gives the JAX package's
+data-parallel programs (``parallel/sharded_count``,
+``parallel/sharded_sparse``):
+
+- ``run``: map the shard program over the local shards, no exchange;
+- ``sum_reduce``: the integer ``psum`` of the shards' histograms into a
+  caller's int32 accumulator;
+- ``all_gather``: the rows of every shard, in shard order;
+- ``halo``: each shard receives the next shard's head (a ``ppermute`` to
+  the left neighbour); the last shard receives INVALID bases.
+
+A sharded operand is given as the rows of the local shards, stacked: on a
+``LocalMesh`` the whole operand, on a ``ProcessGroupMesh`` the rank's
+block.
 """
 
 from __future__ import annotations
@@ -29,6 +43,7 @@ from __future__ import annotations
 import torch
 
 from dna_kmeres_parallel_tpu_torch.ops import runtime
+from dna_kmeres_parallel_tpu_torch.ops.encode import INVALID
 
 
 class LocalMesh:
@@ -71,6 +86,27 @@ class LocalMesh:
 
     def gather(self, items: list) -> list:
         return list(items)
+
+    def run(self, shard_fn) -> list:
+        """``[shard_fn(s) for s in local_shards]``: each shard's result."""
+        return [shard_fn(s) for s in range(self.size)]
+
+    def sum_reduce(self, shard_fn, acc: torch.Tensor) -> torch.Tensor:
+        """``shard_fn(s, acc)`` adds shard s's partial histogram into the
+        int32 accumulator ``acc``; every shard adds into the same one, so
+        the sum costs no collective. Returns ``acc``."""
+        for s in range(self.size):
+            shard_fn(s, acc)
+        return acc
+
+    def all_gather(self, local: torch.Tensor) -> torch.Tensor:
+        """The rows of every shard: here the local rows are all of them."""
+        return local
+
+    def halo(self, heads: torch.Tensor) -> torch.Tensor:
+        """heads: [D, n], row s the first n bases of shard s. Returns [D, n]:
+        row s is shard s+1's head, the last row INVALID."""
+        return torch.cat([heads[1:], torch.full_like(heads[:1], INVALID)])
 
     def __repr__(self) -> str:
         return f"LocalMesh(size={self.size}, device={str(self.device)!r})"
@@ -126,6 +162,41 @@ class ProcessGroupMesh:
         out: list = [None] * self.size
         dist.all_gather_object(out, items[0], group=self.group)
         return out
+
+    def run(self, shard_fn) -> list:
+        return [shard_fn(self.rank)]
+
+    def sum_reduce(self, shard_fn, acc: torch.Tensor) -> torch.Tensor:
+        """``shard_fn(rank, part)`` adds this rank's partial histogram into
+        a zeroed ``part``; one ``all_reduce(SUM)`` of ``part``, then ``acc +=
+        part``. The running accumulator itself is never summed: over D
+        ranks that would count it D times."""
+        import torch.distributed as dist
+
+        part = torch.zeros_like(acc)
+        shard_fn(self.rank, part)
+        dist.all_reduce(part, op=dist.ReduceOp.SUM, group=self.group)
+        acc += part
+        return acc
+
+    def all_gather(self, local: torch.Tensor) -> torch.Tensor:
+        """This rank's rows -> every rank's, in rank order
+        (``all_gather_into_tensor``; every rank holds as many rows)."""
+        import torch.distributed as dist
+
+        local = local.contiguous()
+        out = local.new_empty((self.size * local.shape[0], *local.shape[1:]))
+        dist.all_gather_into_tensor(out, local, group=self.group)
+        return out
+
+    def halo(self, heads: torch.Tensor) -> torch.Tensor:
+        """heads: [1, n], this rank's first n bases. One ``all_gather`` of
+        the D heads (gloo and NCCL alike); returns [1, n], the next rank's
+        head, or INVALID bases on the last rank."""
+        every = self.all_gather(heads)
+        if self.rank == self.size - 1:
+            return torch.full_like(heads, INVALID)
+        return every[self.rank + 1 : self.rank + 2]
 
     def __repr__(self) -> str:
         return f"ProcessGroupMesh(size={self.size}, rank={self.rank}, device={str(self.device)!r})"

@@ -42,16 +42,22 @@ class KmerConfig:
          device sorts (``sort_row_len``) and the host compacts sorted
          words.
       compact: streaming sparse counter (``models/pipeline.py``): where
-         each batch's table is built. Ported: "device" (encode on the
-         card, words to the host, radix compaction there), "host" (the
-         native engine counts the host-resident stream; nothing crosses
-         the link), "auto" (races the two and keeps re-checking the
-         loser) and "device-rle" (the card sorts each batch and collapses
-         its runs; only the distinct (code, count) pairs come back).
-         "device-super" raises there (ROADMAP item 11). The one-shot
-         engines ignore it, as the JAX package's do.
-      mesh_shape: the device mesh of a data-parallel stream; a mesh of
-         more than one device is not ported (ROADMAP item 10).
+         each batch's table is built. "device" (encode on the card, words
+         to the host, radix compaction there), "host" (the native engine
+         counts the host-resident stream; nothing crosses the link),
+         "auto" (races the two and keeps re-checking the loser; at k >= 13
+         its device arm also races the words against super-k-mer
+         records), "device-rle" (the card sorts each batch and collapses
+         its runs; only the distinct (code, count) pairs come back) and
+         "device-super" (the card cuts each batch into super-k-mer
+         records; the host expands and counts them). A mesh refuses
+         "device-rle" and "device-super". The one-shot engines ignore it,
+         as the JAX package's do.
+      mesh_shape: a mesh of the product of these shards on the run's
+         device (``parallel/mesh.LocalMesh``): the streaming counter runs
+         each batch data parallel over it, and the dense and sparse
+         distance panels are partner-sharded; () or a product of 1 is
+         one device.
     """
 
     k: int = 3

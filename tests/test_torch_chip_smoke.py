@@ -634,3 +634,78 @@ def test_cli_path_rehearsal(records, tmp_path, monkeypatch, counted_plain_versio
         "counts_matrix": 2, "min_sum_rect": 4}
     assert fired("kmer-gpu distance --k 21") == {}  # the CPU: the host route
     assert sorted(p.name for p in work.iterdir()) == ["cal"]
+
+
+def test_mesh_count_rehearsal(records, tmp_path, monkeypatch, counted_dense_plain_versions):
+    # Phase 11's counting on the main path's two records in 64 kbase
+    # batches (a checkpoint every two), the super-k-mer runs on the first
+    # record (the auto run in 32 kbase batches); K11's plain version
+    # counted as its launches.
+    from dna_kmeres_parallel_tpu_torch.ops import sort_cuda
+
+    plain_sort = sort_cuda.row_sort_u32_reference
+
+    def row_sort(x):
+        sort_cuda.ROW_SORT_LAUNCHES += 1
+        return plain_sort(x)
+
+    monkeypatch.setattr(sort_cuda, "row_sort_u32_reference", row_sort)
+    for name, value in (("STREAM_BATCH_BASES", 1 << 16), ("STREAM_CKPT_BASES", 1 << 17),
+                        ("SUPER_RECORDS", 1), ("SUPER_AUTO_BATCH", 1 << 15)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    path = tmp_path / "smoke.fasta"
+    chip_smoke.write_fasta(path, *records)
+    refs: dict = {}
+    launches = chip_smoke.phase_mesh_count(records, path, CPU, "cpu", refs)
+    fired = {name: {k: c for k, c in got.items() if c} for name, got in launches.items()}
+    D, n = chip_smoke.MESH_D, -(-records[0].size // (1 << 16))
+    names = list(fired)
+    assert len(names) == 11 and names[0] == chip_smoke.MESH_MAIN
+    assert fired[names[0]] == {"encode_packed": D * n}
+    assert fired[names[1]] == {"encode_stream": D * n}
+    assert fired[names[2]] == {"encode_packed": D * n, "row_sort": D * n}
+    assert fired[names[3]] == {"hist_u8_small": D * n}
+    assert fired[names[4]] == {"hist_u8": D * n}
+    assert fired[names[5]] == {"hist_u8_any": D}
+    assert fired[names[6]] == {"hist_u8": D * n}
+    assert fired[names[7]] == {"hist_planes": n - 4}  # resumed on one device
+    assert fired[names[8]] == fired[names[9]] == {}  # the super-k-mer records
+    assert set(fired[names[10]]) <= {"encode_packed"}
+    assert not list(tmp_path.glob("*.npz")) and not (tmp_path / "super.fasta").exists()
+
+
+def test_mesh_distance_rehearsal(tmp_path, monkeypatch, counted_plain_versions,
+                                 counted_dense_plain_versions):
+    # Phase 11's distances at a small size: 40 distance records ((a) 30,
+    # (c) panels of 16), 40 reads of a 3,000-base genome in panels of 8,
+    # the command line on 30 records; a 1-rank gloo group in place of NCCL.
+    from dna_kmeres_parallel_tpu_torch.models import sparse_engine
+    from dna_kmeres_parallel_tpu_torch.utils import io
+
+    for name, value in (("DIST_ROWS_A", 30), ("DIST_ROWS_B", 20), ("PANEL_ROWS", 16),
+                        ("READ_PANEL_ROWS", 8), ("CLI_MESH_ROWS", 30), ("CLI_DIST_ROWS", 30)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setenv("KMER_GPU_CAL_DIR", str(tmp_path / "no_cal"))
+    dist = chip_smoke.distance_records(40)
+    path = tmp_path / "dist.fasta"
+    chip_smoke.write_fasta(path, *dist)
+    keep: dict = {}
+    chip_smoke.phase_distance_path(dist, path, CPU, "cpu", keep)
+    assert set(keep) == {"(a)", "(c)"} and keep["(c)"].exists()
+    reads = chip_smoke.read_set(40, 3000)
+    one_shot = tmp_path / "one_shot.csv"
+    io.write_distances_csv(one_shot, sparse_engine.distance_sparse_packed(
+        chip_smoke.record_strings(*reads), chip_smoke.SPARSE_K, device="cpu", union="on"))
+    union = {"records": reads, "csv": one_shot.read_bytes()}
+    work = tmp_path / "work"
+    work.mkdir()
+    launches = chip_smoke.phase_mesh_distance(path, dist, keep, union, CPU, "cpu", work)
+    fired = {name: {k: c for k, c in got.items() if c} for name, got in launches.items()}
+    names = list(fired)
+    assert len(names) == 9
+    for i, D in ((0, chip_smoke.MESH_D), (3, chip_smoke.MESH_D_ODD)):
+        assert fired[names[i]] == fired[names[i + 1]] == {"counts_matrix": 1, "min_sum_rect": D}
+        assert fired[names[i + 2]] == {"min_sum_rect": D * 5}  # 40 reads, panels of 8
+    assert fired[names[6]] == fired[names[7]] == {"encode_packed": chip_smoke.MESH_D}
+    assert fired[names[8]] == {"counts_matrix": 1, "min_sum_rect": chip_smoke.MESH_D}
+    assert not list(work.iterdir())

@@ -236,16 +236,25 @@ def test_count_without_cuda_exits_nonzero(inputs, capsys):
     assert rc != 0 and report is None and "CUDA" in err
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["count", "--k", 21, "--mesh", 2], "item 10"),
-    (["stream", "--k", 21, "--mesh", 2], "item 10"),
-    (["distance", "--k", 3, "--mesh", 2], "item 10"),
-    (["stream", "--k", 21, "--compact", "device-super"], "item 11"),
+@pytest.mark.parametrize("argv,out", [
+    (["count", "--k", 21, "--mesh", 8], "t.csv"),
+    (["stream", "--k", 21, "--mesh", 8], "s.npz"),
+    (["distance", "--k", 3, "--mesh", 8], "d.csv"),
+    (["stream", "--k", 21, "--compact", "device-super"], "s.npz"),
 ])
-def test_unported_flags_give_rc2_and_name_their_item(inputs, capsys, argv, item):
-    rc, report, err = call(cli.main, [*argv, "--device", "cpu", inputs["fa"]], capsys)
-    assert rc == 2 and report is None
-    assert f"ROADMAP {item}" in err
+def test_mesh_and_super_flags_match_jax(inputs, tmp_path, capsys, argv, out):
+    # kmer-tpu's mesh runs on its 8 virtual CPU devices, kmer-gpu's on a
+    # LocalMesh of 8 shards on the CPU: the same outputs and reports.
+    run_both(argv[0], tmp_path, capsys, *argv[1:], inputs["fa"], out_name=out)
+
+
+@pytest.mark.parametrize("compact", ["device-rle", "device-super"])
+def test_mesh_with_a_d2h_mode_gives_rc2_as_jax(inputs, capsys, compact):
+    argv = ["stream", "--k", 21, "--mesh", 4, "--compact", compact, inputs["fa"]]
+    jax_rc, _, jax_err = call(jax_cli.main, argv, capsys)
+    rc, report, err = call(cli.main, [argv[0], "--device", "cpu", *argv[1:]], capsys)
+    assert rc == jax_rc == 2 and report is None
+    assert err == jax_err and "single-chip D2H mode" in err
 
 
 @pytest.mark.parametrize("argv", [

@@ -1286,3 +1286,91 @@ def test_cli_on_card_equals_cpu(cuda_device, tmp_path, capsys, argv):
                                         if k not in ("elapsed_s", "bases_per_sec", "output",
                                                      "engine")})
     assert outs["cuda"] == outs["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# The data-parallel layer on a LocalMesh of the card: the kernels per shard
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [3, 4])
+@pytest.mark.parametrize("k,bins", [(3, 64), (8, 4**8), (6, 3000)])
+def test_count_sharded_on_card_matches_cpu_mesh(cuda_device, D, k, bins):
+    # K7, K6 or K8 once a shard, unaligned shard rows (the halo columns),
+    # equal to the CPU mesh's plain versions and to one stream's count.
+    from dna_kmeres_parallel_tpu_torch.parallel import sharded_count
+    from dna_kmeres_parallel_tpu_torch.parallel.mesh import LocalMesh
+
+    flat = stream(3 * 4096 + 5, k)
+    route = {"small": "SMALL_LAUNCHES", "u8": "U8_LAUNCHES", "any": "ANY_LAUNCHES"}[
+        histogram_cuda.u8_route(bins)]
+    before = getattr(histogram_cuda, route)
+    got = sharded_count.count_sharded(sharded_count.shard_stream(flat, LocalMesh(D, cuda_device)),
+                                      k, bins, True, LocalMesh(D, cuda_device), n_own=9000)
+    assert getattr(histogram_cuda, route) == before + D
+    cpu = LocalMesh(D, "cpu")
+    want = sharded_count.count_sharded(sharded_count.shard_stream(flat, cpu), k, bins, True, cpu,
+                                       n_own=9000)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [3, 4])
+def test_min_sum_panel_mesh_on_card_both_routes(cuda_device, D):
+    # Partners padded to a multiple of D; one shard holds a row summing
+    # past 2^16 (i32), the others and the padding take u16x2.
+    from dna_kmeres_parallel_tpu_torch.models.engine import min_sum_panel_mesh
+    from dna_kmeres_parallel_tpu_torch.parallel.mesh import LocalMesh
+
+    rng = np.random.default_rng(D)
+    other = rng.integers(0, 9, (301, 64)).astype(np.int32)
+    other[-1, 0] = 70_000
+    panel = torch.from_numpy(np.concatenate([other[-5:], other[:123]]))
+    before = dict(distance_cuda.ROUTE_LAUNCHES)
+    got = min_sum_panel_mesh(panel.to(cuda_device), torch.from_numpy(other).to(cuda_device),
+                             LocalMesh(D, cuda_device))
+    taken = {r: distance_cuda.ROUTE_LAUNCHES[r] - before[r] for r in before}
+    assert taken[distance_cuda.WIDE] >= 1 and taken[distance_cuda.PACKED] >= 1
+    assert sum(taken.values()) == D
+    want = distance.min_sum_matrix(panel, torch.from_numpy(other))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("device_sort", [False, True])
+@pytest.mark.parametrize("pack_input", [False, True])
+def test_count_sparse_sharded_on_card_matches_cpu(cuda_device, device_sort, pack_input):
+    from dna_kmeres_parallel_tpu_torch.parallel import sharded_sparse
+    from dna_kmeres_parallel_tpu_torch.parallel.mesh import LocalMesh
+
+    flat = stream(4 * 8192, 7)
+    for k in (11, 21):
+        kw = dict(row_len=1024, device_sort=device_sort, pack_input=pack_input,
+                  pallas_sort=True)
+        got = sharded_sparse.count_sparse_sharded(flat, k, True, LocalMesh(4, cuda_device), **kw)
+        want = sharded_sparse.count_sparse_sharded(flat, k, True, LocalMesh(4, "cpu"), **kw)
+        assert all(np.array_equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_stream_mesh_and_super_on_card(cuda_device, tmp_path):
+    from dna_kmeres_parallel_tpu_torch import KmerConfig
+    from dna_kmeres_parallel_tpu_torch.models.pipeline import StreamingCounter
+
+    flat = stream(3 * 65536, 9)
+    records = [(0, 70000), (70001, 60000), (130002, 3 * 65536 - 130002)]
+    path = tmp_path / "in.fasta"
+    path.write_text("".join(
+        f">r{i}\n" + np.frombuffer(b"ACGTN", np.uint8)[np.minimum(flat[s : s + n], 4)]
+        .tobytes().decode() + "\n" for i, (s, n) in enumerate(records)))
+    for k, kw in ((3, {"mesh_shape": (4,)}), (8, {"mesh_shape": (3,)}),
+                  (21, {"mesh_shape": (4,)}), (21, {"compact": "device-super"}),
+                  (31, {"compact": "device-super", "canonical": True})):
+        cfg = KmerConfig(k=k, batch_bases=1 << 16, **kw)
+        got = StreamingCounter(cfg, device=cuda_device).run(str(path))
+        want = StreamingCounter(cfg, device="cpu").run(str(path))
+        if hasattr(got, "hist"):
+            assert np.array_equal(got.hist, want.hist)
+        else:
+            assert np.array_equal(got.codes, want.codes)
+            assert np.array_equal(got.counts, want.counts)

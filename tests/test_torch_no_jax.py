@@ -106,6 +106,29 @@ for union in ("off", "on"):
     sparse[union + " csv"] = open(out, "rb").read().decode()
 sparse["k9"] = KmerEngine(port.KmerConfig(k=9), device="cpu").distance_sequences(
     seqs).packed.view("u4").tolist()
+# The data-parallel layer on a local mesh of 4 CPU shards: the streaming
+# counter's dense and sparse mesh arms, its super-k-mer route, the
+# partner-sharded distances of both engines, and the port's dry run.
+from dna_kmeres_parallel_tpu_torch import graft_entry
+from dna_kmeres_parallel_tpu_torch.parallel import sharded_count, sharded_sparse
+
+meshed = {}
+for name, k, kw in (("dense5", 5, {"mesh_shape": (4,)}), ("sparse21", 21, {"mesh_shape": (4,)}),
+                    ("super21", 21, {"compact": "device-super"})):
+    sc = StreamingCounter(port.KmerConfig(k=k, batch_bases=128, **kw), device="cpu")
+    meshed[name] = sc.run(fasta_path).table()
+mesh4 = LocalMesh(4, "cpu")
+hist = sharded_count.count_sharded(sharded_count.shard_stream(flat, mesh4), 3, 64, False, mesh4)
+meshed["count_sharded3"] = hist.tolist()
+codes, counts = sharded_sparse.count_sparse_sharded(flat, 21, False, mesh4, row_len=64)
+meshed["sparse_sharded21"] = {codec.code_to_kmer(int(c), 21): int(n) for c, n in zip(codes, counts)}
+meshed["distance3"] = KmerEngine(port.KmerConfig(k=3, mesh_shape=(4,)), device="cpu"
+                                 ).distance_sequences(seqs).packed.view("u4").tolist()
+out = sys.argv[2] + ".mesh.csv"
+sparse_engine.distance_sparse_stream_to_csv(seqs, 21, out, panel_rows=1, device="cpu",
+                                            union="on", mesh=mesh4)
+meshed["sparse csv"] = open(out, "rb").read().decode()
+graft_entry.dryrun_multichip(4, device="cpu")
 banned = [
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "dna_kmeres_parallel_tpu")
@@ -113,7 +136,7 @@ banned = [
 assert not banned, banned
 print(json.dumps({"table": res.table(), "dense": dense, "streamed": streamed,
                   "bucket": bucket, "device_sort": device_sort, "sparse": sparse,
-                  "bits": dist.packed.view("u4").tolist()}))
+                  "meshed": meshed, "bits": dist.packed.view("u4").tolist()}))
 """
 
 SEQS = ["ACGTTGCANNACGTACGTTTTTTTTTTTTTTTTTTTTTTTTGCA" * 7, "GATTACA" * 40, "ACGTAC"]
@@ -157,6 +180,14 @@ def test_port_runs_with_jax_refused(tmp_path):
         assert out["sparse"][union] == sparse.view(np.uint32).tolist(), union
         assert out["sparse"][union + " csv"] == text, union
     assert out["sparse"]["k9"] == oracle.distance_matrix_packed(SEQS, 9).view(np.uint32).tolist()
+    meshed = out["meshed"]
+    assert meshed["dense5"] == oracle.count_table_any_k(SEQS, 5)
+    for name in ("sparse21", "super21", "sparse_sharded21"):
+        assert meshed[name] == oracle.count_table_any_k(SEQS, 21), name
+    flat_hist = sum(oracle.count_vector(s, 3) for s in SEQS)
+    assert meshed["count_sharded3"] == flat_hist.tolist()
+    assert meshed["distance3"] == want.view(np.uint32).tolist()
+    assert meshed["sparse csv"] == text
 
 
 _NO_JAX_CLI = r"""

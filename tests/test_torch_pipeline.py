@@ -3,7 +3,8 @@ the CPU route, against the JAX package's ``StreamingCounter`` on the same
 file and against the oracle: dense and sparse arms, k = 9..12 through the
 sparse arm, checkpoint and resume (within the port, across the two
 packages, and after a real SIGKILL), the compact routes and the 'auto'
-race, retries, metrics.
+race, retries, metrics. The mesh arms and the super-k-mer route:
+``tests/test_torch_stream_mesh.py``.
 
 Integer counts: every comparison is exact (tolerance zero)."""
 
@@ -323,16 +324,17 @@ def test_sparse_compact_auto_exact_on_coverage_data(tmp_path, make_dna):
     assert result.table() == oracle.count_table_any_k([s for _, s in reads], 21)
 
 
-@pytest.mark.parametrize("kw,item", [({"compact": "device-super"}, "11")])
-def test_unported_sparse_routes_raise(fasta_file, kw, item):
+@pytest.mark.parametrize("compact", ["device-rle", "device-super"])
+def test_mesh_refuses_the_single_device_d2h_modes(fasta_file, compact):
+    # As the JAX counter: both packages raise ValueError with one message.
     path, _ = fasta_file
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        counter(KmerConfig(k=21, **kw)).run(path)
-
-
-def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        counter(KmerConfig(k=21, mesh_shape=(4,)))
+    kw = dict(k=21, compact=compact, mesh_shape=(4,))
+    with pytest.raises(ValueError) as port_err:
+        counter(KmerConfig(**kw)).run(path)
+    with pytest.raises(ValueError) as jax_err:
+        JaxStreamingCounter(JaxKmerConfig(**kw)).run(path)
+    assert str(port_err.value) == str(jax_err.value)
+    assert "single-chip D2H mode" in str(port_err.value)
 
 
 def test_compact_device_super_rejects_small_k():

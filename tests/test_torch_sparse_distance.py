@@ -422,13 +422,21 @@ def test_a_failing_kernel_raises_instead_of_falling_back(fake_card, tmp_path):
                 rates=rates)
 
 
-def test_mesh_is_not_ported(tmp_path):
-    seqs = reads(1)
-    codes, cnts, offs = tables(seqs, 21)
-    lengths = np.array([len(s) for s in seqs])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        sparse_engine.make_sparse_panel_fn(codes, cnts, offs, lengths, 21, 4, device="cpu",
-                                           mesh=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        sparse_engine.distance_sparse_stream_to_csv(seqs, 21, tmp_path / "d.csv", device="cpu",
-                                                    mesh=object())
+@pytest.mark.parametrize("union", ["off", "on"])
+@pytest.mark.parametrize("D", [3, 8])
+def test_mesh_serves_sparse_distances(tmp_path, D, union):
+    # A mesh on the CPU: the union route's panels partner-sharded (K4's
+    # plain version per shard, partners padded to a multiple of D), the
+    # host route's two-pointer unsharded; the CSV byte-identical to the
+    # JAX package's on its mesh of D virtual devices.
+    from dna_kmeres_parallel_tpu.parallel.mesh import make_mesh as jax_mesh
+    from dna_kmeres_parallel_tpu_torch.parallel.mesh import LocalMesh
+
+    seqs = reads(D)
+    want = tmp_path / "jax.csv"
+    jax_sparse.distance_sparse_stream_to_csv(seqs, 21, want, panel_rows=5, mesh=jax_mesh(D))
+    got = tmp_path / "port.csv"
+    out = sparse_engine.distance_sparse_stream_to_csv(
+        seqs, 21, got, panel_rows=5, device="cpu", union=union, mesh=LocalMesh(D, "cpu"))
+    assert got.read_bytes() == want.read_bytes()
+    assert out["route"] == ("union/plain" if union == "on" else "host/sparse")

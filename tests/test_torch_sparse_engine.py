@@ -74,17 +74,18 @@ def test_count_sequences_short_and_empty_streams():
         assert res.table() == oracle.count_table_any_k(seqs, 21)
 
 
-@pytest.mark.parametrize("kw", [{"compact": "device-super"}])
-def test_unported_routes_raise(tmp_path, kw):
-    # The compact modes belong to the streaming counter, which refuses the
-    # unported one.
+@pytest.mark.parametrize("compact", ["device-super", "device-rle"])
+def test_streaming_counter_serves_the_d2h_modes(tmp_path, compact):
+    # The compact modes belong to the streaming counter, which serves each
+    # of them: its table equals the one-shot engine's.
     from dna_kmeres_parallel_tpu_torch.models.pipeline import StreamingCounter
 
-    cfg = port.KmerConfig(k=21, **kw)
+    cfg = port.KmerConfig(k=21, compact=compact, batch_bases=256)
     path = tmp_path / "in.fasta"
-    fasta.write_fasta(path, [(">r", "ACGT" * 30)])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StreamingCounter(cfg, device="cpu").run(str(path))
+    fasta.write_fasta(path, [(">r", "ACGT" * 30), (">s", "GATTACA" * 90)])
+    got = StreamingCounter(cfg, device="cpu").run(str(path))
+    want = port.count_file(str(path), k=21, device="cpu", batch_bases=256)
+    assert np.array_equal(got.codes, want.codes) and np.array_equal(got.counts, want.counts)
 
 
 @pytest.mark.parametrize("compact", ["auto", "device", "host", "device-rle", "device-super"])
