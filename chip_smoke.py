@@ -163,7 +163,23 @@ exits nonzero:
    ``distance --k 3`` with ``--mesh 4`` byte-identical to the same
    commands without it; ``graft_entry.dryrun_multichip(4)``. Every run's
    launches against its shards (D per batch or panel); the kernels line
-   gains each kernel's ``phase11_launches``.
+   gains each kernel's ``phase11_launches``;
+12. multi-host (``parallel/multihost``, after phase 11): a 1-rank NCCL
+   process group runs ``count_file_multihost`` at canonical k=8 over the
+   main FASTA (K6) against phase 4's histogram, the resumable dense count
+   at k=3 in 16 Mbase steps stopped after 4 and resumed (K7), the bucketed
+   resumable count at k=31 with minimizer owners (K1m) and prefix owners
+   (K1) over the first 64 Mbase against ``reference_table``, and the
+   row-sharded distances at k=3 on the first 4,096 distance records (K2,
+   K4; byte-identical to ``distance_stream_to_csv``) and at k=21 on (d)'s
+   reads (K4 on the union route; byte-identical to phase 9's CSV); then two
+   child processes, the ranks of a gloo group on the card (NCCL takes one
+   rank a card; the mesh's collectives go through host memory), run
+   ``count_file_multihost`` and the bucketed count (stopped after 2 steps,
+   resumed; the union of the ranks' tables against the reference) over
+   the first 32 Mbase and the k=3 distances (stopped after 2 panels,
+   resumed, stitched by rank 0). Every run's launches against its steps,
+   panels and ranks; the kernels line gains ``phase12_launches``.
 
 The script imports the port and nothing of JAX or of the JAX package.
 
@@ -2245,8 +2261,10 @@ def with_launches(shapes: list, kernel: str, launches: dict) -> list:
         for sh in shapes]
 
 
-def expect_launches(name: str, want: dict) -> dict:
-    got = read_launches()
+def expect_launches(name: str, want: dict, got: dict | None = None) -> dict:
+    """The launch counts of the run just read (or a child's, ``got``)
+    against what its path implies."""
+    got = read_launches() if got is None else got
     if got != want:
         raise AssertionError(f"{name}: launches {got}, the path implies {want}")
     return got
@@ -3645,6 +3663,331 @@ def phase_mesh_distance(dist_path: Path, dist_records, keep: dict, union: dict, 
         f"--mesh) in {time.perf_counter() - t_phase:.1f} s [{card}]")
     return launches
 
+#: phase 12: the 1-rank group's resumable counts run MULTIHOST_BATCH-base
+#: steps (the dense one stopped after MULTIHOST_STOP_STEPS), its bucketed
+#: runs over the main FASTA's first MULTIHOST_BUCKET_BASES bases; the two
+#: children read its first MULTIHOST_CHILD_BASES (in MULTIHOST_CHILD_BATCH-
+#: base steps) and the distance FASTA's first MULTIHOST_DIST_ROWS records
+#: (in panels of MULTIHOST_CHILD_PANEL rows, stopped after
+#: MULTIHOST_STOP_PANELS)
+MULTIHOST_BATCH = 16 << 20
+MULTIHOST_BUCKET_BASES = 64 << 20
+MULTIHOST_CHILD_BASES = 32 << 20
+MULTIHOST_CHILD_BATCH = 4 << 20
+MULTIHOST_DIST_ROWS = 4096
+MULTIHOST_CHILD_PANEL = 512
+MULTIHOST_STOP_STEPS = 4
+MULTIHOST_STOP_PANELS = 2
+MULTIHOST_MAIN = "count_file_multihost(k=8, canonical), 1-rank group"
+
+#: one rank of a two-rank gloo group on the card: runs the jobs, then
+#: writes each one's results and launch counts
+_MULTIHOST_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch.distributed as dist
+import chip_smoke
+from dna_kmeres_parallel_tpu_torch import KmerConfig
+from dna_kmeres_parallel_tpu_torch.parallel import multihost
+from dna_kmeres_parallel_tpu_torch.parallel.mesh import ProcessGroupMesh
+
+root, init, rank, device, out, jobs = sys.argv[1:7]
+rank = int(rank)
+dev = multihost.init_distributed(init, 2, rank, backend="gloo", device=device)
+mesh = ProcessGroupMesh(dev)
+arrays, info = {}, {}
+try:
+    for job in json.loads(jobs):
+        name, cfg = job["name"], KmerConfig(k=job["k"], canonical=job.get("canonical", False))
+        chip_smoke.reset_launches()
+        t = time.perf_counter()
+        if job["kind"] == "count":
+            arrays[name], *_ = multihost.count_file_multihost(job["path"], cfg, mesh)
+            extra = {}
+        elif job["kind"] == "bucket":
+            codes, counts, _, _, done, steps = multihost.count_file_bucketed_multihost_resumable(
+                job["path"], cfg, mesh, job["ckpt"], job["batch"], job.get("max_steps"),
+                owner_mode="minimizer")
+            arrays[name + ".codes"], arrays[name + ".counts"] = codes, counts
+            extra = {"steps": [done, steps]}
+        else:
+            report = multihost.distance_file_multihost_resumable(
+                job["path"], cfg, job["csv"], job["ckpt"], panel_rows=job["panel_rows"],
+                max_panels=job.get("max_panels"), device=dev)
+            extra = {k: report[k] for k in ("rows", "completed", "all_complete", "regime")}
+        info[name] = {"wall": time.perf_counter() - t, "launches": chip_smoke.read_launches(),
+                      **extra}
+finally:
+    dist.destroy_process_group()
+np.savez(out, info=np.array(json.dumps(info)), **arrays)
+"""
+
+
+def head_records(records, n_bases: int):
+    """The first records of (stream, starts, lengths) whose stream holds
+    at least ``n_bases`` bases (all of them if it is shorter)."""
+    import numpy as np
+
+    lengths = records[2]
+    n = int(np.searchsorted(np.cumsum(lengths + 1), n_bases)) + 1
+    return first_records(records, min(n, lengths.size))
+
+
+def run_children(tag: str, jobs: list, dev, tmp: Path) -> list:
+    """``jobs`` on two child processes, ranks of a gloo group on ``dev``
+    (NCCL takes one rank a card); each child's arrays and info."""
+    import numpy as np
+
+    outs = [tmp / f"{tag}_rank{r}.npz" for r in range(2)]
+    init = f"file://{tmp / f'mh_pg_{tag}'}"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _MULTIHOST_CHILD, str(ROOT), init, str(r), str(dev), str(outs[r]),
+         json.dumps(jobs)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=str(ROOT)) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f"{tag}: rank {r} exited {p.returncode}:\n{logs[r][-3000:]}")
+    got = []
+    for o in outs:
+        with np.load(o) as z:
+            arrays = {k: z[k] for k in z.files if k != "info"}
+            got.append((arrays, json.loads(str(z["info"]))))
+        o.unlink()
+    return got
+
+
+def phase_multihost(main_fasta: Path, hists: dict, head, dist_records, union: dict, dev,
+                    card: str, tmp: Path) -> dict:
+    """Phase 12, multi-host (``parallel/multihost``): a 1-rank process group
+    (NCCL on the card) runs ``count_file_multihost`` at canonical k=8 over
+    the main FASTA (K6 once), the resumable dense count at k=3 in
+    MULTIHOST_BATCH-base steps stopped after MULTIHOST_STOP_STEPS
+    and resumed (K7 a step), the bucketed resumable count at k=31 with
+    minimizer owners (K1m a step) and prefix owners (K1 a step) over the
+    first MULTIHOST_BUCKET_BASES bases, and the row-sharded distances at
+    k=3 on the first MULTIHOST_DIST_ROWS distance records (K2 once, K4 a
+    panel) and at k=21 on (d)'s reads (K4 a panel on the union route);
+    then two child processes, the ranks of a gloo group on the card, run
+    ``count_file_multihost`` at canonical k=8 and the bucketed count
+    (killed after 2 steps by ``max_steps``, resumed) over the first
+    MULTIHOST_CHILD_BASES bases and the k=3 distances (stopped after
+    MULTIHOST_STOP_PANELS panels, resumed, stitched). Each result against
+    phase 4's histograms, ``reference_table`` or the single-process CSV;
+    each run's launches against its steps and shards. Returns them."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from dna_kmeres_parallel_tpu_torch import KmerConfig
+    from dna_kmeres_parallel_tpu_torch.models.engine import KmerEngine
+    from dna_kmeres_parallel_tpu_torch.models.sparse_engine import merge_sparse_tables
+    from dna_kmeres_parallel_tpu_torch.parallel import multihost
+    from dna_kmeres_parallel_tpu_torch.parallel.mesh import ProcessGroupMesh
+
+    t_phase = time.perf_counter()
+    none = dict.fromkeys(read_launches(), 0)
+    launches = {}
+
+    def timed(name, want, fn):
+        reset_launches()
+        t = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t
+        launches[name] = expect_launches(name, {**none, **want})
+        return out, wall
+
+    def sub_fasta(records, n_bases, name):
+        sub = head_records(records, n_bases)
+        path = tmp / name
+        write_fasta(path, *sub)
+        return sub, path
+
+    bucket_head, bucket_path = sub_fasta(head, MULTIHOST_BUCKET_BASES, "mh_bucket.fasta")
+    child_head, child_path = sub_fasta(head, MULTIHOST_CHILD_BASES, "mh_child.fasta")
+    n_dist = min(MULTIHOST_DIST_ROWS, dist_records[2].size)
+    dist_sub = first_records(dist_records, n_dist)
+    dist_path = tmp / "mh_dist.fasta"
+    write_fasta(dist_path, *dist_sub)
+    reads_path = tmp / "mh_reads.fasta"
+    write_fasta(reads_path, *union["records"])
+
+    # The single-process CSV the k=3 runs are held against.
+    k3_csv = tmp / "mh_single3.csv"
+    KmerEngine(KmerConfig(k=3), device=dev).distance_stream_to_csv(
+        record_strings(*dist_sub), k3_csv, panel_rows=PANEL_ROWS)
+
+    # A 1-rank process group: NCCL on the card.
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{tmp / 'mh_pg_one'}", rank=0, world_size=1)
+    try:
+        mesh = ProcessGroupMesh(dev)
+        group = f"1-rank {backend} group"
+        (hist, bases, n_seqs), wall = timed(MULTIHOST_MAIN, {"hist_u8": 1}, lambda: (
+            multihost.count_file_multihost(str(main_fasta), KmerConfig(k=8, canonical=True),
+                                           mesh)))
+        if not np.array_equal(hist, hists[(8, True)]):
+            raise AssertionError(f"{MULTIHOST_MAIN}: histogram differs from phase 4's")
+        log(f"{MULTIHOST_MAIN}: {n_seqs} records, {bases} bases, equal to phase 4's histogram; "
+            f"wall {wall:.3f} s, {bases / wall / 1e9:.4f} Gbase/s [{card}]")
+
+        batch = MULTIHOST_BATCH
+        ckpt = str(tmp / "mh_dense")
+        cfg = KmerConfig(k=3)
+        name = f"count_file_multihost_resumable(k=3, batch_bases={batch}), {group}, stopped"
+        first, wall1 = timed(name, {"hist_u8_small": MULTIHOST_STOP_STEPS}, lambda: (
+            multihost.count_file_multihost_resumable(str(main_fasta), cfg, mesh, ckpt, batch,
+                                                     MULTIHOST_STOP_STEPS)))
+        n_steps = first[4]
+        if first[3] != MULTIHOST_STOP_STEPS or n_steps <= MULTIHOST_STOP_STEPS:
+            raise AssertionError(f"{name}: {first[3]} of {n_steps} steps")
+        name = f"count_file_multihost_resumable(k=3, batch_bases={batch}), {group}, resumed"
+        hist, wall2 = timed(name, {"hist_u8_small": n_steps - MULTIHOST_STOP_STEPS}, lambda: (
+            multihost.count_file_multihost_resumable(str(main_fasta), cfg, mesh, ckpt,
+                                                     batch))[0])
+        if not np.array_equal(hist, hists[(3, False)]):
+            raise AssertionError(f"{name}: histogram differs from phase 4's")
+        log(f"count_file_multihost_resumable(k=3) on a {group}: {n_steps} steps of {batch} "
+            f"bases, stopped after {MULTIHOST_STOP_STEPS} ({wall1:.3f} s) and resumed "
+            f"({wall2:.3f} s); equal to phase 4's histogram [{card}]")
+        for p in tmp.glob("mh_dense.p*"):
+            p.unlink()
+
+        ref = reference_table(bucket_head[0], BUCKET_K, False, dev)
+        batch = MULTIHOST_BATCH
+        n_steps = -(-bucket_head[0].size // batch)
+        for owner, kernel in (("minimizer", "encode_packed_minimizer"), ("prefix", "encode_packed")):
+            name = f"count_file_bucketed_multihost_resumable(k={BUCKET_K}, {owner}), {group}"
+            out, wall = timed(name, {kernel: n_steps}, lambda: (
+                multihost.count_file_bucketed_multihost_resumable(
+                    str(bucket_path), KmerConfig(k=BUCKET_K), mesh, batch_bases=batch,
+                    owner_mode=owner)))
+            if not (np.array_equal(out[0], ref[0]) and np.array_equal(out[1], ref[1])):
+                raise AssertionError(f"{name}: table differs from the reference")
+            log(f"{name} over {bucket_head[0].size} bases in {out[5]} steps: {out[0].size} "
+                f"distinct, equal to the reference; wall {wall:.3f} s, "
+                f"{out[2] / wall / 1e9:.4f} Gbase/s [{card}]")
+        del ref
+
+        S = dist_sub[2].size
+        name = f"distance_file_multihost_resumable(k=3, {S} records), {group}"
+        csv = tmp / "mh_one3.csv"
+        report, wall = timed(name, {"counts_matrix": 1,
+                                    "min_sum_rect": -(-(S - 1) // PANEL_ROWS)}, lambda: (
+            multihost.distance_file_multihost_resumable(
+                str(dist_path), KmerConfig(k=3), str(csv), panel_rows=PANEL_ROWS, device=dev)))
+        if report["regime"] != "dense" or not same_file(csv, k3_csv):
+            raise AssertionError(f"{name}: {report['regime']}, CSV differs from "
+                                 "distance_stream_to_csv's")
+        report_run(name, wall, report["n_pairs"], report["phases"],
+                   "dense regime; CSV byte-identical to distance_stream_to_csv's", card)
+        csv.unlink()
+        S = union["records"][2].size
+        name = f"distance_file_multihost_resumable(k={SPARSE_K}, {S} reads), {group}"
+        csv = tmp / "mh_one21.csv"
+        reset_launches()
+        t = time.perf_counter()
+        report = multihost.distance_file_multihost_resumable(
+            str(reads_path), KmerConfig(k=SPARSE_K), str(csv), panel_rows=READ_PANEL_ROWS,
+            device=dev)
+        wall = time.perf_counter() - t
+        unioned = report["route"].startswith("union/")
+        want = {"min_sum_rect": len(panel_shapes(S, READ_PANEL_ROWS))} if unioned else {}
+        launches[name] = expect_launches(name, {**none, **want})
+        if report["regime"] != "sparse" or csv.read_bytes() != union["csv"]:
+            raise AssertionError(f"{name}: {report['regime']}, CSV differs from phase 9's")
+        report_run(name, wall, report["n_pairs"], report["phases"],
+                   f"sparse regime, route {report['route']}; CSV byte-identical to phase 9's",
+                   card)
+        csv.unlink()
+    finally:
+        dist.destroy_process_group()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # Two ranks of a gloo group on the card, each a child process.
+    group = "2 gloo ranks on one device"
+    batch = MULTIHOST_CHILD_BATCH
+    ckpt = {"bucket": str(tmp / "mh2_bucket"), "dist": str(tmp / "mh2_dist")}
+    csv = tmp / "mh2_3.csv"
+    common = {"dist": {"kind": "dist", "k": 3, "path": str(dist_path), "csv": str(csv),
+                       "ckpt": ckpt["dist"], "panel_rows": MULTIHOST_CHILD_PANEL},
+              "bucket": {"kind": "bucket", "k": BUCKET_K, "path": str(child_path),
+                         "ckpt": ckpt["bucket"], "batch": batch}}
+    t = time.perf_counter()
+    legs = [run_children("first", [
+        {"name": "count", "kind": "count", "k": 8, "canonical": True, "path": str(child_path)},
+        {"name": "bucket", **common["bucket"], "max_steps": 2},
+        {"name": "dist", **common["dist"], "max_panels": MULTIHOST_STOP_PANELS},
+    ], dev, tmp)]
+    if csv.exists():
+        raise AssertionError(f"{group}: the distances were stitched before every block was done")
+    legs.append(run_children("second", [
+        {"name": "bucket", **common["bucket"]}, {"name": "dist", **common["dist"]}], dev, tmp))
+    wall = time.perf_counter() - t
+    # On the CPU (a rehearsal) the children run the plain versions, which
+    # count no launch.
+    card_only = (lambda want: want) if dev.type == "cuda" else (lambda want: {})
+    want_hist = reference_hist(child_head[0], 8, True, dev)
+    ref = reference_table(child_head[0], BUCKET_K, False, dev)
+    for r in range(2):
+        arrays, info = legs[0][r]
+        name = f"count_file_multihost(k=8, canonical), {group}, rank {r}"
+        launches[name] = expect_launches(name, {**none, **card_only({"hist_u8": 1})},
+                                         info["count"]["launches"])
+        if not np.array_equal(arrays["count"], want_hist):
+            raise AssertionError(f"{name}: histogram differs from the reference")
+        n_steps = info["bucket"]["steps"][1]
+        for leg, steps in ((0, 2), (1, n_steps - 2)):
+            name = f"count_file_bucketed_multihost_resumable(k={BUCKET_K}, minimizer), " \
+                   f"{group}, rank {r}, {('stopped', 'resumed')[leg]}"
+            launches[name] = expect_launches(name, {
+                **none, **card_only({"encode_packed_minimizer": steps})},
+                legs[leg][r][1]["bucket"]["launches"])
+        rows = info["dist"]["rows"]
+        n_panels = -(-(rows[1] - rows[0]) // MULTIHOST_CHILD_PANEL)
+        for leg, n in ((0, min(n_panels, MULTIHOST_STOP_PANELS)),
+                       (1, max(n_panels - MULTIHOST_STOP_PANELS, 0))):
+            name = f"distance_file_multihost_resumable(k=3, rows {rows}), {group}, rank {r}, " \
+                   f"{('stopped', 'resumed')[leg]}"
+            launches[name] = expect_launches(name, {
+                **none, **card_only({"counts_matrix": 1, "min_sum_rect": n})},
+                legs[leg][r][1]["dist"]["launches"])
+        if not legs[1][r][1]["dist"]["all_complete"]:
+            raise AssertionError(f"{group}: rank {r}'s distances are not complete")
+    tables = [(legs[1][r][0]["bucket.codes"], legs[1][r][0]["bucket.counts"]) for r in range(2)]
+    codes, counts = merge_sparse_tables(tables)
+    if not (np.array_equal(codes, ref[0]) and np.array_equal(counts, ref[1])):
+        raise AssertionError(f"{group}: the union of the ranks' tables differs from the reference")
+    if not same_file(csv, k3_csv):
+        raise AssertionError(f"{group}: the stitched CSV differs from distance_stream_to_csv's")
+    walls = {name: [round(legs[leg][r][1][name]["wall"], 3) for leg in range(2) for r in range(2)
+                    if name in legs[leg][r][1]] for name in ("count", "bucket", "dist")}
+    log(f"{group}: count_file_multihost(k=8, canonical) over {child_head[0].size} bases equal to "
+        f"the reference; the bucketed count (k={BUCKET_K}, minimizer, {n_steps} steps of {batch} "
+        f"bases) stopped after 2 and resumed, the union of the ranks' tables ({tables[0][0].size} "
+        f"+ {tables[1][0].size}) equal to the reference; the k=3 distances stopped after "
+        f"{MULTIHOST_STOP_PANELS} panels, resumed and stitched, byte-identical to "
+        f"distance_stream_to_csv's; walls s by job (leg, rank) {walls}; both launches "
+        f"{wall:.1f} s [{card}]")
+    for p in tmp.glob("mh*"):  # the phase's files: FASTAs, CSVs, parts, checkpoints, stores
+        p.unlink()
+    log(f"phase 12 (multi-host: a 1-rank {backend} group, two gloo ranks on one device) in "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return launches
+
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3729,6 +4072,7 @@ def main() -> int:
     main_table = refs[("table", 21, False)]
     hists = {key[1:]: refs[key] for key in (("hist", 3, False), ("hist", 8, True))}
     n_batches = math.ceil(stream.size / batch_plan(stream.size, 21, KmerConfig().batch_bases)[0])
+    head = head_records(records, MULTIHOST_BUCKET_BASES)  # phase 12's
     del records, stream, refs
 
     # 5-6. the distance kernels and the distance path
@@ -3762,6 +4106,9 @@ def main() -> int:
         # 11. the mesh routes of the distances, a process group, kmer-gpu --mesh
         phase11.update(phase_mesh_distance(path, records, keep, union, dev, card, work))
         keep.clear()
+
+        # 12. multi-host: a 1-rank group, then two ranks on the card
+        phase12 = phase_multihost(main_fasta, hists, head, records, union, dev, card, work)
     finally:
         tmp.cleanup()
         main_tmp.cleanup()
@@ -3906,6 +4253,10 @@ def main() -> int:
         # this kernel's launches in each phase-11 run (on a mesh, D a batch
         # or panel)
         entry["phase11_launches"] = {run: got[entry["name"]] for run, got in phase11.items()
+                                     if got.get(entry["name"])}
+        # and in each phase-12 run (a step or panel a shard: each rank's
+        # own launches)
+        entry["phase12_launches"] = {run: got[entry["name"]] for run, got in phase12.items()
                                      if got.get(entry["name"])}
     log(json.dumps({"kernels": kernels_json}))
     log(card)

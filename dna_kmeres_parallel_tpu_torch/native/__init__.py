@@ -106,9 +106,9 @@ def load() -> ctypes.CDLL:
     """The built library, with every entry point's C signature declared."""
     lib = ctypes.CDLL(str(build()))
     vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.kp_parse_fasta.restype = ci
-    lib.kp_parse_fasta.argtypes = [
-        ctypes.c_char_p, i64, ctypes.POINTER(ctypes.POINTER(_KpFasta)),
+    lib.kp_parse_fasta_range.restype = ci
+    lib.kp_parse_fasta_range.argtypes = [
+        ctypes.c_char_p, i64, i64, i64, ctypes.POINTER(ctypes.POINTER(_KpFasta)),
     ]
     lib.kp_free_fasta.argtypes = [ctypes.POINTER(_KpFasta)]
     lib.kp_pack_2bit.restype = None
@@ -167,19 +167,29 @@ class ParsedFasta:
     invalid_bases: int
 
 
-def parse_fasta_native(path, max_seqs: int | None = None) -> ParsedFasta:
+def parse_fasta_native(path, max_seqs: int | None = None,
+                       byte_range: tuple[int, int] | None = None) -> ParsedFasta:
     """Parse a FASTA (or FASTQ, or gzip) file into a flat encoded stream
-    with one 0xFF separator between records."""
+    with one 0xFF separator between records.
+
+    byte_range=(start, end) parses only the records in those bytes of the
+    file (end < 0: to its end): one rank's share of a multi-host run, its
+    bounds record starts (``parallel/multihost.split_fasta_byte_ranges``).
+    A byte range on gzip input raises ``ValueError``."""
     lib = load()
     if max_seqs == 0:
         # The C side reads <= 0 as "no cap"; an explicit 0 means no records.
         return ParsedFasta(0, np.zeros(0, np.uint8), np.zeros(1, np.int64),
                            np.zeros(0, np.int64), [], 0, 0)
     out = ctypes.POINTER(_KpFasta)()
-    rc = lib.kp_parse_fasta(os.fspath(path).encode(), int(max_seqs or 0),
-                            ctypes.byref(out))
+    start, end = byte_range if byte_range is not None else (0, -1)
+    rc = lib.kp_parse_fasta_range(os.fspath(path).encode(), int(start), int(end),
+                                  int(max_seqs or 0), ctypes.byref(out))
     if rc == 1:
         raise FileNotFoundError(path)
+    if rc == 3:
+        raise ValueError(f"{path}: a byte range of a gzip file cannot be parsed (the "
+                         "ranges are compressed offsets); decompress it first")
     if rc != 0:
         raise OSError(f"native FASTA parse failed with code {rc}")
     r = out.contents

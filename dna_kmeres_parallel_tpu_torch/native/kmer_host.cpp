@@ -127,13 +127,41 @@ struct KpFasta {
 // unlimited. Record semantics are those of utils/fasta.parse_fasta: '>'
 // starts a header, a record's sequence is the concatenation of the
 // following non-header lines, blank lines are ignored and a trailing CR is
-// stripped. Also reads gzip-compressed input (zlib's gzread reads plain
-// files transparently) and FASTQ (first significant byte '@'; a 4-state
-// record machine, so '@' at the start of a quality line cannot start a
-// record). Returns 0 on success, 1 on open failure, 2 on read failure.
+// stripped. Returns 0 on success, 1 on open failure, 2 on read failure.
+int kp_parse_fasta_range(const char* path, int64_t start, int64_t end,
+                         int64_t max_seqs, KpFasta** out);
+
 int kp_parse_fasta(const char* path, int64_t max_seqs, KpFasta** out) {
+  return kp_parse_fasta_range(path, 0, -1, max_seqs, out);
+}
+
+// The records in bytes [start, end) of the file (end < 0: to the end of
+// the file): one rank's share of a multi-host run, whose boundaries are
+// record starts (parallel/multihost.split_fasta_byte_ranges). Also reads
+// gzip-compressed input (zlib's gzread reads plain files transparently)
+// and FASTQ (first significant byte '@'; a 4-state record machine, so '@'
+// at the start of a quality line cannot start a record). A byte range on
+// gzip input is refused with rc 3: the ranges are offsets into the
+// compressed file, and gzseek takes uncompressed ones.
+int kp_parse_fasta_range(const char* path, int64_t start, int64_t end,
+                         int64_t max_seqs, KpFasta** out) {
+  bool is_gz = false;
+  {
+    FILE* probe = fopen(path, "rb");
+    if (!probe) return 1;
+    unsigned char magic[2] = {0, 0};
+    size_t got = fread(magic, 1, 2, probe);
+    fclose(probe);
+    is_gz = (got == 2 && magic[0] == 0x1F && magic[1] == 0x8B);
+  }
+  if (is_gz && (start > 0 || end >= 0)) return 3;
   gzFile f = gzopen(path, "rb");
   if (!f) return 1;
+  if (start > 0 && gzseek(f, static_cast<z_off_t>(start), SEEK_SET) < 0) {
+    gzclose(f);
+    return 2;
+  }
+  int64_t remaining = (end < 0) ? INT64_MAX : end - start;
 
   Buf stream;
   I64Buf offsets;
@@ -236,9 +264,10 @@ int kp_parse_fasta(const char* path, int64_t max_seqs, KpFasta** out) {
     }
   };
 
-  while (!done) {
+  while (!done && remaining > 0) {
+    int64_t want = CHUNK < remaining ? CHUNK : remaining;
     int64_t got = static_cast<int64_t>(
-        gzread(f, buf, static_cast<unsigned>(CHUNK)));
+        gzread(f, buf, static_cast<unsigned>(want)));
     if (got < 0) {
       gzclose(f);
       free(buf);
@@ -253,6 +282,7 @@ int kp_parse_fasta(const char* path, int64_t max_seqs, KpFasta** out) {
       return 2;
     }
     if (got == 0) break;
+    remaining -= got;
     int64_t pos = 0;
     while (pos < got && !done) {
       // find newline

@@ -233,9 +233,29 @@ def _encode_shard(inp, n_own, k, canonical, owner_mode, minimizer_m):
     return (b, *_encode_shard_words(b, n_own, k, canonical), None)
 
 
-def _shard_input(inputs, s: int, device: torch.device) -> tuple[torch.Tensor, ...]:
-    """Shard s of each [D, ...] host input array, on the device."""
-    return tuple(host_to_device(np.ascontiguousarray(a[s]), device) for a in inputs)
+def _shard_row(a, s: int, mesh):
+    """Shard s's row of a sharded host operand, given for every shard
+    ([D, ...]) or, as a rank of a process group holds it, for the local
+    shards alone ([len(local_shards), ...]); told apart by the rows, as
+    ``sharded_count._by_shard`` tells them."""
+    n = len(a)
+    if n == mesh.size:
+        return a[s]
+    if n == len(mesh.local_shards):
+        return a[mesh.local_shards.index(s)]
+    raise ValueError(f"a sharded operand of {n} rows on a mesh of {mesh.size} shards, "
+                     f"{len(mesh.local_shards)} of them local")
+
+
+def _shard_program(shard_fn, inputs, n_own_per_shard, mesh):
+    """``run(s)``: the shard program on shard s's row of each host input
+    (``_shard_row``), on the mesh's device, and its owned windows."""
+    def run(s):
+        rows = tuple(host_to_device(np.ascontiguousarray(_shard_row(a, s, mesh)), mesh.device)
+                     for a in inputs)
+        return shard_fn(rows, int(_shard_row(n_own_per_shard, s, mesh)))
+
+    return run
 
 
 def _shift1(x: torch.Tensor, fill) -> torch.Tensor:
@@ -416,6 +436,8 @@ def exchange_words_bucket_sharded(
     bases: [D, T + k - 1] uint8 shards (``shard_stream_with_halo``), or,
     with staged_planes, the (words_le, inval_be) [D, Tw] u32 planes of
     ``stage_shard_planes``. n_own_per_shard: [D] windows each shard owns.
+    Either may hold the local shards' rows alone (a rank's own, [1, ...]
+    on a process group of D > 1 ranks; ``_shard_row``).
     The row route runs when ``row_partition`` is set and the owner is a
     sort key (prefix mode with owners from the routing word, or minimizer
     mode); rows hold max(row_len, 64 D) windows.
@@ -429,10 +451,7 @@ def exchange_words_bucket_sharded(
     shard_fn = raw_shard_fn(_n_windows(inputs, k, staged_planes), k, canonical, mesh.size,
                             owner_mode, minimizer_m, row_partition, row_len)
 
-    def run(s):
-        return shard_fn(_shard_input(inputs, s, mesh.device), int(n_own_per_shard[s]))
-
-    words, flags = mesh.exchange(run)
+    words, flags = mesh.exchange(_shard_program(shard_fn, inputs, n_own_per_shard, mesh))
     return words, mesh.max_reduce(flags)
 
 
@@ -596,10 +615,7 @@ def count_bucket_sharded(
         cap=_capacity(_n_windows(inputs, k, staged_planes), D, canonical),
     )
 
-    def run(s):
-        return shard_fn(_shard_input(inputs, s, mesh.device), int(n_own_per_shard[s]))
-
-    (hi, lo, cnt), flags = mesh.exchange(run)
+    (hi, lo, cnt), flags = mesh.exchange(_shard_program(shard_fn, inputs, n_own_per_shard, mesh))
     overflow = mesh.max_reduce(flags)
     return (*_merge_received(hi, lo, cnt), overflow)
 
@@ -756,10 +772,7 @@ def exchange_superkmers_bucket_sharded(
         cap=_superkmer_capacity(bases.shape[1] - k + 1, D, k, minimizer_m),
     )
 
-    def run(s):
-        return shard_fn(_shard_input((bases,), s, mesh.device), int(n_own_per_shard[s]))
-
-    recv, flags = mesh.exchange(run)
+    recv, flags = mesh.exchange(_shard_program(shard_fn, (bases,), n_own_per_shard, mesh))
     return recv[:-1], recv[-1], mesh.max_reduce(flags)
 
 

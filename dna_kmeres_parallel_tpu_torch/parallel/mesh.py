@@ -17,6 +17,10 @@ its overflow flag, and a mesh runs it:
 - ``ProcessGroupMesh``: one shard per rank of a ``torch.distributed``
   process group (NCCL on cards, gloo on the CPU), the all_to_all an
   ``all_to_all_single`` and the overflow flag an ``all_reduce(MAX)``.
+  A gloo group whose shards run on a card (several ranks sharing one
+  card, where NCCL refuses a second rank) moves each collective's
+  operand through host memory: gloo has no all_to_all and no all_gather
+  of CUDA tensors. The kernels' inputs and outputs stay on the card.
 
 Every mesh has ``size`` (D), ``device``, ``local_shards`` (the shard
 indices this process runs), ``exchange`` (run the shard program, all_to_all
@@ -126,6 +130,16 @@ class ProcessGroupMesh:
         self.size = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
         self.device = runtime.resolve_device(device)
+        #: gloo on a card: every collective's operand goes through the host
+        self.via_host = self.device.type == "cuda" and dist.get_backend(group) == "gloo"
+
+    def _wire(self, t: torch.Tensor) -> torch.Tensor:
+        """A collective's operand as the backend takes it."""
+        return t.cpu() if self.via_host else t
+
+    def _back(self, t: torch.Tensor) -> torch.Tensor:
+        """A collective's result on the mesh's device."""
+        return t.to(self.device) if self.via_host else t
 
     @property
     def local_shards(self) -> list[int]:
@@ -140,19 +154,19 @@ class ProcessGroupMesh:
         planes, overflow = shard_fn(self.rank)
         recv = []
         for p in planes:
-            p = p.contiguous()
+            p = self._wire(p.contiguous())
             out = torch.empty_like(p)
             dist.all_to_all_single(
                 out.view(torch.uint8), p.view(torch.uint8), group=self.group
             )
-            recv.append(out.reshape(1, -1))
+            recv.append(self._back(out).reshape(1, -1))
         return tuple(recv), [overflow]
 
     def max_reduce(self, flags) -> bool:
         import torch.distributed as dist
 
         flag = torch.stack([torch.as_tensor(f) for f in flags]).any().to(torch.int32)
-        flag = flag.reshape(1).to(self.device)
+        flag = self._wire(flag.reshape(1).to(self.device))
         dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.group)
         return bool(flag.item())
 
@@ -175,8 +189,9 @@ class ProcessGroupMesh:
 
         part = torch.zeros_like(acc)
         shard_fn(self.rank, part)
+        part = self._wire(part)
         dist.all_reduce(part, op=dist.ReduceOp.SUM, group=self.group)
-        acc += part
+        acc += self._back(part)
         return acc
 
     def all_gather(self, local: torch.Tensor) -> torch.Tensor:
@@ -184,10 +199,10 @@ class ProcessGroupMesh:
         (``all_gather_into_tensor``; every rank holds as many rows)."""
         import torch.distributed as dist
 
-        local = local.contiguous()
+        local = self._wire(local.contiguous())
         out = local.new_empty((self.size * local.shape[0], *local.shape[1:]))
         dist.all_gather_into_tensor(out, local, group=self.group)
-        return out
+        return self._back(out)
 
     def halo(self, heads: torch.Tensor) -> torch.Tensor:
         """heads: [1, n], this rank's first n bases. One ``all_gather`` of

@@ -283,7 +283,8 @@ def counted_dense_plain_versions(monkeypatch):
     """Route the dense path's kernel entries to their plain versions on the
     CPU, each adding to the launch count of the kernel the card would run
     (``u8_route`` for a u8 stream; K7's packed entry for the packed batch;
-    K1 for the planes' encode, K9 for the u8 stream's)."""
+    K1, or K1m with a minimizer plane, for the planes' encode, K9 for the
+    u8 stream's)."""
     from dna_kmeres_parallel_tpu_torch.ops import encode_cuda, histogram_cuda
 
     counters = {"small": "SMALL_LAUNCHES", "u8": "U8_LAUNCHES", "any": "ANY_LAUNCHES"}
@@ -303,7 +304,10 @@ def counted_dense_plain_versions(monkeypatch):
         return histogram_cuda.hist_packed_small_reference(*a, **kw)
 
     def encode(*a, **kw):
-        encode_cuda.LAUNCHES += 1
+        if (a[5] if len(a) > 5 else kw.get("minimizer_m")) is None:
+            encode_cuda.LAUNCHES += 1
+        else:
+            encode_cuda.MIN_LAUNCHES += 1
         return plain_encode(*a, **kw)
 
     plain_stream_encode = encode_cuda.encode_stream_reference
@@ -708,4 +712,52 @@ def test_mesh_distance_rehearsal(tmp_path, monkeypatch, counted_plain_versions,
         assert fired[names[i + 2]] == {"min_sum_rect": D * 5}  # 40 reads, panels of 8
     assert fired[names[6]] == fired[names[7]] == {"encode_packed": chip_smoke.MESH_D}
     assert fired[names[8]] == {"counts_matrix": 1, "min_sum_rect": chip_smoke.MESH_D}
+    assert not list(work.iterdir())
+
+
+def test_multihost_rehearsal(records, tmp_path, monkeypatch, counted_plain_versions,
+                             counted_dense_plain_versions):
+    # Phase 12 at a small size: the main path's two records (64 kbase
+    # steps of the dense count, the bucketed runs over the first 128
+    # kbase), 30 distance records in panels of 16, 40 reads of a 3,000-base
+    # genome in panels of 8; the children (two gloo ranks on the CPU) over
+    # the first record in 64 kbase steps and the distances in panels of 4.
+    # A 1-rank gloo group stands in for NCCL; the children's plain versions
+    # count no launch.
+    from dna_kmeres_parallel_tpu_torch.models import sparse_engine
+    from dna_kmeres_parallel_tpu_torch.utils import io
+
+    for name, value in (("MULTIHOST_BATCH", 1 << 16), ("MULTIHOST_BUCKET_BASES", 1 << 17),
+                        ("MULTIHOST_CHILD_BASES", 1 << 16), ("MULTIHOST_CHILD_BATCH", 1 << 16),
+                        ("MULTIHOST_DIST_ROWS", 30), ("MULTIHOST_CHILD_PANEL", 4),
+                        ("PANEL_ROWS", 16), ("READ_PANEL_ROWS", 8)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    main_fasta = tmp_path / "smoke.fasta"
+    chip_smoke.write_fasta(main_fasta, *records)
+    hists = {(3, False): chip_smoke.reference_hist(records[0], 3, False, CPU),
+             (8, True): chip_smoke.reference_hist(records[0], 8, True, CPU)}
+    head = chip_smoke.head_records(records, 1 << 17)
+    assert head[0].size >= 1 << 17
+    reads = chip_smoke.read_set(40, 3000)
+    one_shot = tmp_path / "one_shot.csv"
+    io.write_distances_csv(one_shot, sparse_engine.distance_sparse_packed(
+        chip_smoke.record_strings(*reads), chip_smoke.SPARSE_K, device="cpu", union="on"))
+    union = {"records": reads, "csv": one_shot.read_bytes()}
+    work = tmp_path / "work"
+    work.mkdir()
+    launches = chip_smoke.phase_multihost(main_fasta, hists, head, chip_smoke.distance_records(40),
+                                          union, CPU, "cpu", work)
+    fired = {name: {k: c for k, c in got.items() if c} for name, got in launches.items()}
+    names = list(fired)
+    n = -(-records[0].size // (1 << 16))
+    steps = -(-head[0].size // (1 << 16))
+    assert names[0] == chip_smoke.MULTIHOST_MAIN and fired[names[0]] == {"hist_u8": 1}
+    assert fired[names[1]] == {"hist_u8_small": chip_smoke.MULTIHOST_STOP_STEPS}
+    assert fired[names[2]] == {"hist_u8_small": n - chip_smoke.MULTIHOST_STOP_STEPS}
+    assert fired[names[3]] == {"encode_packed_minimizer": steps}
+    assert fired[names[4]] == {"encode_packed": steps}
+    assert fired[names[5]] == {"counts_matrix": 1, "min_sum_rect": 2}  # 29 rows, panels of 16
+    assert fired[names[6]] == {}  # the CPU takes the host route at k=21
+    assert len(names) == 7 + 2 * 5 and not any(fired[name] for name in names[7:])
+    assert all("rank 0" in name or "rank 1" in name for name in names[7:])
     assert not list(work.iterdir())

@@ -129,6 +129,19 @@ sparse_engine.distance_sparse_stream_to_csv(seqs, 21, out, panel_rows=1, device=
                                             union="on", mesh=mesh4)
 meshed["sparse csv"] = open(out, "rb").read().decode()
 graft_entry.dryrun_multichip(4, device="cpu")
+# The multi-host layer in one process: byte ranges, the dense and bucketed
+# counts on a local mesh, the row-sharded distances with their stitch.
+from dna_kmeres_parallel_tpu_torch.parallel import multihost
+
+hist, _, _ = multihost.count_file_multihost(fasta_path, port.KmerConfig(k=3), mesh4)
+meshed["multihost3"] = hist.tolist()
+codes, counts, *_ = multihost.count_file_bucketed_multihost_resumable(
+    fasta_path, port.KmerConfig(k=21), LocalMesh(2, "cpu"), batch_bases=128,
+    owner_mode="minimizer")
+meshed["multihost21"] = {codec.code_to_kmer(int(c), 21): int(n) for c, n in zip(codes, counts)}
+out = sys.argv[2] + ".multihost.csv"
+multihost.distance_file_multihost_resumable(fasta_path, port.KmerConfig(k=3), out, device="cpu")
+meshed["multihost csv"] = open(out, "rb").read().decode()
 banned = [
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "dna_kmeres_parallel_tpu")
@@ -188,6 +201,9 @@ def test_port_runs_with_jax_refused(tmp_path):
     assert meshed["count_sharded3"] == flat_hist.tolist()
     assert meshed["distance3"] == want.view(np.uint32).tolist()
     assert meshed["sparse csv"] == text
+    assert meshed["multihost3"] == flat_hist.tolist()
+    assert meshed["multihost21"] == oracle.count_table_any_k(SEQS, 21)
+    assert meshed["multihost csv"] == "".join("%f\n" % v for v in want)
 
 
 _NO_JAX_CLI = r"""
