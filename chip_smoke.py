@@ -122,8 +122,19 @@ exits nonzero:
    bound; and the rates the distance gates read, measured by
    ``ops/calibrate`` (K3's bin-pairs a second at a dense [1024, 4^9] and
    a union [2048, 131,072] matrix, the two-pointer's entry-pairs a second
-   a thread, pinned H2D and D2H, a tiny job's round trip) beside the same
-   rates read off the phases;
+   a thread, pinned H2D and D2H, a tiny job's round trip, K3 at [16384,
+   64] and the threshold route's int8 multiply-adds a second) beside the
+   same rates read off the phases; then the threshold (min,+) route
+   (``ops/threshold_cuda``: 0/1 planes of every threshold and one
+   ``torch._int_mm``) at (a), (b), (d), (g) k=9 and (g)'s k=10 panel, on
+   the matrices built above: held to K3/K4 and the plain product
+   (max_abs_err 0), timed whole and its planes alone beside K3/K4,
+   ``torch.cdist(p=1)`` and its bound, with the gate's choice under the
+   calibrated rates and the defaults (the calibrated gate must take the
+   measured faster route wherever the two differ by 1.5x or more). The
+   paths above run the gate's route: (b) and (g) k=9 take the threshold
+   route where it decides so, (d) once more with it off (K3) and (g)'s
+   k=10 stream once more with it off (K4), their CSVs byte-identical;
 10. the command line, ``kmer-gpu`` (``cli.main`` in this process, the
    default ``--device cuda``): ``calibrate`` into a directory of the run
    (its file loaded back as ``DistanceRates`` and printed beside the
@@ -1670,6 +1681,8 @@ COUNTERS = {
     "owner_segments": ("sort_cuda", "OWNER_LAUNCHES"),
     "row_roll": ("sort_cuda", "ROLL_LAUNCHES"),
     "row_sort": ("sort_cuda", "ROW_SORT_LAUNCHES"),
+    # not a kernel: the threshold route's products (torch._int_mm)
+    "min_sum_threshold": ("threshold_cuda", "THRESHOLD_LAUNCHES"),
 }
 
 
@@ -1680,9 +1693,11 @@ def _counter_module(name: str):
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0, and K3/K4's counts by route."""
+    """Set every kernel's launch count to 0, K3/K4's counts by route and
+    the threshold route's GEMM count."""
     for module, attr in COUNTERS.values():
         setattr(_counter_module(module), attr, 0)
+    _counter_module("threshold_cuda").GEMM_LAUNCHES = 0
     routes = _counter_module("distance_cuda").ROUTE_LAUNCHES
     for route in routes:
         routes[route] = 0
@@ -2261,6 +2276,22 @@ def with_launches(shapes: list, kernel: str, launches: dict) -> list:
         for sh in shapes]
 
 
+def follow_route(want: dict, route: str | None = None, got: dict | None = None) -> dict:
+    """``want`` with its K3/K4 launches moved to the threshold route where
+    the run took it (the gate decides): by the ``route`` the run reports,
+    else by the launch counts (``got``, or those just read)."""
+    if route is None:
+        taken = (read_launches() if got is None else got).get("min_sum_threshold", 0) > 0
+    else:
+        taken = "threshold" in route
+    if not taken:
+        return want
+    products = {k: want[k] for k in ("min_sum_tri", "min_sum_rect") if k in want}
+    out = {k: v for k, v in want.items() if k not in products}
+    out["min_sum_threshold"] = sum(products.values())
+    return out
+
+
 def expect_launches(name: str, want: dict, got: dict | None = None) -> dict:
     """The launch counts of the run just read (or a child's, ``got``)
     against what its path implies."""
@@ -2300,7 +2331,8 @@ def check_in_memory_run(name: str, k: int, n: int, run, records, dev, card: str,
     t = time.perf_counter()
     res = run()
     wall = time.perf_counter() - t
-    launches = expect_launches(name, {**dict.fromkeys(read_launches(), 0), **want})
+    launches = expect_launches(name, {**dict.fromkeys(read_launches(), 0),
+                                      **follow_route(want, res.route)})
     taken = routes_taken()
     ref_counts = reference_counts(stream, starts[:n], lengths[:n], k, False, dev)
     if res.n != n or not np.array_equal(res.counts, ref_counts.cpu().numpy()):
@@ -2313,7 +2345,8 @@ def check_in_memory_run(name: str, k: int, n: int, run, records, dev, card: str,
     if not same_bits(res.packed, want_packed):
         raise AssertionError(f"{name}: distances differ from the reference")
     report_run(name, wall, want_packed.size, res.phases,
-               f"K3 routes {taken}; counts, min-sums and distances equal the reference", card)
+               f"(min,+) route {res.route}, K3 routes {taken}; counts, min-sums and distances "
+               "equal the reference", card)
     if keep is not None:
         keep[name[:3]] = res.packed
     del counts, ref_sums, ref_counts, res
@@ -2356,7 +2389,8 @@ def phase_distance_path(records, path: Path, dev, card: str, keep: dict | None =
     t = time.perf_counter()
     out = eng.distance_stream_to_csv(seqs, csv, panel_rows=PANEL_ROWS, max_panels=1)
     wall = time.perf_counter() - t
-    launches["(c)"] = expect_launches(name, {**none, "counts_matrix": 1, "min_sum_rect": 1})
+    launches["(c)"] = expect_launches(
+        name, {**none, **follow_route({"counts_matrix": 1, "min_sum_rect": 1}, out["route"])})
     taken = routes_taken()
     rows = min(PANEL_ROWS, S - 1)
     ref_counts = reference_counts(stream, starts, lengths, 3, False, dev)
@@ -2373,7 +2407,8 @@ def phase_distance_path(records, path: Path, dev, card: str, keep: dict | None =
         raise AssertionError(f"{name}: panel distances differ from the reference")
     checked = check_csv(csv, want)
     report_run(name, wall, want.size, out["phases"],
-               f"K4 routes {taken}; counts, min-sums and distances equal the reference, "
+               f"(min,+) route {out['route']}, K4 routes {taken}; counts, min-sums and "
+               "distances equal the reference, "
                f"{csv.stat().st_size} CSV bytes, {checked} sampled lines equal %f", card)
     if keep is None:
         csv.unlink()
@@ -2408,8 +2443,13 @@ WIDE_ROWS = 256
 #: pairs held against numpy.intersect1d in phases (d) and (e)
 PAIR_SAMPLE = 100_000
 SPARSE_MAIN = "(d) union=on"
+#: (d) with the threshold route off: the run that keeps K3 on (d)
+SPARSE_OFF = "(d) K3, threshold=off"
 MIDK_MAIN = "(g) k=9"
 MIDK_STREAM = "(g) k=10 stream"
+#: (g)'s k=10 stream with the threshold route off: the run that keeps K4
+#: on (g)
+MIDK_STREAM_OFF = "(g) K4 k=10 stream, threshold=off"
 
 
 def read_set(n_reads: int, genome_bases: int, seed: int = 4):
@@ -2553,36 +2593,46 @@ def phase_union_path(dev, card: str, tmp: Path) -> dict:
         f"tables and {idx.size} pairs by numpy.intersect1d in {time.perf_counter() - t:.1f} s "
         f"[{card}]")
     launches, csvs, host_s = {}, {}, None
-    for union in ("on", "off", "auto"):
-        name = f"(d) union={union}"
+    # The union route with the threshold gate's choice, and with the
+    # threshold route off (K3 over the union matrix); the host route; auto.
+    for union, threshold in (("on", "auto"), ("on", "off"), ("off", "auto"), ("auto", "auto")):
+        name = SPARSE_OFF if (union, threshold) == ("on", "off") else f"(d) union={union}"
         info = {}
         reset_launches()
         t = time.perf_counter()
-        packed = sparse_engine.distance_sparse_packed(seqs, k, device=dev, union=union, info=info)
+        packed = sparse_engine.distance_sparse_packed(seqs, k, device=dev, union=union,
+                                                      threshold=threshold, info=info)
         wall = time.perf_counter() - t
         unioned = info["route"].startswith("union/")
         if unioned != (union != "off") and union != "auto":
             raise AssertionError(f"{name}: route {info['route']}")
-        launches[name] = expect_launches(name, {**none, "min_sum_tri": int(unioned)})
+        if threshold == "off" and info["route"].endswith("threshold"):
+            raise AssertionError(f"{name}: route {info['route']} with the threshold route off")
+        launches[name] = expect_launches(
+            name, {**none, **follow_route({"min_sum_tri": int(unioned)}, info["route"])})
         if not same_bits(packed[idx], want):
             raise AssertionError(f"{name}: distances differ from the reference")
-        csvs[union] = tmp / f"union_{union}.csv"
-        io.write_distances_csv(csvs[union], packed)
+        csvs[name] = tmp / f"union_{union}_{threshold}.csv"
+        io.write_distances_csv(csvs[name], packed)
         if union == "off":
             host_s = info["phases"]["min_sum"]
         predicted = (f"predicted device {info['t_dev_total']:.4f} s, host "
                      f"{info['t_host_total']:.4f} s" if "t_dev_total" in info else "no prediction")
-        report_run(f"(d) distance_sparse_packed(k={k}, {S} reads, union={union})", wall,
-                   n_pairs, info["phases"],
+        if "t_threshold" in info:
+            predicted += (f"; threshold gate: cmax {info['threshold_cmax']}, predicted "
+                          f"{info['t_threshold']:.6f} s against K3's {info['t_minplus']:.6f} s")
+        report_run(f"(d) distance_sparse_packed(k={k}, {S} reads, union={union}, "
+                   f"threshold={threshold})", wall, n_pairs, info["phases"],
                    f"route {info['route']} (K3 routes {routes_taken()}); union of "
                    f"{info.get('union_bins')} codes, {info.get('union_bytes')} bytes planned; "
                    f"{predicted}; {idx.size} sampled pairs equal the reference", card)
         del packed
-    first = csvs["on"].read_bytes()
-    for union, path in csvs.items():
+    first = csvs["(d) union=on"].read_bytes()
+    for name, path in csvs.items():
         if path.read_bytes() != first:
-            raise AssertionError(f"(d) union={union}: CSV differs from union=on")
-    log(f"(d) CSVs of union=on, off and auto byte-identical ({len(first)} bytes) [{card}]")
+            raise AssertionError(f"{name}: CSV differs from union=on")
+    log(f"(d) CSVs of union=on (threshold auto and off), off and auto byte-identical "
+        f"({len(first)} bytes) [{card}]")
 
     name = f"(d) stream union=on panel_rows={READ_PANEL_ROWS}"
     csv, ckpt = tmp / "union_stream.csv", tmp / "union_stream.json"
@@ -2593,7 +2643,8 @@ def phase_union_path(dev, card: str, tmp: Path) -> dict:
     leg2 = sparse_engine.distance_sparse_stream_to_csv(seqs, k, csv, **kw)
     wall = time.perf_counter() - t
     n_panels = len(panel_shapes(S, READ_PANEL_ROWS))
-    launches[name] = expect_launches(name, {**none, "min_sum_rect": n_panels})
+    launches[name] = expect_launches(
+        name, {**none, **follow_route({"min_sum_rect": n_panels}, leg2["route"])})
     if leg1["completed"] or not (leg2["resumed"] and leg2["completed"]):
         raise AssertionError(f"{name}: legs {leg1['completed']}, {leg2['resumed']}")
     if csv.read_bytes() != first:
@@ -2602,7 +2653,7 @@ def phase_union_path(dev, card: str, tmp: Path) -> dict:
                f"stopped after {READ_STOP_PANELS} panels, resumed)", wall, n_pairs,
                {f"leg{i}_{p}": v for i, leg in ((1, leg1), (2, leg2))
                 for p, v in leg["phases"].items()},
-               f"route {leg2['route']}, {n_panels} K4 launches (routes {routes_taken()}); "
+               f"route {leg2['route']}, {n_panels} panels (K4 routes {routes_taken()}); "
                f"CSV byte-identical to the one-shot CSV", card)
     for path in (*csvs.values(), csv, ckpt):
         path.unlink()
@@ -2615,7 +2666,8 @@ def phase_union_path(dev, card: str, tmp: Path) -> dict:
     packed = sparse_engine.distance_sparse_packed(seqs, k, True, device=dev, info=info)
     wall = time.perf_counter() - t
     unioned = info["route"].startswith("union/")
-    launches[name] = expect_launches(name, {**none, "min_sum_tri": int(unioned)})
+    launches[name] = expect_launches(
+        name, {**none, **follow_route({"min_sum_tri": int(unioned)}, info["route"])})
     ref_c = reference_pair_tables(*records, k, True, dev)
     sub = idx[: max(1, idx.size // 5)]
     if not same_bits(packed[sub], reference_pair_distances(ref_c, lengths, k, sub)):
@@ -2775,10 +2827,12 @@ def phase_long_path(dev, card: str) -> dict:
 
 def phase_midk_path(records, dev, card: str, tmp: Path) -> dict:
     """(g): dense mid k. KmerEngine(k=9).distance_sequences on the first
-    MIDK_ROWS distance records (K2's global route, K3 at 4^9 bins) and
-    distance_stream_to_csv at k=10 on the first MIDK_STREAM_ROWS (K2's
-    global route, K4 at 4^10 bins), each against the plain reference.
-    Returns the launch counts."""
+    MIDK_ROWS distance records (K2's global route, then K3 at 4^9 bins or
+    the threshold route, as the gate decides) and distance_stream_to_csv
+    at k=10 on the first MIDK_STREAM_ROWS (K2's global route, the gate's
+    route), and again with the threshold route off (K4 at 4^10 bins; the
+    two CSVs byte-identical), each against the plain reference. Returns
+    the launch counts."""
     import torch
 
     from dna_kmeres_parallel_tpu_torch import KmerConfig
@@ -2793,23 +2847,38 @@ def phase_midk_path(records, dev, card: str, tmp: Path) -> dict:
         records, dev, card, {"counts_matrix": 1, "counts_matrix_global": 1, "min_sum_tri": 1})}
 
     n = min(MIDK_STREAM_ROWS, lengths.size)
-    name = MIDK_STREAM
-    csv = tmp / "midk.csv"
-    reset_launches()
-    t = time.perf_counter()
-    out = KmerEngine(KmerConfig(k=10), device=dev).distance_stream_to_csv(seqs[:n], csv)
-    wall = time.perf_counter() - t
-    launches[name] = expect_launches(name, {**dict.fromkeys(read_launches(), 0), "counts_matrix": 1,
-                                            "counts_matrix_global": 1, "min_sum_rect": 1})
-    taken = routes_taken()
     ref_counts = reference_counts(stream, starts[:n], lengths[:n], 10, False, dev)
     ref_sums = reference_min_sums(ref_counts, ref_counts)
     del ref_counts
     want = reference_packed(ref_sums.cpu().numpy(), lengths[:n], lengths[:n], 10)
-    checked = check_csv(csv, want)
-    report_run(f"{name}: KmerEngine(k=10).distance_stream_to_csv({n} records)", wall, want.size,
-               out["phases"], f"K4 routes {taken}; {checked} CSV lines equal the reference", card)
-    csv.unlink()
+    csvs = {}
+    # the gate's route, then the threshold route off (K4): the CSVs
+    # byte-identical
+    for name, threshold in ((MIDK_STREAM, "auto"), (MIDK_STREAM_OFF, "off")):
+        csvs[name] = csv = tmp / f"midk_{threshold}.csv"
+        reset_launches()
+        t = time.perf_counter()
+        out = KmerEngine(KmerConfig(k=10), device=dev, threshold=threshold
+                         ).distance_stream_to_csv(seqs[:n], csv)
+        wall = time.perf_counter() - t
+        if threshold == "off" and out["route"] != "minplus":
+            raise AssertionError(f"{name}: route {out['route']} with the threshold route off")
+        launches[name] = expect_launches(name, {
+            **dict.fromkeys(read_launches(), 0), **follow_route(
+                {"counts_matrix": 1, "counts_matrix_global": 1, "min_sum_rect": 1},
+                out["route"])})
+        taken = routes_taken()
+        checked = check_csv(csv, want)
+        report_run(f"{name}: KmerEngine(k=10, threshold={threshold}).distance_stream_to_csv("
+                   f"{n} records)", wall, want.size, out["phases"],
+                   f"(min,+) route {out['route']}, K4 routes {taken}; {checked} CSV lines equal "
+                   "the reference", card)
+    if csvs[MIDK_STREAM].read_bytes() != csvs[MIDK_STREAM_OFF].read_bytes():
+        raise AssertionError(f"{MIDK_STREAM}: the CSVs with the threshold route on and off differ")
+    log(f"{MIDK_STREAM}: CSVs with the threshold route on and off byte-identical "
+        f"({csvs[MIDK_STREAM].stat().st_size} bytes) [{card}]")
+    for csv in csvs.values():
+        csv.unlink()
     del ref_sums
     torch.cuda.empty_cache()
     return launches
@@ -2902,10 +2971,13 @@ def phase_wide_kernels(dev, card: str, records, union_tables) -> dict:
     codes, cnts, offs = union_tables
     plan = sparse_engine.union_dense_plan(codes, cnts, offs, device=dev, union="on")
     mats[SPARSE_MAIN] = sparse_engine.union_on_device(codes, cnts, offs, plan, dev)
-    rates, plain = {}, {}
-    # K4's run on a path: (d)'s stream and (g)'s k=10 stream, whose one
-    # panel is its whole [256, 4^10] matrix; (g) k=10 has no K3 and no hold.
-    panel_runs = {SPARSE_MAIN: "(d) stream", MIDK_STREAM: MIDK_STREAM}
+    rates, plain, kept = {}, {}, {}
+    # K3's and K4's runs on a path: (d) with the threshold route off, and
+    # (g)'s k=9 run (as its gate decides); (d)'s stream and (g)'s k=10
+    # stream with the threshold route off, whose one panel is its whole
+    # [256, 4^10] matrix; (g) k=10 has no K3 and no hold.
+    tri_runs = {SPARSE_MAIN: SPARSE_OFF, MIDK_MAIN: MIDK_MAIN}
+    panel_runs = {SPARSE_MAIN: "(d) stream", MIDK_STREAM: MIDK_STREAM_OFF}
     for run, mat in mats.items():
         S, B = mat.shape
         kinds = [("path", mat)]
@@ -2918,12 +2990,15 @@ def phase_wide_kernels(dev, card: str, records, union_tables) -> dict:
                 out = torch.empty(rows, rows, dtype=torch.int32, device=dev)
                 distance_cuda.launch_min_sum_tri(a, out, route)
                 plain_ms = time_once_ms(lambda: plain.__setitem__(0, distance.min_sum_matrix(a)))
+                if kind == "path":
+                    kept[run, "tri"] = plain[0]
                 check("min_sum_tri", out, plain.pop(0), f"[{rows}, {B}] ({route})")
                 ms = time_ms(lambda: distance_cuda.launch_min_sum_tri(a, out, route), 3)
                 af = a.float()
                 bound = min_sum_bound([(rows, rows)], B, symmetric=True)
                 shapes["min_sum_tri"].append(dict(
-                    run=run if kind == "path" else None, shape=f"[{rows}, {B}] ({route})",
+                    run=tri_runs[run] if kind == "path" else None,
+                    shape=f"[{rows}, {B}] ({route})",
                     ms=ms, plain_ms=plain_ms,
                     library_ms=time_once_ms(lambda: torch.cdist(af, af, p=1)),
                     bound_ms=bound[0], bound_by=bound[1]))
@@ -2938,6 +3013,8 @@ def phase_wide_kernels(dev, card: str, records, union_tables) -> dict:
             out = torch.empty(p.shape[0], rows, dtype=torch.int32, device=dev)
             distance_cuda.launch_min_sum_rect(p, a, out, route)
             plain_ms = time_once_ms(lambda: plain.__setitem__(0, distance.min_sum_matrix(p, a)))
+            if kind == "path":
+                kept[run, "rect"] = plain[0]
             check("min_sum_rect", out, plain.pop(0),
                   f"[{p.shape[0]}, {B}] x [{rows}, {B}] ({route})")
             pf, cf = p.float(), a.float()
@@ -2956,9 +3033,11 @@ def phase_wide_kernels(dev, card: str, records, union_tables) -> dict:
             log(f"kernel time {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
                 f"{r['plain_ms']:.3f} ms, torch.cdist {lib}, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}) [{card}]")
-    del mats
     torch.cuda.empty_cache()
-    return {"shapes": shapes, "max_abs_err": worst, "tri_bin_pairs_per_sec": rates}
+    # the path's matrices and their plain products stay for the threshold
+    # phase (phase_threshold)
+    return {"shapes": shapes, "max_abs_err": worst, "tri_bin_pairs_per_sec": rates,
+            "mats": mats, "plain": kept, "union_plan": plan}
 
 
 def measure_gate_rates(dev, card: str, host_min_sum_s: float, union_tables, tri_rates: dict) -> dict:
@@ -2988,6 +3067,205 @@ def measure_gate_rates(dev, card: str, host_min_sum_s: float, union_tables, tri_
     }
     log("gate rates read off this run's phases: " + json.dumps(phase) + f" [{card}]")
     return measured
+
+
+#: phase 9's threshold part: Hopper's dense int8 tensor-core peak (SXM,
+#: 1,979 TOPS) in multiply-adds a second, for the route's bound; and how
+#: far apart the route's and K3/K4's measured times must be before the
+#: gate is held to the faster one
+INT8_MACS_PER_S = 9.9e14
+GATE_MARGIN = 1.5
+
+
+def threshold_bound(rows: int, cols: int, B: int, cmax: int, symmetric: bool) -> tuple[float, str]:
+    """The least time of the threshold route over [rows, B] x [cols, B]
+    at ``cmax`` thresholds: the larger of its int8 multiply-adds (the
+    whole rectangle, rows x cols x B x cmax) over the tensor cores' peak
+    and its bytes (the int32 counts read, the int8 planes written and
+    read, the int32 product written) over the memory rate."""
+    sides = rows if symmetric else rows + cols
+    n_bytes = sides * B * 4 + 2 * sides * B * cmax + rows * cols * 4
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = rows * cols * B * cmax / INT8_MACS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def host_ms(fn, iters: int) -> float:
+    """Mean host-clock milliseconds per call after one warm-up (the CPU's
+    stand-in for ``time_ms``)."""
+    fn()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t) * 1e3 / iters
+
+
+def threshold_case(name: str, a, other, minplus, choose, *, minplus_ms=None, cdist_ms=None,
+                   plain=None) -> dict:
+    """One shape of the threshold phase: counts ``a`` against ``other``
+    (None: the symmetric product), ``minplus()`` the K3/K4 product the
+    route displaces there, ``choose(rates)`` the gate's choice under
+    ``rates`` (the bucket, or None for K3/K4), and what the run measured
+    already: K3/K4's and ``torch.cdist(p=1)``'s milliseconds and the plain
+    product (each measured or computed here when None)."""
+    return dict(name=name, a=a, other=other, minplus=minplus, choose=choose,
+                minplus_ms=minplus_ms, cdist_ms=cdist_ms, plain=plain)
+
+
+def phase_threshold(dev, card: str, cases: list, rates, defaults, hold_gate: bool = True) -> list:
+    """The threshold route at the distance path's shapes: for each case
+    the route (``threshold_cuda.min_sum_matrix_threshold`` at the bucket
+    of the largest count) held to K3/K4 and to the plain product
+    (max_abs_err 0), timed whole and its planes alone (CUDA events; the
+    host clock on the CPU) beside K3/K4, ``torch.cdist(p=1)`` and its
+    bound, with the gate's choice under the calibrated ``rates`` and
+    under the ``defaults``. On the card (and with ``hold_gate``) the
+    calibrated gate must take the measured faster route wherever the two
+    times differ by GATE_MARGIN or more. Returns each case's record."""
+    import torch
+
+    from dna_kmeres_parallel_tpu_torch.models import sparse_engine
+    from dna_kmeres_parallel_tpu_torch.ops import distance, threshold_cuda
+
+    on_card = dev.type == "cuda"
+    timer = time_ms if on_card else host_ms
+    once = time_once_ms if on_card else (lambda fn: host_ms(fn, 1))
+    records = []
+    t_phase = time.perf_counter()
+    for case in cases:
+        a, other, name = case["a"], case["other"], case["name"]
+        cmax, _ = sparse_engine.counts_extent(a)
+        if other is not None:
+            cmax = max(cmax, sparse_engine.counts_extent(other)[0])
+        bucket = 1 << max(cmax - 1, 0).bit_length()
+        rows, B = a.shape
+        cols = rows if other is None else other.shape[0]
+        reset_launches()
+        got = threshold_cuda.min_sum_matrix_threshold(a, bucket, other)
+        launched = dict(read_launches())
+        gemms = threshold_cuda.GEMM_LAUNCHES
+        ref = case["minplus"]()
+        plain = case["plain"]
+        if plain is None:
+            plain = distance.min_sum_matrix(a, other)
+        err = max(max_abs_err((got,), (ref,)), max_abs_err((got,), (plain,)))
+        if err:
+            raise AssertionError(f"threshold {name}: max_abs_err {err} against K3/K4 and plain")
+        if on_card and launched["min_sum_threshold"] != 1:
+            raise AssertionError(f"threshold {name}: launches {launched}")
+        del got, ref, plain
+        budget = threshold_cuda.default_budget(a, other)
+        chunks = threshold_cuda.plane_chunks(rows, None if other is None else cols, B, bucket,
+                                             budget)
+
+        def planes():
+            for c in chunks:
+                threshold_cuda.build_planes(a, *c)
+                if other is not None:
+                    threshold_cuda.build_planes(other, *c)
+
+        route_ms = timer(lambda: threshold_cuda.min_sum_matrix_threshold(a, bucket, other), 5)
+        planes_ms = timer(planes, 5)
+        minplus_ms = case["minplus_ms"]
+        if minplus_ms is None:
+            minplus_ms = timer(case["minplus"], 3)
+        cdist_ms = case["cdist_ms"]
+        if cdist_ms is None:
+            af = a.float()
+            of = af if other is None else other.float()
+            cdist_ms = once(lambda: torch.cdist(af, of, p=1))
+            del af, of
+        bound = threshold_bound(rows, cols, B, bucket, other is None)
+        chosen = case["choose"](rates)
+        default = case["choose"](defaults)
+        faster = "threshold" if route_ms < minplus_ms else "minplus"
+        pick = "minplus" if chosen is None else "threshold"
+        apart = max(route_ms, minplus_ms) / max(min(route_ms, minplus_ms), 1e-9)
+        rec = dict(shape=name, dims=[rows, cols, B], cmax=cmax, bucket=bucket, gemms=gemms,
+                   ms=route_ms, planes_ms=planes_ms, minplus_ms=minplus_ms, cdist_ms=cdist_ms,
+                   bound_ms=bound[0], bound_by=bound[1], gate=pick,
+                   gate_defaults="minplus" if default is None else "threshold",
+                   faster=faster, max_abs_err=err)
+        records.append(rec)
+        log(f"threshold {name} [{rows}, {B}] x [{cols}, {B}], cmax {cmax} (bucket {bucket}, "
+            f"{gemms} GEMMs): route {route_ms:.4f} ms (planes {planes_ms:.4f} ms), K3/K4 "
+            f"{minplus_ms:.4f} ms, torch.cdist {cdist_ms:.4f} ms, bound {bound[0]:.4f} ms "
+            f"({bound[1]}); max_abs_err {err} against K3/K4 and plain; gate: {pick} "
+            f"(calibrated), {rec['gate_defaults']} (defaults); measured faster: {faster} "
+            f"[{card}]")
+        if hold_gate and on_card and pick != faster and apart >= GATE_MARGIN:
+            raise AssertionError(f"threshold {name}: the calibrated gate takes {pick}, but "
+                                 f"{faster} measured {apart:.2f}x faster")
+        if on_card:
+            torch.cuda.empty_cache()
+    log("threshold route records: " + json.dumps(records))
+    log(f"phase 9 threshold route at {len(records)} shapes in "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return records
+
+
+def threshold_cases(records, dist: dict, wide: dict, union_tables, dev) -> list:
+    """The threshold phase's shapes, from the matrices the run built: (a)
+    the first DIST_ROWS_A distance records' k=3 counts and (b) the first
+    DIST_ROWS_B's k=8 counts (K2, built again here; K3's and cdist's time
+    at (a) from phase 5), (d)'s union matrix (its real [S, D] part), (g)'s
+    k=9 counts and (g) k=10's own panel (``phase_wide_kernels``' matrices,
+    plain products and times). Each gate choice is the one the path's own
+    entry makes: the dense engine's (symmetric one-shot, or a panel of
+    distance_stream_to_csv's 2,048 rows) or the union plan's."""
+    import torch
+
+    from dna_kmeres_parallel_tpu_torch import KmerConfig
+    from dna_kmeres_parallel_tpu_torch.models import sparse_engine
+    from dna_kmeres_parallel_tpu_torch.models.engine import KmerEngine
+    from dna_kmeres_parallel_tpu_torch.ops import distance_cuda, histogram_cuda
+
+    lengths = records[2]
+
+    def counts(n: int, k: int):
+        sub = first_records(records, min(n, lengths.size))
+        grid = torch.from_numpy(record_grid(*sub)).to(dev)
+        return histogram_cuda.counts_matrix_grid(grid, k, 4**k)
+
+    def engine_choice(k: int, c, rows: int, symmetric: bool):
+        return lambda rates: KmerEngine(KmerConfig(k=k), device=dev, rates=rates
+                                        )._threshold_cmax(c, rows, symmetric)
+
+    def union_choice(rates):
+        plan = sparse_engine.union_dense_plan(*union_tables, device=dev, union="on", rates=rates)
+        return plan["cmax"] if plan is not None and plan["impl"] == "threshold" else None
+
+    def timed_at(kernel: str, run: str) -> dict:
+        return next(r for r in wide["shapes"][kernel] if r["run"] == run)
+
+    mats, kept, plan = wide["mats"], wide["plain"], wide["union_plan"]
+    ca, cb = counts(DIST_ROWS_A, 3), counts(DIST_ROWS_B, 8)
+    S = union_tables[2].size - 1
+    cd = mats[SPARSE_MAIN][:S, : plan["D"]]
+    c9, c10 = mats[MIDK_MAIN], mats[MIDK_STREAM]
+    p10 = c10[: min(READ_PANEL_ROWS, c10.shape[0])]
+    d_k3, g_k3 = timed_at("min_sum_tri", SPARSE_OFF), timed_at("min_sum_tri", MIDK_MAIN)
+    g_k4 = timed_at("min_sum_rect", MIDK_STREAM_OFF)
+    return [
+        threshold_case("(a)", ca, None, lambda: distance_cuda.min_sum_matrix_tri(ca),
+                       engine_choice(3, ca, ca.shape[0], True),
+                       minplus_ms=dist["min_sum_tri"]["ms"],
+                       cdist_ms=dist["min_sum_tri"]["library_ms"]),
+        threshold_case("(b)", cb, None, lambda: distance_cuda.min_sum_matrix_tri(cb),
+                       engine_choice(8, cb, cb.shape[0], True)),
+        threshold_case("(d)", cd, None,
+                       lambda: distance_cuda.min_sum_matrix_tri(mats[SPARSE_MAIN])[:S, :S],
+                       union_choice, minplus_ms=d_k3["ms"], cdist_ms=d_k3["library_ms"],
+                       plain=kept[SPARSE_MAIN, "tri"][:S, :S]),
+        threshold_case("(g) k=9", c9, None, lambda: distance_cuda.min_sum_matrix_tri(c9),
+                       engine_choice(9, c9, c9.shape[0], True), minplus_ms=g_k3["ms"],
+                       cdist_ms=g_k3["library_ms"], plain=kept[MIDK_MAIN, "tri"]),
+        threshold_case("(g) k=10 panel", p10, c10,
+                       lambda: distance_cuda.min_sum_matrix_rect(p10, c10),
+                       engine_choice(10, c10, min(PANEL_ROWS, c10.shape[0]), False),
+                       minplus_ms=g_k4["ms"], cdist_ms=g_k4["library_ms"],
+                       plain=kept[MIDK_STREAM, "rect"]),
+    ]
 
 
 #: phase 10: kmer-gpu on the card. Distance records of the k=3 run, rows a
@@ -3211,7 +3489,8 @@ def phase_cli(main_fasta: Path, main_table, hists, n_batches: int, dist_fasta: P
         reset_launches()
         report, wall = run_cli(["distance", *on, "--k", 3, "--max-seqs", n, dist_fasta, "-o",
                                 one_shot])
-        launches[name] = expect_launches(name, {**none, "counts_matrix": 1, "min_sum_tri": 1})
+        launches[name] = expect_launches(
+            name, {**none, **follow_route({"counts_matrix": 1, "min_sum_tri": 1})})
         checked = check_csv(one_shot, want)
         log(f"{name} ({n} records): wall {wall:.3f} s (distances {report['elapsed_s']:.3f} s), "
             f"engine {report['engine']}; {checked} CSV lines equal the reference [{card}]")
@@ -3229,15 +3508,16 @@ def phase_cli(main_fasta: Path, main_table, hists, n_batches: int, dist_fasta: P
             distance_stream.stream_panels_to_csv = writer
         second, wall2 = run_cli(argv)
         n_panels = len(panel_shapes(n, CLI_PANEL_ROWS))
-        launches[name] = expect_launches(name, {**none, "counts_matrix": 2,
-                                                "min_sum_rect": n_panels})
+        launches[name] = expect_launches(
+            name, {**none, **follow_route({"counts_matrix": 2, "min_sum_rect": n_panels})})
         if first["completed"] or not (second["resumed"] and second["completed"]):
             raise AssertionError(f"{name}: legs {first}, {second}")
         if csv.read_bytes() != one_shot.read_bytes():
             raise AssertionError(f"{name}: the resumed CSV differs from the one-shot CSV")
         log(f"{name}: stopped after {CLI_STOP_PANELS} panels ({wall1:.3f} s) and resumed "
-            f"({wall2:.3f} s); {n_panels} K4 launches; CSV byte-identical to the one-shot "
-            f"run's [{card}]")
+            f"({wall2:.3f} s); {n_panels} panels, launches "
+            f"{ {k: c for k, c in launches[name].items() if c} }; CSV byte-identical to the "
+            f"one-shot run's [{card}]")
         for p in (csv, ckpt, one_shot):
             p.unlink()
         reads = tmp / "reads.fasta"
@@ -3248,7 +3528,8 @@ def phase_cli(main_fasta: Path, main_table, hists, n_batches: int, dist_fasta: P
         reset_launches()
         report, wall = run_cli(["distance", *on, "--k", SPARSE_K, reads, "-o", csv])
         unioned = report["engine"].startswith("union/")
-        launches[name] = expect_launches(name, {**none, "min_sum_tri": int(unioned)})
+        launches[name] = expect_launches(
+            name, {**none, **follow_route({"min_sum_tri": int(unioned)}, report["engine"])})
         S = union["records"][2].size
         checked = check_csv_lines(csv, S * (S - 1) // 2, idx, want)
         log(f"{name} ((d)'s {S} reads): wall {wall:.3f} s (distances {report['elapsed_s']:.3f} "
@@ -3558,11 +3839,12 @@ def phase_mesh_distance(dist_path: Path, dist_records, keep: dict, union: dict, 
     n_read_panels = len(panel_shapes(len(reads), READ_PANEL_ROWS))
 
     def timed(name, want, fn):
+        # K4 a shard, or the threshold route a shard where the gate takes it
         reset_launches()
         t = time.perf_counter()
         out = fn()
         wall = time.perf_counter() - t
-        launches[name] = expect_launches(name, {**none, **want})
+        launches[name] = expect_launches(name, {**none, **follow_route(want)})
         return out, wall
 
     for D in (MESH_D, MESH_D_ODD):
@@ -3572,7 +3854,8 @@ def phase_mesh_distance(dist_path: Path, dist_records, keep: dict, union: dict, 
         if not same_bits(res.packed, keep["(a)"]):
             raise AssertionError(f"{name}: distances differ from phase 6's")
         report_run(name, wall, res.packed.size, res.phases,
-                   f"K4 routes {routes_taken()}; distances bit-identical to phase 6's", card)
+                   f"(min,+) route {res.route}, K4 routes {routes_taken()}; distances "
+                   "bit-identical to phase 6's", card)
         del res
         name = f"(c) distance_stream_to_csv(k=3, panel_rows={PANEL_ROWS}, max_panels=1, " \
                f"mesh_shape=({D},))"
@@ -3645,7 +3928,7 @@ def phase_mesh_distance(dist_path: Path, dist_records, keep: dict, union: dict, 
         reset_launches()
         _, wall_mesh = run_cli([argv[0], *on, *argv[1:], "--mesh", MESH_D, dist_path, "-o",
                                 meshed])
-        launches[name] = expect_launches(name, {**none, **want})
+        launches[name] = expect_launches(name, {**none, **follow_route(want)})
         if not same_file(plain, meshed):
             raise AssertionError(f"{name}: output differs from the run without a mesh")
         log(f"{name}: wall {wall_mesh:.3f} s (without the mesh {wall:.3f} s); "
@@ -3803,7 +4086,7 @@ def phase_multihost(main_fasta: Path, hists: dict, head, dist_records, union: di
         t = time.perf_counter()
         out = fn()
         wall = time.perf_counter() - t
-        launches[name] = expect_launches(name, {**none, **want})
+        launches[name] = expect_launches(name, {**none, **follow_route(want)})
         return out, wall
 
     def sub_fasta(records, n_bases, name):
@@ -3904,7 +4187,7 @@ def phase_multihost(main_fasta: Path, hists: dict, head, dist_records, union: di
         wall = time.perf_counter() - t
         unioned = report["route"].startswith("union/")
         want = {"min_sum_rect": len(panel_shapes(S, READ_PANEL_ROWS))} if unioned else {}
-        launches[name] = expect_launches(name, {**none, **want})
+        launches[name] = expect_launches(name, {**none, **follow_route(want, report["route"])})
         if report["regime"] != "sparse" or csv.read_bytes() != union["csv"]:
             raise AssertionError(f"{name}: {report['regime']}, CSV differs from phase 9's")
         report_run(name, wall, report["n_pairs"], report["phases"],
@@ -3961,9 +4244,10 @@ def phase_multihost(main_fasta: Path, hists: dict, head, dist_records, union: di
                        (1, max(n_panels - MULTIHOST_STOP_PANELS, 0))):
             name = f"distance_file_multihost_resumable(k=3, rows {rows}), {group}, rank {r}, " \
                    f"{('stopped', 'resumed')[leg]}"
+            got = legs[leg][r][1]["dist"]["launches"]
             launches[name] = expect_launches(name, {
-                **none, **card_only({"counts_matrix": 1, "min_sum_rect": n})},
-                legs[leg][r][1]["dist"]["launches"])
+                **none, **card_only(follow_route({"counts_matrix": 1, "min_sum_rect": n},
+                                                 got=got))}, got)
         if not legs[1][r][1]["dist"]["all_complete"]:
             raise AssertionError(f"{group}: rank {r}'s distances are not complete")
     tables = [(legs[1][r][0]["bucket.codes"], legs[1][r][0]["bucket.counts"]) for r in range(2)]
@@ -4098,6 +4382,16 @@ def main() -> int:
         wide = phase_wide_kernels(dev, card, records, union["tables"])
         gate_rates = measure_gate_rates(dev, card, union["host_min_sum_s"], union["tables"],
                                         wide["tri_bin_pairs_per_sec"])
+        # the threshold route at (a), (b), (d) and (g), on the matrices
+        # built above
+        from dna_kmeres_parallel_tpu_torch.models.sparse_engine import DistanceRates
+        from dna_kmeres_parallel_tpu_torch.ops import calibrate
+
+        phase_threshold(dev, card, threshold_cases(records, dist, wide, union["tables"], dev),
+                        calibrate.rates_from(gate_rates), DistanceRates())
+        for key in ("mats", "plain"):
+            wide.pop(key)
+        torch.cuda.empty_cache()
 
         # 10. the command line, kmer-gpu, on the card
         phase_cli(main_fasta, main_table, hists, n_batches, path, records, union, gate_rates,

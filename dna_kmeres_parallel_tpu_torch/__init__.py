@@ -15,7 +15,8 @@ easy to find)
                product and the distance finish (``distance``); the
                hand-written CUDA kernels' wrappers beside their plain
                PyTorch versions (``encode_cuda``, ``histogram_cuda``,
-               ``distance_cuda``, ``sort_cuda``); the kernel build
+               ``distance_cuda``, ``sort_cuda``); the threshold (min,+)
+               route on int8 tensor cores (``threshold_cuda``); the kernel build
                (``kernels``) and device resolution (``runtime``).
 - ``csrc/``    CUDA C++ sources for Hopper (``sm_90a``), built with nvcc at
                first use.

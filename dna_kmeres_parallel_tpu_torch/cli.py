@@ -15,8 +15,10 @@ where CUDA is missing; ``cpu`` runs the kernels' plain versions).
 Routing follows ``kmer-tpu``: ``count`` dense up to k=12 and sparse above;
 ``distance`` dense where k <= 15 and ``sparse_engine
 .dense_distance_preferred`` holds, else the sparse tables (the union
-route or the host two-pointer, in one shot or streamed in panels). The
-gates read the rates ``ops/calibrate`` persisted for this card and host.
+route or the host two-pointer, in one shot or streamed in panels); the
+(min,+) products of the dense and union routes take K3/K4 or the
+threshold route (``sparse_engine.threshold_plan``). The gates read the
+rates ``ops/calibrate`` persisted for this card and host.
 
 Plain FASTA, FASTQ and gzip paths with the modern record semantics are
 read by the native parser; the reference's record splitters
@@ -26,6 +28,12 @@ This module, and nothing else in the port, reads the environment:
 
 - ``KMER_GPU_DIST_UNION``: the union route, "auto" (default), "on"/"1"
   or "off"/"0";
+- ``KMER_GPU_DIST_THRESHOLD``: the threshold (min,+) route on int8
+  tensor cores, in the dense engine and the union route, "auto"
+  (default), "on"/"1" or "off"/"0" (``KMER_TPU_DIST_MXU``'s
+  counterpart); ``KMER_GPU_THRESHOLD_CMAX``: its cap on cmax's bucket
+  (default 64), which when set skips the cost comparison
+  (``KMER_TPU_MXU_CMAX``'s counterpart);
 - ``KMER_GPU_DENSE_DIST_BUDGET``, ``KMER_GPU_UNION_DIST_BUDGET``: the
   memory budgets, in bytes, of the dense counts matrix and of the union
   route;
@@ -152,12 +160,19 @@ def _env_bytes(name: str, default: int) -> int:
     return default if not value else int(value)
 
 
-def _union_mode() -> str:
-    value = os.environ.get("KMER_GPU_DIST_UNION", "auto").strip().lower()
+def _route_mode(name: str) -> str:
+    """A route's switch from the environment variable ``name``: auto
+    (the default), on/1 or off/0."""
+    value = os.environ.get(name, "auto").strip().lower()
     modes = {"0": "off", "1": "on", "off": "off", "on": "on", "auto": "auto"}
     if value not in modes:
-        raise ValueError(f"KMER_GPU_DIST_UNION must be auto, on/1 or off/0, got {value!r}")
+        raise ValueError(f"{name} must be auto, on/1 or off/0, got {value!r}")
     return modes[value]
+
+
+def _threshold_cap() -> int | None:
+    value = os.environ.get("KMER_GPU_THRESHOLD_CMAX")
+    return int(value) if value else None
 
 
 def _calibration_file(dev):
@@ -171,18 +186,26 @@ def _calibration_file(dev):
 
 def _gates(dev) -> dict:
     """The distance gates' arguments: the calibrated rates of this card and
-    host, the union switch and the budgets."""
+    host, the union and threshold switches, the threshold route's cap and
+    the budgets."""
     from dna_kmeres_parallel_tpu_torch.models import sparse_engine
     from dna_kmeres_parallel_tpu_torch.ops import calibrate
 
     return {
         "rates": calibrate.load_rates(_calibration_file(dev)),
-        "union": _union_mode(),
+        "union": _route_mode("KMER_GPU_DIST_UNION"),
+        "threshold": _route_mode("KMER_GPU_DIST_THRESHOLD"),
+        "threshold_cap": _threshold_cap(),
         "union_budget_bytes": _env_bytes(
             "KMER_GPU_UNION_DIST_BUDGET", sparse_engine.UNION_DIST_BUDGET),
         "dense_budget_bytes": _env_bytes(
             "KMER_GPU_DENSE_DIST_BUDGET", sparse_engine.DENSE_DIST_BUDGET),
     }
+
+
+def _threshold_kw(gates: dict) -> dict:
+    """The threshold route's switch and cap, as the engines take them."""
+    return {"threshold": gates["threshold"], "threshold_cap": gates["threshold_cap"]}
 
 
 def _expand_inputs(inputs) -> list[str]:
@@ -238,8 +261,9 @@ class Records:
 
 def _load_records(args) -> Records:
     """Every input's records, at most ``--max-seqs`` over all inputs: the
-    native parser for the modern record semantics, ``utils/fasta`` for
-    the reference's splitters."""
+    native parser for the modern record semantics (``parse_fasta_text``:
+    the records ``kmer-tpu`` reads in Python, also where a lone CR ends a
+    line), ``utils/fasta`` for the reference's splitters."""
     from dna_kmeres_parallel_tpu_torch import native
     from dna_kmeres_parallel_tpu_torch.utils import codec, fasta
 
@@ -251,7 +275,7 @@ def _load_records(args) -> Records:
         if remaining is not None and remaining <= 0:
             break
         if args.parser == "modern":
-            parsed = native.parse_fasta_native(path, max_seqs=remaining)
+            parsed = native.parse_fasta_text(path, max_seqs=remaining)
             stream, lens, names = parsed.stream, parsed.lengths, parsed.ids
         else:
             recs = fasta.parse_fasta_reference(path, variant=args.parser, max_seqs=remaining)
@@ -429,7 +453,8 @@ def cmd_distance(args) -> int:
         route_info: dict = {}
         sparse_kw = {} if gates is None else {
             "device": dev, "union": gates["union"], "rates": gates["rates"],
-            "union_budget_bytes": gates["union_budget_bytes"], "info": route_info}
+            "union_budget_bytes": gates["union_budget_bytes"], "info": route_info,
+            **_threshold_kw(gates)}
         if args.engine != "oracle" and args.stream_panel and args.output:
             mesh = None
             if getattr(args, "mesh", None) and args.mesh > 1:
@@ -471,7 +496,8 @@ def cmd_distance(args) -> int:
     if args.engine != "oracle" and args.stream_panel and args.output:
         # The [S, S] matrix never exists: panels of packed rows append to
         # the CSV (resumable with --checkpoint).
-        report = KmerEngine(_build_config(args), device=dev).distance_stream_to_csv(
+        report = KmerEngine(_build_config(args), device=dev, rates=gates["rates"],
+                            **_threshold_kw(gates)).distance_stream_to_csv(
             seqs, args.output, panel_rows=args.stream_panel,
             checkpoint_path=getattr(args, "checkpoint", None),
         )
@@ -480,7 +506,8 @@ def cmd_distance(args) -> int:
     if args.engine == "oracle":
         packed = oracle.distance_matrix_packed(seqs, args.k, args.canonical)
     else:
-        packed = KmerEngine(_build_config(args), device=dev).distance_sequences(seqs).packed
+        packed = KmerEngine(_build_config(args), device=dev, rates=gates["rates"],
+                            **_threshold_kw(gates)).distance_sequences(seqs).packed
     elapsed = time.perf_counter() - t0
 
     if args.output:
@@ -546,7 +573,8 @@ def cmd_selftest(args) -> int:
             gates = _gates(dev)
             d_got = sparse_engine.distance_sparse_packed(
                 seqs, args.k, args.canonical, device=dev, union=gates["union"],
-                union_budget_bytes=gates["union_budget_bytes"], rates=gates["rates"])
+                union_budget_bytes=gates["union_budget_bytes"], rates=gates["rates"],
+                **_threshold_kw(gates))
             d_want = oracle.distance_matrix_packed_sparse(seqs, args.k, args.canonical)
             verdict["distances_equal"] = bool(np.array_equal(d_got, d_want))
         print(json.dumps(verdict))
@@ -555,7 +583,9 @@ def cmd_selftest(args) -> int:
         return 0 if ok else 1
     from dna_kmeres_parallel_tpu_torch.models.engine import KmerEngine
 
-    verdict = KmerEngine(_build_config(args), device=dev).verify_against_oracle(seqs)
+    gates = _gates(dev)
+    verdict = KmerEngine(_build_config(args), device=dev, rates=gates["rates"],
+                         **_threshold_kw(gates)).verify_against_oracle(seqs)
     verdict["native_counts_equal"] = native_tbl == oracle.count_table_any_k(
         seqs, args.k, args.canonical)
     print(json.dumps(verdict))

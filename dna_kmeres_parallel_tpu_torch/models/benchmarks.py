@@ -14,7 +14,8 @@ is timed. Each report checks its work: ``windows_counted`` against
   batch at k <= 3, or from u8 bases with ``pack_input=False``);
 - ``run_sparse_bench``: the sparse counter's device program (K1 from
   planes, or K9 from u8 bases; with ``device_sort``, the sort too);
-- ``run_distance_bench``: K3 over a counts matrix K2 built once;
+- ``run_distance_bench``: K3 or the threshold route over a counts matrix
+  K2 built once;
 - ``run_impl_matrix_bench``: the dense histogram routes side by side
   (K7 packed, K5, and K6 or K7 from u8 with ``pack_input=False``).
 """
@@ -25,9 +26,15 @@ import numpy as np
 import torch
 
 from dna_kmeres_parallel_tpu_torch.models.engine import FLUSH_WINDOWS, KmerEngine, host_to_device
-from dna_kmeres_parallel_tpu_torch.models.sparse_engine import encode_staged, stage_words
+from dna_kmeres_parallel_tpu_torch.models.sparse_engine import (
+    DistanceRates,
+    counts_extent,
+    encode_staged,
+    stage_words,
+    threshold_plan,
+)
 from dna_kmeres_parallel_tpu_torch.ops import distance as dist_ops
-from dna_kmeres_parallel_tpu_torch.ops import distance_cuda, histogram_cuda, runtime
+from dna_kmeres_parallel_tpu_torch.ops import distance_cuda, histogram_cuda, runtime, threshold_cuda
 from dna_kmeres_parallel_tpu_torch.ops import sparse as sparse_ops
 from dna_kmeres_parallel_tpu_torch.utils import codec
 from dna_kmeres_parallel_tpu_torch.utils.config import KmerConfig
@@ -204,26 +211,40 @@ def run_distance_bench(
     impl: str = "auto",
     reps: int = 8,
     device: str | torch.device = "cuda",
+    rates: DistanceRates = DistanceRates(),
 ) -> dict:
     """Time the (min,+) product of the distance path: K2 builds the
     [n_seqs, 4^k] counts matrix of random records once, then ``reps``
-    launches over it are timed. impl: "auto" (K3 on the card, on the
+    launches over it are timed. impl: "tri" (K3 on the card, on the
     route ``distance_cuda.product_route`` picks, launched by
-    ``distance_cuda.tri_launcher``; its plain version on the CPU) or
-    "plain" (the plain version on the same device, for A/B).
-    The product's diagonal holds each row's window count, which is held
-    against the windows of the records."""
+    ``distance_cuda.tri_launcher``; its plain version on the CPU),
+    "threshold" (the threshold route at the bucket of the largest count,
+    ``ops/threshold_cuda``; its plain version on the CPU), "auto" (the
+    one of the two ``sparse_engine.threshold_plan`` takes under
+    ``rates``, as the dense engine routes) or "plain" (K3's plain version
+    on the same device, for A/B). The product's diagonal holds each row's
+    window count, which is held against the windows of the records."""
     dev = runtime.resolve_device(device)
-    if impl not in ("auto", "plain"):
-        raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
+    if impl not in ("auto", "plain", "tri", "threshold"):
+        raise ValueError(f"impl must be 'auto', 'plain', 'tri' or 'threshold', got {impl!r}")
     bins = codec.num_bins(k)
     g = torch.Generator(device=dev).manual_seed(seed)
     grid = torch.randint(0, 4, (n_seqs, seq_len), generator=g, device=dev, dtype=torch.uint8)
     counts = histogram_cuda.counts_matrix_grid(grid, k, bins)
     del grid
-    cmax = int(counts.max()) if counts.numel() else 0
+    cmax, row_max = counts_extent(counts)
+    bucket = 1 << max(cmax - 1, 0).bit_length() if cmax else 0
+    if impl == "auto":
+        alt_s = dist_ops.minplus_time(
+            n_seqs, n_seqs, bins, True, rate=rates.dense_bin_pairs_per_sec,
+            rate_rows=dist_ops.DENSE_RATE_ROWS, peak=rates.peak_bin_pairs_per_sec)
+        planned = threshold_plan(cmax, row_max, n_seqs, n_seqs, bins, alt_s=alt_s, device=dev,
+                                 rates=rates)
+        impl = "tri" if planned is None else "threshold"
     if impl == "plain":
         fn, use = (lambda: dist_ops.min_sum_matrix(counts)), "plain"
+    elif impl == "threshold":
+        fn, use = (lambda: threshold_cuda.min_sum_matrix_threshold(counts, bucket)), "threshold"
     else:
         fn, use = distance_cuda.tri_launcher(counts)
     out = fn()  # warm-up

@@ -23,7 +23,7 @@ import torch
 from dna_kmeres_parallel_tpu_torch import native
 from dna_kmeres_parallel_tpu_torch.models import distance_stream
 from dna_kmeres_parallel_tpu_torch.ops import distance as dist_ops
-from dna_kmeres_parallel_tpu_torch.ops import distance_cuda, histogram_cuda, runtime
+from dna_kmeres_parallel_tpu_torch.ops import distance_cuda, histogram_cuda, runtime, threshold_cuda
 from dna_kmeres_parallel_tpu_torch.ops import encode as encode_ops
 from dna_kmeres_parallel_tpu_torch.ops.encode_cuda import host_planes_from_packfmt
 from dna_kmeres_parallel_tpu_torch.utils import codec, fasta
@@ -173,6 +173,9 @@ class DistanceResult:
     #: host wall until the results are on the host; the other phases are
     #: host-clock spans.
     phases: dict[str, float] = field(default_factory=dict)
+    #: the (min,+) product's route: "threshold" or "minplus" (K3, or K4
+    #: over a mesh)
+    route: str = ""
 
 
 def row_chunks(lengths: np.ndarray, max_bytes: int = GRID_BYTES) -> list[tuple[int, int, int]]:
@@ -192,12 +195,14 @@ def row_chunks(lengths: np.ndarray, max_bytes: int = GRID_BYTES) -> list[tuple[i
     return out
 
 
-def min_sum_panel_mesh(panel: torch.Tensor, other: torch.Tensor, mesh) -> torch.Tensor:
+def min_sum_panel_mesh(panel: torch.Tensor, other: torch.Tensor, mesh,
+                       threshold: int | None = None) -> torch.Tensor:
     """int32 [Pr, S2] min-sums of a row panel against partner rows over a
-    mesh (``sharded_count.min_sum_panel_sharded``, K4 per shard): the
-    partner rows padded with zero-count rows to a multiple of D (their
-    min-sums are 0) and the padding's columns sliced off. A shard's route
-    (``distance_cuda.product_route``) follows its own rows' sums; either
+    mesh (``sharded_count.min_sum_panel_sharded``: K4 per shard, or the
+    threshold route at cmax ``threshold``): the partner rows padded with
+    zero-count rows to a multiple of D (their min-sums are 0) and the
+    padding's columns sliced off. A shard's K4 route
+    (``distance_cuda.product_route``) follows its own rows' sums; every
     route gives the same sums."""
     from dna_kmeres_parallel_tpu_torch.parallel.sharded_count import min_sum_panel_sharded
 
@@ -205,7 +210,7 @@ def min_sum_panel_mesh(panel: torch.Tensor, other: torch.Tensor, mesh) -> torch.
     pad = (-S2) % mesh.size
     if pad:
         other = torch.cat([other, other.new_zeros(pad, other.shape[1])])
-    return min_sum_panel_sharded(panel, other, mesh)[:, :S2]
+    return min_sum_panel_sharded(panel, other, mesh, threshold=threshold)[:, :S2]
 
 
 def seq_stream(seqs: list[str]) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -225,18 +230,32 @@ class KmerEngine:
     from bases) up to 65,536 bins (k <= 8), and from the sparse engine,
     densified, above.
     Distances, k <= 15 (``distance_*``): the per-sequence counts matrix
-    (K2), the (min,+) product (K3 for all pairs, K4 for a streamed panel),
-    and the float32 finish on the host. Above 4^8 bins (k = 9..15) a run
-    must pass ``sparse_engine.dense_distance_feasible`` (the [S, 4^k] int32
-    matrix within 2 GiB): else it raises, and the sparse tables of
-    ``sparse_engine.distance_sparse_packed`` serve it."""
+    (K2), the (min,+) product (K3 for all pairs, K4 for a streamed panel,
+    or the threshold route where ``sparse_engine.threshold_plan`` takes
+    it: ``threshold`` "auto", "on" or "off", ``threshold_cap``, under
+    ``rates``), and the float32 finish on the host. Above 4^8 bins (k =
+    9..15) a run must pass ``sparse_engine.dense_distance_feasible`` (the
+    [S, 4^k] int32 matrix within 2 GiB): else it raises, and the sparse
+    tables of ``sparse_engine.distance_sparse_packed`` serve it."""
 
     def __init__(
         self,
         config: KmerConfig | None = None,
         device: str | torch.device = "cuda",
+        *,
+        threshold: str = "auto",
+        threshold_cap: int | None = None,
+        rates=None,
         **kw,
     ):
+        from dna_kmeres_parallel_tpu_torch.models import sparse_engine
+
+        if threshold not in sparse_engine.THRESHOLD_MODES:
+            raise ValueError(f"threshold must be one of {sparse_engine.THRESHOLD_MODES}, "
+                             f"got {threshold!r}")
+        self.threshold = threshold
+        self.threshold_cap = threshold_cap
+        self.rates = sparse_engine.DistanceRates() if rates is None else rates
         cfg = config or KmerConfig()
         self.config = cfg.replace(**kw) if kw else cfg
         if self.config.k > encode_ops.MAX_DENSE_K:
@@ -273,6 +292,26 @@ class KmerEngine:
                 "budget (sparse_engine.dense_distance_feasible): use "
                 "sparse_engine.distance_sparse_packed"
             )
+
+    def _threshold_cmax(self, counts: torch.Tensor, rows: int, symmetric: bool,
+                        info: dict | None = None) -> int | None:
+        """The threshold route's cmax for the products over ``counts``
+        (``sparse_engine.threshold_plan``), or None for K3/K4: ``rows``
+        rows against all S (one panel; all S and ``symmetric`` for K3's
+        square), against K3/K4 at the dense rate."""
+        from dna_kmeres_parallel_tpu_torch.models import sparse_engine
+
+        if self.threshold == "off":
+            return None
+        S, bins = counts.shape
+        cmax, row_max = sparse_engine.counts_extent(counts)
+        r = self.rates
+        alt_s = dist_ops.minplus_time(
+            rows, S, bins, symmetric, rate=r.dense_bin_pairs_per_sec,
+            rate_rows=dist_ops.DENSE_RATE_ROWS, peak=r.peak_bin_pairs_per_sec)
+        return sparse_engine.threshold_plan(
+            cmax, row_max, rows, S, bins, alt_s=alt_s, device=self.device,
+            mode=self.threshold, cap=self.threshold_cap, rates=r, info=info)
 
     # ------------------------------------------------------------- counting
     def _stage(self, padded: np.ndarray) -> tuple[np.ndarray, ...]:
@@ -437,9 +476,14 @@ class KmerEngine:
         counts = self._counts_on_device(stream, offsets, lengths)
         m1 = runtime.mark(dev)
         mesh = self._mesh()
-        if mesh is not None and len(lengths):
-            # The whole square as one partner-sharded panel (K4 per shard).
-            sums = min_sum_panel_mesh(counts, counts, mesh)
+        S = len(lengths)
+        cmax = self._threshold_cmax(counts, S, mesh is None) if S else None
+        if mesh is not None and S:
+            # The whole square as one partner-sharded panel (K4 or the
+            # threshold route per shard).
+            sums = min_sum_panel_mesh(counts, counts, mesh, threshold=cmax)
+        elif cmax is not None:
+            sums = threshold_cuda.min_sum_matrix_threshold(counts, cmax)
         else:
             sums = distance_cuda.min_sum_matrix_tri(counts)
         m2 = runtime.mark(dev)
@@ -461,6 +505,7 @@ class KmerEngine:
             counts=counts_np,
             elapsed_s=time.perf_counter() - t0,
             phases=phases,
+            route="minplus" if cmax is None else "threshold",
         )
 
     def distance_sequences(
@@ -474,13 +519,14 @@ class KmerEngine:
 
     def distance_file(self, source) -> DistanceResult:
         """Packed pairwise distances of the records of a FASTA file (the
-        native parser for a path with the modern record semantics, the
-        Python parsers otherwise)."""
+        native parser for a path with the modern record semantics, reading
+        the records ``utils/fasta.parse_fasta`` reads as the JAX engine
+        does, ``native.parse_fasta_text``; the Python parsers otherwise)."""
         cfg = self.config
         t0 = time.perf_counter()
         phases = dict.fromkeys(DIST_PHASES, 0.0)
         if cfg.parser_variant == "modern" and isinstance(source, (str, os.PathLike)):
-            parsed = native.parse_fasta_native(source, max_seqs=cfg.max_seqs)
+            parsed = native.parse_fasta_text(source, max_seqs=cfg.max_seqs)
             args = (parsed.stream, parsed.offsets[:-1], parsed.lengths, parsed.ids)
         else:
             records = self._parse(source)
@@ -515,7 +561,8 @@ class KmerEngine:
         m0 = runtime.mark(self.device)
         counts = self._counts_on_device(stream, offsets, lengths)
         m1 = runtime.mark(self.device)
-        panel_fn = self.make_dense_panel_fn(counts, lengths, phases)
+        route: dict = {}
+        panel_fn = self.make_dense_panel_fn(counts, lengths, phases, panel_rows, route)
         meta = {
             "k": cfg.k,
             "canonical": cfg.canonical,
@@ -531,27 +578,39 @@ class KmerEngine:
         phases["counts"] = runtime.span_s(m0, m1)
         phases["write"] = out["write_s"]
         out["phases"] = phases
+        out["route"] = route["route"]
         out["elapsed_s"] = time.perf_counter() - t0
         return out
 
-    def make_dense_panel_fn(self, counts, lengths, phases=None):
+    def make_dense_panel_fn(self, counts, lengths, phases=None, panel_rows=None, info=None):
         """Panel closure over the [S, bins] int32 counts (a tensor or an
         array; kept on the engine's device):
         panel_fn(r0, r1) -> float32 packed distances of rows r0..r1-1 (row
-        i: columns i+1..S-1). Adds its seconds to ``phases`` (min_sum,
-        d2h, finish) when given one."""
+        i: columns i+1..S-1). One route a job: K4 a panel (per shard over
+        a mesh), or the threshold route where ``threshold_plan`` takes it
+        for a panel of ``panel_rows`` (all S when None) rows. Adds its
+        seconds to ``phases`` (min_sum, d2h, finish) when given one;
+        ``info``, when given, receives the ``route`` and the gate's
+        predictions."""
         self._require_distance_k(len(counts))
         cfg, dev = self.config, self.device
         counts = torch.as_tensor(counts).to(dev)
         lengths = np.asarray(lengths, dtype=np.int64)
         phases = dict.fromkeys(DIST_PHASES, 0.0) if phases is None else phases
         mesh = self._mesh()
+        info = {} if info is None else info
+        S = counts.shape[0]
+        rows = S if panel_rows is None else min(panel_rows, S)
+        cmax = self._threshold_cmax(counts, rows, False, info) if S else None
+        info["route"] = "minplus" if cmax is None else "threshold"
 
         def panel_fn(r0: int, r1: int) -> np.ndarray:
             t = time.perf_counter()
             m0 = runtime.mark(dev)
             if mesh is not None:
-                sums = min_sum_panel_mesh(counts[r0:r1], counts[r0:], mesh)
+                sums = min_sum_panel_mesh(counts[r0:r1], counts[r0:], mesh, threshold=cmax)
+            elif cmax is not None:
+                sums = threshold_cuda.min_sum_matrix_threshold(counts[r0:r1], cmax, counts[r0:])
             else:
                 sums = distance_cuda.min_sum_matrix_rect(counts[r0:r1], counts[r0:])
             m1 = runtime.mark(dev)

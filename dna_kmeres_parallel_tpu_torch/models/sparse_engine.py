@@ -52,7 +52,7 @@ from dna_kmeres_parallel_tpu_torch.models.engine import (
     seq_stream,
 )
 from dna_kmeres_parallel_tpu_torch.ops import distance as dist_ops
-from dna_kmeres_parallel_tpu_torch.ops import distance_cuda, runtime
+from dna_kmeres_parallel_tpu_torch.ops import distance_cuda, runtime, threshold_cuda
 from dna_kmeres_parallel_tpu_torch.ops import sparse as sparse_ops
 from dna_kmeres_parallel_tpu_torch.utils import codec, fasta
 from dna_kmeres_parallel_tpu_torch.utils.config import KmerConfig
@@ -396,6 +396,9 @@ UNION_DIST_BUDGET = 2 << 30
 #: takes the route wherever the budget and int32 gates admit it, "off"
 #: never takes it
 UNION_MODES = ("auto", "on", "off")
+#: the threshold route's switch, the same three modes: "on" takes it
+#: wherever the cap and the int32 gate admit it
+THRESHOLD_MODES = UNION_MODES
 
 
 @dataclass(frozen=True)
@@ -421,7 +424,13 @@ class DistanceRates:
       from the card; ``roundtrip_s``: a job's fixed cost on the card (a
       launch, a copy and its wait);
     - ``threads``: the two-pointer's threads; ``None`` takes the native
-      library's own count (the CPUs, at most 16)."""
+      library's own count (the CPUs, at most 16);
+    - ``peak_bin_pairs_per_sec``: K3 with every SM busy ([16,384, 64]),
+      the most the two rates above grow to with more output tiles
+      (``ops/distance.minplus_time``);
+    - ``threshold_macs_per_sec``: the threshold route's int8
+      multiply-adds a second, its planes' build included
+      (``threshold_plan``)."""
 
     bin_pairs_per_sec: float = dist_ops.TRI_BIN_PAIRS_PER_SEC
     dense_bin_pairs_per_sec: float = 1.7e12
@@ -430,6 +439,8 @@ class DistanceRates:
     d2h_bytes_per_sec: float = 5.5e10
     roundtrip_s: float = 1.9e-4
     threads: int | None = None
+    peak_bin_pairs_per_sec: float = dist_ops.PEAK_BIN_PAIRS_PER_SEC
+    threshold_macs_per_sec: float = dist_ops.THRESHOLD_MACS_PER_SEC
 
     def host_threads(self) -> int:
         if self.threads is not None:
@@ -481,6 +492,67 @@ def dense_distance_preferred(
     return dense_s_per_pair <= sparse_s_per_pair
 
 
+def threshold_plan(
+    cmax: int,
+    row_sum_max: int,
+    rows: int,
+    cols: int,
+    bins: int,
+    *,
+    alt_s: float,
+    device: torch.device,
+    mode: str = "auto",
+    cap: int | None = None,
+    rates: DistanceRates = DistanceRates(),
+    info: dict | None = None,
+) -> int | None:
+    """The threshold route's cmax for a (min,+) product of [rows, bins]
+    against [cols, bins] counts whose largest count is ``cmax`` and whose
+    largest row sum is ``row_sum_max``, or None to keep K3/K4 (the JAX
+    engine's ``_mxu_dist_cmax``, with the rates as arguments).
+
+    Gates, in order:
+    - ``mode``: "off" never plans; "auto" plans only on the card;
+    - cmax rounds up to its power-of-two bucket (the thresholds past the
+      largest count add exact zeros), which must be at most ``cap``
+      (``THRESHOLD_CMAX_DEFAULT`` when None);
+    - every row's window total below 2^31 (int32 exactness);
+    - under "auto" without an explicit ``cap``, the route's predicted
+      time over the whole rectangle (``ops/distance.threshold_time`` at
+      ``rates.threshold_macs_per_sec``) below ``alt_s``, the predicted
+      time of the K3 or K4 launch it would displace
+      (``ops/distance.minplus_time``). An explicit cap skips the
+      comparison, as the JAX package's does.
+
+    ``info``, when given, takes the two predicted times and the bucket."""
+    if mode not in THRESHOLD_MODES:
+        raise ValueError(f"threshold must be one of {THRESHOLD_MODES}, got {mode!r}")
+    if mode == "off" or (mode == "auto" and device.type != "cuda"):
+        return None
+    if cmax <= 0 or rows <= 0 or cols <= 0:
+        return None
+    bucket = 1 << (int(cmax) - 1).bit_length()
+    limit = dist_ops.THRESHOLD_CMAX_DEFAULT if cap is None else int(cap)
+    t_thr = dist_ops.threshold_time(rows, cols, bins, bucket, rates.threshold_macs_per_sec)
+    if info is not None:
+        info.update(threshold_cmax=bucket, t_threshold=t_thr, t_minplus=alt_s)
+    if bucket > limit or row_sum_max >= 1 << 31:
+        return None
+    if mode == "auto" and cap is None and t_thr >= alt_s:
+        return None
+    return bucket
+
+
+def counts_extent(counts: torch.Tensor) -> tuple[int, int]:
+    """(largest count, largest row sum) of a counts matrix, in one read
+    from its device; (0, 0) for no entries."""
+    if not counts.numel():
+        return 0, 0
+    top, row = torch.stack(
+        [counts.max().to(torch.int64), counts.sum(1, dtype=torch.int64).max()]).tolist()
+    return int(top), int(row)
+
+
 def sorted_unique(codes: np.ndarray) -> np.ndarray:
     """``np.unique(codes)`` by one sort and a neighbour compare (NumPy
     2.3's ``np.unique`` took 96 s for 40 M u64 codes where ``np.sort``
@@ -499,6 +571,8 @@ def union_dense_plan(
     budget_bytes: int = UNION_DIST_BUDGET,
     panel_rows: int | None = None,
     rates: DistanceRates = DistanceRates(),
+    threshold: str = "auto",
+    threshold_cap: int | None = None,
     info: dict | None = None,
 ) -> dict | None:
     """The plan of the union-indexed dense route, or None for the host
@@ -510,19 +584,25 @@ def union_dense_plan(
     absent codes add min(0, .) = 0. Shapes are bucketed to powers of two
     (Sp rows, at least 8; Dp columns, at least 128), and zero rows and
     columns are exact. On the card K3 (one shot) or K4 (each streamed
-    panel) take the product; on the CPU their plain version.
+    panel) take the product, or the threshold route over the [S, D]
+    matrix where ``threshold_plan`` (``threshold``, ``threshold_cap``)
+    takes it: the plan's ``impl`` "threshold", its ``cmax`` the bucket;
+    on the CPU their plain versions.
 
     Gates, in order (None keeps the host two-pointer):
     - ``union``: "off" never plans; "auto" plans only on the card;
     - the int32 matrix on the device, at most 40 bytes a table entry
       while ``union_on_device`` builds it, and the output (the [Sp, Sp]
       square and its packed triangle, or one [panel_rows, Sp] panel)
-      within ``budget_bytes``;
+      within ``budget_bytes``, and with the threshold route its planes
+      (a byte a threshold and entry, at most the matrix's bytes; without
+      the route where they would not fit);
     - every sequence's window total below 2^31 (int32 exactness);
     - under "auto", the predicted device time (K3 over the padded pairs,
-      the round trip, the H2D of the entries that ``union_on_device``
-      ships, and the [S, S] D2H) below the host two-pointer's
-      (``rates``).
+      or the threshold route over the [S, S] square, half of it when
+      streamed; the round trip, the H2D of the entries that
+      ``union_on_device`` ships, and the [S, S] D2H) below the host
+      two-pointer's (``rates``).
 
     Counts ship as int8 (the plan's ``dtype``) where the power-of-two
     bucket of the largest count is at most 127, else as int32.
@@ -557,14 +637,37 @@ def union_dense_plan(
     # has an empty table).
     cs = np.concatenate([[0], np.cumsum(np.asarray(cnts, dtype=np.int64))])
     per_seq_windows = cs[np.asarray(offs[1:])] - cs[np.asarray(offs[:-1])]
-    if per_seq_windows.size and int(per_seq_windows.max()) >= (1 << 31):
+    row_max = int(per_seq_windows.max()) if per_seq_windows.size else 0
+    if row_max >= (1 << 31):
         return None
     pairs = S * (S - 1) / 2.0
     pairs_exec = Sp * (Sp - 1) / 2.0  # the padded rows run too
     t_dev_pair = dist_ops.tri_time_per_pair(Dp, rates.bin_pairs_per_sec)
     t_host_pair = (N / S) / (rates.sparse_entry_pairs_per_sec_per_thread * rates.host_threads())
+    # The threshold route against the K3 launch (one shot) or the first
+    # K4 panel it would displace.
+    minplus = dict(rate=rates.bin_pairs_per_sec, rate_rows=dist_ops.UNION_RATE_ROWS,
+                   peak=rates.peak_bin_pairs_per_sec)
+    if panel_rows is None:
+        rows, alt_s = S, dist_ops.minplus_time(Sp, Sp, Dp, True, **minplus)
+    else:
+        rows = min(panel_rows, S)
+        alt_s = dist_ops.minplus_time(min(panel_rows, Sp), Sp, Dp, False, **minplus)
+    cmax_thr = threshold_plan(cmax_true, row_max, rows, S, D, alt_s=alt_s, device=device,
+                              mode=threshold, cap=threshold_cap, rates=rates, info=info)
+    # The planes: a byte a threshold and entry of the matrix, at most the
+    # matrix's own bytes (``threshold_cuda.plane_chunks``).
+    planes = min(cmax_thr or 0, 4) * Sp * Dp
+    if cmax_thr is not None and approx_bytes + max(
+            planes, threshold_cuda.MIN_PLANE_BYTES) > budget_bytes:
+        cmax_thr = None
+    if cmax_thr is None:
+        t_min_sum = pairs_exec * t_dev_pair
+    else:
+        t_min_sum = dist_ops.threshold_time(S, S, D, cmax_thr, rates.threshold_macs_per_sec)
+        t_min_sum *= 1.0 if panel_rows is None else 0.5
     t_dev_total = (
-        pairs_exec * t_dev_pair
+        t_min_sum
         + rates.roundtrip_s
         + union_ship_bytes(N, D, S, dtype) / rates.h2d_bytes_per_sec
         + S * S * 4 / rates.d2h_bytes_per_sec
@@ -574,6 +677,10 @@ def union_dense_plan(
         info.update(t_dev_total=t_dev_total, t_host_total=t_host_total)
     if union == "auto" and t_dev_total >= t_host_total:
         return None
+    if cmax_thr is not None:
+        impl = "threshold"
+    else:
+        impl = "cuda" if on_card else "plain"
     return {
         "union": codes_union,
         "D": D,
@@ -582,7 +689,7 @@ def union_dense_plan(
         "cmax": cmax_b,
         "cmax_true": cmax_true,
         "dtype": dtype,
-        "impl": "cuda" if on_card else "plain",
+        "impl": impl,
         "t_dev_total": t_dev_total,
         "t_host_total": t_host_total,
         "t_host_pair": t_host_pair,
@@ -614,14 +721,36 @@ def union_on_device(codes, cnts, offs, plan, device: torch.device) -> torch.Tens
     return mat
 
 
+def union_product(mat: torch.Tensor, plan: dict, r0: int, r1: int, S: int, mesh=None):
+    """The int32 min-sums of the union matrix's rows [r0, r1) against its
+    rows from r0 on, by the plan's route: the threshold route over the
+    real [S, D] part (rows [r0, r1) against [r0, S)), else K3 over the
+    whole padded square (``r0 == 0``, ``r1 == S``, one shot) or K4 over
+    rows [r0, r1) against [r0, S) (a panel); a panel over a ``mesh``
+    shards the partner rows (``engine.min_sum_panel_mesh``)."""
+    cmax = plan["cmax"] if plan["impl"] == "threshold" else None
+    if cmax is not None:
+        mat = mat[:, : plan["D"]]
+    panel, other = mat[r0:r1], mat[r0:S]
+    if mesh is not None:
+        return min_sum_panel_mesh(panel, other, mesh, threshold=cmax)
+    if cmax is not None:
+        return threshold_cuda.min_sum_matrix_threshold(
+            panel, cmax, None if (r0, r1) == (0, S) else other)
+    if (r0, r1) == (0, S):
+        return distance_cuda.min_sum_matrix_tri(mat)
+    return distance_cuda.min_sum_matrix_rect(panel, other)
+
+
 def union_dense_min_sums(codes, cnts, offs, plan, device: torch.device) -> np.ndarray:
     """Run a plan in one shot: the packed strict-upper-triangle int64
-    min-sums of the [S, S] product over the union matrix (K3 on the card,
-    its plain version on the CPU; the padding rows sliced off on the
-    device before the copy to the host). A failing kernel raises."""
+    min-sums of the [S, S] product over the union matrix (K3 or the
+    threshold route on the card, their plain versions on the CPU; the
+    padding rows sliced off on the device before the copy to the host).
+    A failing kernel raises."""
     S = int(offs.shape[0] - 1)
     mat = union_on_device(codes, cnts, offs, plan, device)
-    sq = distance_cuda.min_sum_matrix_tri(mat)[:S, :S].cpu().numpy()
+    sq = union_product(mat, plan, 0, S, S)[:S, :S].cpu().numpy()
     out = np.empty(S * (S - 1) // 2, dtype=np.int64)
     w = 0
     for i in range(S - 1):
@@ -728,6 +857,8 @@ def distance_sparse_packed(
     union: str = "auto",
     union_budget_bytes: int = UNION_DIST_BUDGET,
     rates: DistanceRates = DistanceRates(),
+    threshold: str = "auto",
+    threshold_cap: int | None = None,
     info: dict | None = None,
 ) -> np.ndarray:
     """Packed strict-upper-triangle float32 distances over sparse
@@ -736,14 +867,17 @@ def distance_sparse_packed(
     budget).
 
     The tables come from ``build_pair_tables``. Where ``union_dense_plan``
-    takes the union route, K3 takes the min-sums over the union matrix on
-    the card; otherwise the native threaded two-pointer does on the host.
+    takes the union route, K3 or the threshold route (``threshold``,
+    ``threshold_cap``: ``threshold_plan``'s mode and cap) takes the
+    min-sums over the union matrix on the card; otherwise the native
+    threaded two-pointer does on the host.
     A kernel that fails raises: nothing falls back to the host. The
     float32 finish runs on the host either way.
 
-    ``info``, when given, receives the route ("union/cuda", "union/plain"
-    or "host/sparse"), the plan's predictions and the seconds of each
-    phase (tables, plan, min_sum, finish)."""
+    ``info``, when given, receives the route ("union/cuda",
+    "union/threshold", "union/plain" or "host/sparse"), the plan's
+    predictions and the seconds of each phase (tables, plan, min_sum,
+    finish)."""
     dev = runtime.resolve_device(device)
     phases: dict[str, float] = {}
     t = time.perf_counter()
@@ -753,7 +887,7 @@ def distance_sparse_packed(
     info = {} if info is None else info
     plan = union_dense_plan(
         codes, cnts, offs, device=dev, union=union, budget_bytes=union_budget_bytes,
-        rates=rates, info=info,
+        rates=rates, threshold=threshold, threshold_cap=threshold_cap, info=info,
     )
     t = _lap(phases, "plan", t)
     if plan is not None:
@@ -782,6 +916,8 @@ def make_sparse_panel_fn(
     union: str = "auto",
     union_budget_bytes: int = UNION_DIST_BUDGET,
     rates: DistanceRates = DistanceRates(),
+    threshold: str = "auto",
+    threshold_cap: int | None = None,
     info: dict | None = None,
 ):
     """Panel closure over per-sequence sparse tables: panel_fn(r0, r1) ->
@@ -790,9 +926,10 @@ def make_sparse_panel_fn(
 
     One decision a job: where ``union_dense_plan`` takes the union route,
     the union matrix goes to the device once (widened to int32 there) and
-    every panel is one K4 of its rows against the rows from r0 on (over a
-    ``mesh``, those partner rows padded to a multiple of D and sharded, K4
-    per shard: ``engine.min_sum_panel_mesh``); else every panel runs the
+    every panel is one K4 (or threshold route, as the plan says) of its
+    rows against the rows from r0 on (over a ``mesh``, those partner rows
+    padded to a multiple of D and sharded, one a shard:
+    ``engine.min_sum_panel_mesh``); else every panel runs the
     native two-pointer (``kp_min_sum_panel``), which no mesh shards. The
     finish runs on the host."""
     dev = runtime.resolve_device(device)
@@ -801,18 +938,15 @@ def make_sparse_panel_fn(
     info = {} if info is None else info
     plan = union_dense_plan(
         codes, cnts, offs, device=dev, union=union, budget_bytes=union_budget_bytes,
-        panel_rows=panel_rows, rates=rates, info=info,
+        panel_rows=panel_rows, rates=rates, threshold=threshold, threshold_cap=threshold_cap,
+        info=info,
     )
     if plan is not None:
         mat = union_on_device(codes, cnts, offs, plan, dev)
         info.update(route=f"union/{plan['impl']}", cmax=plan["cmax"], streamed=True)
 
         def panel_fn(r0: int, r1: int) -> np.ndarray:
-            if mesh is not None:
-                sums = min_sum_panel_mesh(mat[r0:r1], mat[r0:S], mesh)
-            else:
-                sums = distance_cuda.min_sum_matrix_rect(mat[r0:r1], mat[r0:S])
-            sums = sums.cpu().numpy()
+            sums = union_product(mat, plan, r0, r1, S, mesh).cpu().numpy()
             return dist_ops.finish_upper(sums, lengths[r0:r1], lengths[r0:], k, r0, r0)
 
         return panel_fn
@@ -842,6 +976,8 @@ def distance_sparse_stream_to_csv(
     union: str = "auto",
     union_budget_bytes: int = UNION_DIST_BUDGET,
     rates: DistanceRates = DistanceRates(),
+    threshold: str = "auto",
+    threshold_cap: int | None = None,
     info: dict | None = None,
 ) -> dict:
     """Streamed, resumable sparse distances to the reference's CSV: panels
@@ -859,7 +995,8 @@ def distance_sparse_stream_to_csv(
     info = {} if info is None else info
     panel_fn = make_sparse_panel_fn(
         codes, cnts, offs, lengths, k, panel_rows, device=dev, mesh=mesh, union=union,
-        union_budget_bytes=union_budget_bytes, rates=rates, info=info,
+        union_budget_bytes=union_budget_bytes, rates=rates, threshold=threshold,
+        threshold_cap=threshold_cap, info=info,
     )
     meta = {
         "k": k,

@@ -51,6 +51,7 @@ class _KpFasta(ctypes.Structure):
         ("ids_len", ctypes.c_int64),
         ("total_bases", ctypes.c_int64),
         ("invalid_bases", ctypes.c_int64),
+        ("lone_cr", ctypes.c_int64),
     ]
 
 
@@ -113,6 +114,10 @@ def load() -> ctypes.CDLL:
     lib.kp_free_fasta.argtypes = [ctypes.POINTER(_KpFasta)]
     lib.kp_pack_2bit.restype = None
     lib.kp_pack_2bit.argtypes = [vp, i64, vp, vp]
+    lib.kp_unpack_2bit.restype = None
+    lib.kp_unpack_2bit.argtypes = [vp, vp, i64, vp]
+    lib.kp_count_dense.restype = None
+    lib.kp_count_dense.argtypes = [vp, i64, i64, ci, ci, vp]
     lib.kp_count_valid.restype = i64
     lib.kp_count_valid.argtypes = [vp, ci, vp, i64, ci]
     lib.kp_compact_unsorted.restype = i64
@@ -165,6 +170,13 @@ class ParsedFasta:
     ids: list[str]
     total_bases: int
     invalid_bases: int
+    #: lines holding a CR that does not end them: where this is nonzero
+    #: the records may differ from ``utils/fasta.parse_fasta``'s
+    lone_cr: int = 0
+
+    def sequence_codes(self, i: int) -> np.ndarray:
+        """Record i's base codes, a view into ``stream``."""
+        return self.stream[self.offsets[i] : self.offsets[i] + self.lengths[i]]
 
 
 def parse_fasta_native(path, max_seqs: int | None = None,
@@ -210,9 +222,38 @@ def parse_fasta_native(path, max_seqs: int | None = None,
             ids=[s.decode("ascii", "replace") for s in raw_ids.split(b"\0") if s],
             total_bases=int(r.total_bases),
             invalid_bases=int(r.invalid_bases),
+            lone_cr=int(r.lone_cr),
         )
     finally:
         lib.kp_free_fasta(out)
+
+
+def parse_fasta_text(path, max_seqs: int | None = None) -> ParsedFasta:
+    """The records of ``utils/fasta.parse_fasta`` (Python's text mode,
+    where a lone CR ends a line), as a ``ParsedFasta``: the native parse,
+    and where it met a CR inside a line, the Python parser's records
+    encoded into the same stream layout. The entries whose JAX
+    counterparts read records in Python parse with this; the counting
+    entries keep ``parse_fasta_native``'s reading, as theirs do."""
+    parsed = parse_fasta_native(path, max_seqs=max_seqs)
+    if not parsed.lone_cr:
+        return parsed
+    from dna_kmeres_parallel_tpu_torch.utils import codec, fasta
+
+    records = fasta.parse_fasta(path, max_seqs=max_seqs)
+    # The text is read as ASCII with errors replaced (one character a
+    # byte), so the replacement encodes as an invalid base.
+    seqs = [r.seq.encode("ascii", "replace") for r in records]
+    lengths = np.array([len(s) for s in seqs], dtype=np.int64)
+    offsets = np.concatenate([[0], np.cumsum(lengths + 1)]).astype(np.int64)
+    offsets[-1] -= 1 if len(seqs) else 0
+    stream = codec.concat_with_sentinels(seqs)
+    return ParsedFasta(
+        n_seqs=len(seqs), stream=stream, offsets=offsets, lengths=lengths,
+        ids=[r.id for r in records], total_bases=int(lengths.sum()),
+        invalid_bases=int(np.count_nonzero(stream == codec.INVALID_BASE)) - max(len(seqs) - 1, 0),
+        lone_cr=parsed.lone_cr,
+    )
 
 
 def pack_2bit_native(bases: np.ndarray) -> tuple[np.ndarray, np.ndarray, int]:
@@ -225,6 +266,35 @@ def pack_2bit_native(bases: np.ndarray) -> tuple[np.ndarray, np.ndarray, int]:
     mask = np.zeros((n + 7) // 8, dtype=np.uint8)
     lib.kp_pack_2bit(_ptr(bases), n, _ptr(data), _ptr(mask))
     return data, mask, n
+
+
+def unpack_2bit_native(data: np.ndarray, mask: np.ndarray, n: int) -> np.ndarray:
+    """The inverse of ``pack_2bit_native``: n uint8 base codes, INVALID
+    where the validity bit is clear."""
+    lib = load()
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    mask = np.ascontiguousarray(mask, dtype=np.uint8)
+    if data.size < (n + 3) // 4 or mask.size < (n + 7) // 8:
+        raise ValueError(f"{data.size} data and {mask.size} mask bytes cannot hold {n} bases")
+    out = np.zeros(n, dtype=np.uint8)
+    lib.kp_unpack_2bit(_ptr(data), _ptr(mask), n, _ptr(out))
+    return out
+
+
+def count_dense_native(stream: np.ndarray, k: int, n_own: int | None = None,
+                       canonical: bool = False) -> np.ndarray:
+    """Dense int64 [4^k] count of an encoded stream (0xFF separators) on
+    the host, k <= 15: the windows that start below ``n_own`` (all when
+    None)."""
+    if not 1 <= k <= 15:
+        raise ValueError("native dense counter supports k <= 15")
+    lib = load()
+    stream = np.ascontiguousarray(stream, dtype=np.uint8)
+    n = stream.shape[0]
+    out = np.zeros(1 << (2 * k), dtype=np.int64)
+    lib.kp_count_dense(_ptr(stream), n, n if n_own is None else int(n_own), k,
+                       int(canonical), _ptr(out))
+    return out
 
 
 def _hi_layout(words: tuple[np.ndarray, ...]):

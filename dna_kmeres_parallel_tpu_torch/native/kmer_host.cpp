@@ -121,13 +121,17 @@ struct KpFasta {
   int64_t ids_len;
   int64_t total_bases;
   int64_t invalid_bases;
+  int64_t lone_cr;   // lines holding a CR that does not end them
 };
 
 // Parse a FASTA file into a flat encoded stream; max_seqs <= 0 means
 // unlimited. Record semantics are those of utils/fasta.parse_fasta: '>'
 // starts a header, a record's sequence is the concatenation of the
 // following non-header lines, blank lines are ignored and a trailing CR is
-// stripped. Returns 0 on success, 1 on open failure, 2 on read failure.
+// stripped. A CR inside a line is read as an invalid base, where Python's
+// text mode ends the line there; lone_cr counts such lines, so a caller
+// that must read records as parse_fasta does can tell when they differ.
+// Returns 0 on success, 1 on open failure, 2 on read failure.
 int kp_parse_fasta_range(const char* path, int64_t start, int64_t end,
                          int64_t max_seqs, KpFasta** out);
 
@@ -171,6 +175,7 @@ int kp_parse_fasta_range(const char* path, int64_t start, int64_t end,
   int64_t cur_len = 0;
   int64_t total_bases = 0;
   int64_t invalid_bases = 0;
+  int64_t lone_cr = 0;
   bool in_seq = false;
   bool done = false;
 
@@ -213,6 +218,7 @@ int kp_parse_fasta_range(const char* path, int64_t start, int64_t end,
     // strip trailing CR
     while (n > 0 && s[n - 1] == '\r') n--;
     if (n == 0) return;
+    if (memchr(s, '\r', n)) lone_cr++;
     if (format == 0) format = (s[0] == '@') ? 2 : 1;
     if (format == 2) {
       if (fq_state == FQ_HDR) {
@@ -325,6 +331,7 @@ int kp_parse_fasta_range(const char* path, int64_t start, int64_t end,
   r->ids_len = ids.len;
   r->total_bases = total_bases;
   r->invalid_bases = invalid_bases;
+  r->lone_cr = lone_cr;
   *out = r;
   return 0;
 }
@@ -405,6 +412,48 @@ void kp_pack_2bit(const uint8_t* bases, int64_t n, uint8_t* out_data,
         [=] { pack_range(bases, a, b, out_data, out_mask); });
   }
   for (auto& th : ths) th.join();
+}
+
+// Unpack (inverse of kp_pack_2bit): out must hold n bytes.
+void kp_unpack_2bit(const uint8_t* data, const uint8_t* mask, int64_t n,
+                    uint8_t* out) {
+  for (int64_t i = 0; i < n; i++) {
+    bool ok = (mask[i >> 3] >> (i & 7)) & 1;
+    out[i] = ok ? ((data[i >> 2] >> ((i & 3) * 2)) & 3) : kInvalid;
+  }
+}
+
+// Dense k-mer count over an encoded stream (0xFF = invalid or separator),
+// rolling 2-bit codes, k <= 15: the windows that start in [0, n_own),
+// canonical or not, added into out (4^k int64, zeroed by the caller).
+void kp_count_dense(const uint8_t* stream, int64_t n, int64_t n_own, int k,
+                    int canonical, int64_t* out) {
+  const uint32_t mask = (1u << (2 * k)) - 1;
+  uint32_t code = 0;
+  int run = 0;  // consecutive valid bases ending at i
+  if (n_own > n - k + 1) n_own = n - k + 1;
+  for (int64_t i = 0; i < n; i++) {
+    uint8_t b = stream[i];
+    if (b < 4) {
+      code = ((code << 2) | b) & mask;
+      run++;
+    } else {
+      run = 0;
+    }
+    int64_t start = i - k + 1;
+    if (run >= k && start < n_own) {
+      uint32_t c = code;
+      if (canonical) {
+        uint32_t rc = 0, t = code;
+        for (int j = 0; j < k; j++) {
+          rc = (rc << 2) | ((t & 3) ^ 3);
+          t >>= 2;
+        }
+        if (rc < c) c = rc;
+      }
+      out[c]++;
+    }
+  }
 }
 
 }  // extern "C"

@@ -8,13 +8,18 @@ host work):
 
 - ``measure_link``: pinned H2D and D2H bytes a second, and the round trip
   of a tiny K3 job (copy in, launch, copy out, waited for);
-- ``measure_compute``: K3's bin-pairs a second at two shapes, because its
-  rate falls with the number of row tiles: a dense [S, 4^k] counts matrix
-  built by K2 (``DENSE_SHAPE``, the rate ``dense_distance_preferred``
-  reads) and a union matrix (``UNION_SHAPE``, the rate
-  ``union_dense_plan`` reads); and the native two-pointer's entry-pairs a
-  second a thread on tables near the size the union gate meets
-  (``HOST_TABLES``), run with the thread count the two-pointer uses.
+- ``measure_compute``: K3's bin-pairs a second at three shapes, because
+  its rate falls with the number of row tiles: a dense [S, 4^k] counts
+  matrix built by K2 (``DENSE_SHAPE``, the rate
+  ``dense_distance_preferred`` reads), a union matrix (``UNION_SHAPE``,
+  the rate ``union_dense_plan`` reads) and a matrix of many tiles
+  (``PEAK_SHAPE``, every SM busy: the most ``ops/distance.minplus_time``
+  lets the other two grow to); the threshold route's int8
+  multiply-adds a second (``THRESHOLD_SHAPE``: the JAX package's method,
+  the difference between cmax 8 and cmax 2 over S * S * B * 6); and the
+  native two-pointer's entry-pairs a second a thread on tables near the
+  size the union gate meets (``HOST_TABLES``), run with the thread count
+  the two-pointer uses.
 
 On the CPU the same probes run at small shapes (the kernels' plain
 versions, a host memcpy for the link): tests, not rates to route by.
@@ -39,17 +44,23 @@ import torch
 
 from dna_kmeres_parallel_tpu_torch import native
 from dna_kmeres_parallel_tpu_torch.models.sparse_engine import DistanceRates
-from dna_kmeres_parallel_tpu_torch.ops import distance_cuda, histogram_cuda, runtime
+from dna_kmeres_parallel_tpu_torch.ops import distance as dist_ops
+from dna_kmeres_parallel_tpu_torch.ops import distance_cuda, histogram_cuda, runtime, threshold_cuda
 
 #: where calibration files live unless a directory is given
 CAL_DIR = Path(__file__).resolve().parents[2] / "build" / "calibration"
 
 #: K3's dense probe on the card: rows, k and record length of the [rows,
 #: 4^k] counts matrix K2 builds from random records (phase (g)'s shape)
-DENSE_SHAPE = (1024, 9, 2000)
+DENSE_SHAPE = (dist_ops.DENSE_RATE_ROWS, 9, 2000)
 #: K3's union probe on the card: rows, columns and nonzero entries a row
 #: (phase (d)'s union matrix of reads at about 30x)
-UNION_SHAPE = (2048, 131_072, 1500)
+UNION_SHAPE = (dist_ops.UNION_RATE_ROWS, 131_072, 1500)
+#: K3 with every SM busy: the [16,384, 64] counts matrix of records of
+#: 1,500 bases at k=3 (phase (a)'s shape)
+PEAK_SHAPE = (16384, 3, 1500)
+#: the threshold route's probe: rows and columns of random counts 0-8
+THRESHOLD_SHAPE = (2048, 65_536)
 #: the two-pointer's probe: tables, entries a table, and the universe the
 #: entries are drawn from (reads of a 100 kbase genome share their codes)
 HOST_TABLES = (512, 1500, 100_000)
@@ -57,6 +68,8 @@ HOST_TABLES = (512, 1500, 100_000)
 CPU_DENSE_SHAPE = (32, 5, 300)
 CPU_UNION_SHAPE = (64, 4096, 100)
 CPU_HOST_TABLES = (64, 200, 5000)
+CPU_PEAK_SHAPE = (64, 3, 300)
+CPU_THRESHOLD_SHAPE = (64, 512)
 
 #: the DistanceRates field each calibration key fills
 RATE_KEYS = (
@@ -67,6 +80,8 @@ RATE_KEYS = (
     "d2h_bytes_per_sec",
     "roundtrip_s",
     "threads",
+    "peak_bin_pairs_per_sec",
+    "threshold_macs_per_sec",
 )
 
 
@@ -203,6 +218,19 @@ def dense_counts(device, rows: int, k: int, row_len: int, seed: int = 0) -> torc
     return histogram_cuda.counts_matrix_grid(grid, k, 4**k)
 
 
+def threshold_rate(counts: torch.Tensor, reps: int = 3) -> float:
+    """The threshold route's int8 multiply-adds a second over ``counts``
+    [S, B] (counts 0-8), the JAX package's way: the time at cmax 8 less
+    the time at cmax 2, over the S * S * B * 6 multiply-adds the six
+    extra thresholds add (the planes' build included, as the route
+    spends it). ``threshold_cuda.min_sum_matrix_threshold`` on the card,
+    its plain version on the CPU."""
+    S, B = counts.shape
+    hi = _time_s(lambda: threshold_cuda.min_sum_matrix_threshold(counts, 8), counts.device, reps)
+    lo = _time_s(lambda: threshold_cuda.min_sum_matrix_threshold(counts, 2), counts.device, reps)
+    return S * S * B * 6 / max(hi - lo, 1e-9)
+
+
 def union_counts(device, rows: int, bins: int, entries: int, seed: int = 0) -> torch.Tensor:
     """An int32 [rows, bins] union matrix: ``entries`` random columns a row
     holding counts 1-3, zeros elsewhere, made on ``device``."""
@@ -234,13 +262,15 @@ def two_pointer_rate(tables: int, entries: int, universe: int, threads: int,
 
 
 def measure_compute(device: str | torch.device = "cuda", threads: int | None = None) -> dict:
-    """K3's dense and union rates and the two-pointer's, with the thread
-    count the two-pointer will use (``DistanceRates(threads=threads)
-    .host_threads()``)."""
+    """K3's dense, union and peak rates, the threshold route's and the
+    two-pointer's, with the thread count the two-pointer will use
+    (``DistanceRates(threads=threads).host_threads()``)."""
     dev = runtime.resolve_device(device)
     on_card = dev.type == "cuda"
     dense_shape = DENSE_SHAPE if on_card else CPU_DENSE_SHAPE
     union_shape = UNION_SHAPE if on_card else CPU_UNION_SHAPE
+    peak_shape = PEAK_SHAPE if on_card else CPU_PEAK_SHAPE
+    thr_shape = THRESHOLD_SHAPE if on_card else CPU_THRESHOLD_SHAPE
     host_tables = HOST_TABLES if on_card else CPU_HOST_TABLES
     n_threads = DistanceRates(threads=threads).host_threads()
     counts = dense_counts(dev, *dense_shape)
@@ -248,16 +278,25 @@ def measure_compute(device: str | torch.device = "cuda", threads: int | None = N
     del counts
     counts = union_counts(dev, *union_shape)
     union = k3_rate(counts)
+    counts = dense_counts(dev, *peak_shape)
+    peak = k3_rate(counts)
+    g = torch.Generator(device=dev).manual_seed(0)
+    counts = torch.randint(0, 9, thr_shape, generator=g, device=dev, dtype=torch.int32)
+    thr = threshold_rate(counts)
     del counts
     if on_card:
         torch.cuda.empty_cache()
     return {
         "bin_pairs_per_sec": union,
         "dense_bin_pairs_per_sec": dense,
+        "peak_bin_pairs_per_sec": peak,
+        "threshold_macs_per_sec": thr,
         "sparse_entry_pairs_per_sec_per_thread": two_pointer_rate(*host_tables, n_threads),
         "threads": n_threads,
         "dense_shape": [dense_shape[0], 4 ** dense_shape[1]],
         "union_shape": list(union_shape[:2]),
+        "peak_shape": [peak_shape[0], 4 ** peak_shape[1]],
+        "threshold_shape": list(thr_shape),
         "host_tables": list(host_tables[:2]),
     }
 

@@ -4,10 +4,13 @@ D(i, j) = 1 - sum_p min(c_i[p], c_j[p]) / (min(L_i, L_j) - k + 1), float32
 (the reference's formula). The port of
 ``dna_kmeres_parallel_tpu/ops/distance.py``'s ``min_sum_matrix`` (the plain
 version of K3 and K4), ``finish_distances``, ``finish_distances_panel``,
-``distance_matrix_packed`` and ``tri_time_per_pair`` (with the card's
-rates). The integer min-sums are exact on any
-device; the float32 finish runs on the host in NumPy, whose division is
-IEEE correctly rounded, so the distances are bit-reproducible.
+``distance_matrix_packed``, ``distance_matrix_square`` and
+``tri_time_per_pair`` (with the card's rates), and of
+``min_sum_matrix_mxu``, here ``min_sum_matrix_threshold`` (the plain
+version of the threshold route, ``ops/threshold_cuda``) with the time
+models its gate compares. The integer min-sums are exact on any device;
+the float32 finish runs on the host in NumPy, whose division is IEEE
+correctly rounded, so the distances are bit-reproducible.
 """
 
 from __future__ import annotations
@@ -26,10 +29,103 @@ _BLOCK_ELEMS = 1 << 24
 TRI_BIN_PAIRS_PER_SEC = 6.8e12
 
 
+#: K3's rate with every SM busy: [16,384, 64] (8,256 output tiles), as
+#: ``ops/calibrate`` measured it on one NVIDIA H100 80GB HBM3 at 700 W
+#: (``scripts/threshold_probe.py``, PERF.md section 6); the rates measured
+#: at fewer tiles are below it.
+PEAK_BIN_PAIRS_PER_SEC = 1.07e13
+#: K3/K4's output tile (``csrc/min_sum.cu``'s kTile)
+MINPLUS_TILE = 128
+#: the rows of the shapes ``ops/calibrate`` measures K3's dense and union
+#: rates at, [1024, 4^9] and [2048, 131,072]
+DENSE_RATE_ROWS = 1024
+UNION_RATE_ROWS = 2048
+#: the threshold route's cap on cmax's power-of-two bucket (the JAX
+#: package's ``MXU_CMAX_DEFAULT``): one plane of B columns a threshold
+THRESHOLD_CMAX_DEFAULT = 64
+#: int8 multiply-adds a second of the threshold route, its 0/1 planes
+#: built and multiplied (``torch._int_mm``): the marginal rate between
+#: cmax 8 and cmax 2 over a [2048, 65,536] matrix (``ops/calibrate``'s
+#: method), measured on one NVIDIA H100 80GB HBM3 at 700 W
+#: (``scripts/threshold_probe.py``, PERF.md section 6)
+THRESHOLD_MACS_PER_SEC = 2.96e14
+
+
 def tri_time_per_pair(bins: int, rate: float = TRI_BIN_PAIRS_PER_SEC) -> float:
     """Predicted seconds a pair of the (min,+) product over ``bins``
     columns takes in K3 or K4."""
     return bins / rate
+
+
+def minplus_tiles(rows: int, cols: int, symmetric: bool) -> int:
+    """The 128 x 128 output tiles K3 (``symmetric``: the upper triangle
+    of [rows, rows]) or K4 ([rows, cols]) launches."""
+    t = -(-rows // MINPLUS_TILE)
+    return t * (t + 1) // 2 if symmetric else t * -(-cols // MINPLUS_TILE)
+
+
+def minplus_time(rows: int, cols: int, bins: int, symmetric: bool, *, rate: float,
+                 rate_rows: int, peak: float = PEAK_BIN_PAIRS_PER_SEC) -> float:
+    """Predicted seconds of K3 (``symmetric``, the pairs of [rows, rows])
+    or K4 ([rows, cols]) over ``bins`` columns. Their rate grows with the
+    output tiles in flight: ``rate`` was measured by K3 over ``rate_rows``
+    rows, so at t tiles it is rate * t / tiles(rate_rows), at most
+    ``peak`` (every SM busy)."""
+    pairs = rows * (rows - 1) / 2 if symmetric else rows * cols
+    tiles = minplus_tiles(rows, cols, symmetric)
+    eff = min(peak, rate * tiles / minplus_tiles(rate_rows, rate_rows, True))
+    return pairs * bins / max(eff, 1e-30)
+
+
+def threshold_time(rows: int, cols: int, bins: int, cmax: int,
+                   macs_per_sec: float = THRESHOLD_MACS_PER_SEC) -> float:
+    """Predicted seconds of the threshold route over [rows, bins] x
+    [cols, bins] at ``cmax`` thresholds: it computes the whole rectangle
+    (the whole square for a symmetric product), one multiply-add a bin,
+    pair and threshold."""
+    return rows * cols * bins * cmax / macs_per_sec
+
+
+def check_threshold(cmax: int, *mats: torch.Tensor) -> None:
+    """Raise ValueError unless ``cmax`` is a threshold every integer
+    matrix's dtype can hold (an int8 count compared with 128 would wrap:
+    the JAX package's guard) and every row of every matrix sums below
+    2^31 (an int32 min-sum could not hold such a pair)."""
+    for m in mats:
+        if m.dim() != 2:
+            raise ValueError(f"counts must be 2-D, got {tuple(m.shape)}")
+        if not m.dtype.is_floating_point and cmax > torch.iinfo(m.dtype).max:
+            raise ValueError(
+                f"cmax={cmax} not representable in {m.dtype}; widen the counts "
+                "(int32) before the threshold route"
+            )
+        if m.numel() and int(m.sum(1, dtype=torch.int64).max()) >= 1 << 31:
+            raise ValueError(
+                "a row of the counts sums to 2^31 or more: its min-sums could "
+                "overflow int32"
+            )
+
+
+def min_sum_matrix_threshold(
+    counts: torch.Tensor, cmax: int, counts_other: torch.Tensor | None = None
+) -> torch.Tensor:
+    """int32 [S, S2] min-sums by thresholds, the plain version of the
+    threshold route:
+
+        sum_p min(a_p, b_p) = sum_{t=1..cmax} [a_p >= t] * [b_p >= t]
+
+    one int32 product of 0/1 planes a threshold (on the CPU), summed in
+    int32. Exact where every count is at most ``cmax`` (larger counts are
+    cut to cmax) and every row sums below 2^31; ``check_threshold``
+    raises otherwise."""
+    other = counts if counts_other is None else counts_other
+    check_threshold(cmax, counts, other)
+    out = torch.zeros(counts.shape[0], other.shape[0], dtype=torch.int32,
+                      device=counts.device)
+    for t in range(1, cmax + 1):
+        a = (counts >= t).to(torch.int32)
+        out += a @ (a if counts_other is None else (other >= t).to(torch.int32)).T
+    return out
 
 
 def min_sum_matrix(
@@ -99,6 +195,21 @@ def finish_packed(min_sums: np.ndarray, lengths: np.ndarray, k: int) -> np.ndarr
     """Square [S, S] min-sums -> packed float32 distances, finished row by
     row over the upper triangle only."""
     return finish_upper(min_sums, lengths, lengths, k)
+
+
+def distance_matrix_square(counts: torch.Tensor, lengths, k: int) -> torch.Tensor:
+    """The float32 [S, S] distance matrix on the counts' device: the
+    symmetric (min,+) product (K3 on the card) and D = 1 - s / (min(L_i,
+    L_j) - k + 1) there. The JAX package's throughput form: the division
+    is the device's, which may be 1 ulp off the host finish, so use
+    ``distance_matrix_packed`` where bitwise parity matters."""
+    from dna_kmeres_parallel_tpu_torch.ops import distance_cuda
+
+    sums = distance_cuda.min_sum_matrix_tri(counts)
+    lengths = torch.as_tensor(np.asarray(lengths), device=counts.device)
+    min_len = torch.minimum(lengths[:, None], lengths[None, :])
+    denom = (min_len - k + 1).to(torch.float32)
+    return 1.0 - sums.to(torch.float32) / denom
 
 
 def distance_matrix_packed(counts: torch.Tensor, lengths, k: int) -> np.ndarray:

@@ -2,10 +2,11 @@
 rolling encode, reverse complement and canonical fold that feed the
 histogram kernels' plain versions.
 
-The port of ``dna_kmeres_parallel_tpu/ops/encode.py``'s ``unpack_stream``,
-``rolling_codes``, ``revcomp_codes`` and ``canonicalize``. Codes are big-endian 2-bit codes
-in int32, so k <= 15 (4^15 < 2^31); larger k uses the split words of
-``ops/sparse.py``.
+The port of ``dna_kmeres_parallel_tpu/ops/encode.py``'s
+``ascii_to_bases``, ``unpack_2bit``, ``unpack_mask``, ``unpack_stream``,
+``rolling_codes``, ``revcomp_codes`` and ``canonicalize``. Codes are
+big-endian 2-bit codes in int32, so k <= 15 (4^15 < 2^31); larger k uses
+the split words of ``ops/sparse.py``.
 """
 
 from __future__ import annotations
@@ -16,6 +17,33 @@ MAX_DENSE_K = 15
 
 #: the base code of an invalid base (N, or the separator between records)
 INVALID = 0xFF
+
+
+def ascii_to_bases(ascii_u8: torch.Tensor) -> torch.Tensor:
+    """ASCII bytes -> uint8 base codes on their device: A, C, G, T -> 0-3
+    (case-sensitive), INVALID for every other byte."""
+    x = ascii_u8.to(torch.int32)
+    code = torch.full_like(x, INVALID)
+    for i, ch in enumerate(b"ACGT"):
+        code = torch.where(x == ch, i, code)
+    return code.to(torch.uint8)
+
+
+def unpack_2bit(packed_u8: torch.Tensor) -> torch.Tensor:
+    """uint8 packed bytes [..., B] -> uint8 base codes [..., 4B]: base i of
+    a byte at bits 2i (the data plane of ``utils/codec.pack_bases``;
+    validity is the mask plane's, ``unpack_mask``)."""
+    shifts = torch.arange(0, 8, 2, dtype=torch.uint8, device=packed_u8.device)
+    parts = (packed_u8.to(torch.uint8)[..., None] >> shifts) & 3
+    return parts.reshape(*packed_u8.shape[:-1], -1)
+
+
+def unpack_mask(mask_u8: torch.Tensor) -> torch.Tensor:
+    """uint8 mask bytes [..., B] -> bool validity [..., 8B]: bit i of a
+    byte for its base i."""
+    bits = torch.arange(8, dtype=torch.uint8, device=mask_u8.device)
+    parts = (mask_u8.to(torch.uint8)[..., None] >> bits) & 1
+    return parts.reshape(*mask_u8.shape[:-1], -1).bool()
 
 
 def unpack_stream(data: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -33,12 +61,7 @@ def unpack_stream(data: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
             f"{data.numel()} data bytes hold {4 * data.numel()} bases but "
             f"{mask.numel()} mask bytes hold {8 * mask.numel()}"
         )
-    dev = data.device
-    shifts = torch.arange(0, 8, 2, dtype=torch.uint8, device=dev)
-    bases = ((data[:, None] >> shifts) & 3).reshape(-1)
-    bits = torch.arange(8, dtype=torch.uint8, device=dev)
-    valid = ((mask[:, None] >> bits) & 1).reshape(-1).bool()
-    return bases.masked_fill(~valid, INVALID)
+    return unpack_2bit(data).masked_fill(~unpack_mask(mask), INVALID)
 
 
 def planes_to_stream(words_le: torch.Tensor, inval_be: torch.Tensor) -> torch.Tensor:

@@ -417,6 +417,8 @@ def distance_file_multihost_resumable(
     stitch: bool = True,
     *,
     rates: DistanceRates = DistanceRates(),
+    threshold: str = "auto",
+    threshold_cap: int | None = None,
     device: str | torch.device = "cuda",
 ) -> dict:
     """Multi-host pairwise distances with resume.
@@ -427,11 +429,14 @@ def distance_file_multihost_resumable(
     ``{output}.part{p}`` with the resumable writer (its own checkpoint
     ``{checkpoint}.p{p}``; fsync, then checkpoint). Every rank parses the
     whole input with the native parser (each row block needs every
-    partner's counts). The regime is dense (``KmerEngine``'s counts matrix
-    and (min,+) panels) or sparse (``distance_sparse_stream_to_csv``), by
-    ``dense_distance_preferred`` under rank 0's ``rates``, which every
-    rank takes (one broadcast), so ranks with different calibrations take
-    one regime.
+    partner's counts), reading the records of ``utils/fasta.parse_fasta``
+    as the JAX package does (``native.parse_fasta_text``). The regime is
+    dense (``KmerEngine``'s counts matrix and (min,+) panels) or sparse
+    (``distance_sparse_stream_to_csv``), by ``dense_distance_preferred``
+    under rank 0's ``rates``, which every rank takes (one broadcast), so
+    ranks with different calibrations take one regime. ``threshold`` and
+    ``threshold_cap`` are the threshold route's gate
+    (``sparse_engine.threshold_plan``) in either regime.
 
     The ranks then all-gather their completion flags; when every block is
     done, rank 0 concatenates the parts in rank order into
@@ -458,7 +463,7 @@ def distance_file_multihost_resumable(
         shared = [rates]
         dist.broadcast_object_list(shared, src=0)
         rates = shared[0]
-    parsed = native.parse_fasta_native(path)
+    parsed = native.parse_fasta_text(path)
     seqs = _record_strings(parsed)
     S = len(seqs)
     splits = distance_stream.balanced_row_splits(S, pcount)
@@ -469,11 +474,13 @@ def distance_file_multihost_resumable(
     kw = dict(panel_rows=panel_rows, checkpoint_path=ck, max_panels=max_panels, row_lo=lo,
               row_hi=hi)
     if k <= MAX_DENSE_K and dense_distance_preferred(S, k, parsed.lengths, rates=rates):
-        report = KmerEngine(config, device=dev).distance_stream_to_csv(seqs, part, **kw)
+        report = KmerEngine(config, device=dev, threshold=threshold, threshold_cap=threshold_cap,
+                            rates=rates).distance_stream_to_csv(seqs, part, **kw)
         report["regime"] = "dense"
     else:
         report = distance_sparse_stream_to_csv(seqs, k, part, config.canonical, device=dev,
-                                               rates=rates, **kw)
+                                               rates=rates, threshold=threshold,
+                                               threshold_cap=threshold_cap, **kw)
         report["regime"] = "sparse"
     done = bool(report["completed"])
     if pcount > 1:

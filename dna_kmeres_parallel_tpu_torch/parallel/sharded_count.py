@@ -2,16 +2,16 @@
 
 The counterpart of ``dna_kmeres_parallel_tpu/parallel/sharded_count.py``.
 A flat base stream is cut into D equal shards; each shard counts the
-windows that start in it, reading the next shard's first k-1 bases as its
-halo (``halo_exchange``), with the single-device histogram kernels
+windows that start in it, reading the next k-1 bases of the stream as its
+halo (``stream_halo``), with the single-device histogram kernels
 (``ops/histogram_cuda.histogram_stream``: K7 up to 64 bins, K6 for a
 power of two up to 65,536 bins, K8 otherwise), and the shards' integer
 histograms are summed (``mesh.sum_reduce``): exact, so the result equals
 the single-device count at any D. The (min,+) distance products run K4
-per shard: rows sharded against the gathered matrix
-(``min_sum_matrix_sharded``), or a replicated row panel against sharded
-partner rows with the outputs side by side and no collective
-(``min_sum_panel_sharded``).
+(or the threshold route, ``ops/threshold_cuda``) per shard: rows sharded
+against the gathered matrix (``min_sum_matrix_sharded``), or a
+replicated row panel against sharded partner rows with the outputs side
+by side and no collective (``min_sum_panel_sharded``).
 
 A sharded operand is given as the rows of the mesh's local shards,
 stacked (``parallel/mesh``): on a ``LocalMesh`` the whole operand, on a
@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from dna_kmeres_parallel_tpu_torch.models.engine import host_to_device
-from dna_kmeres_parallel_tpu_torch.ops import distance_cuda, histogram_cuda
+from dna_kmeres_parallel_tpu_torch.ops import distance_cuda, histogram_cuda, threshold_cuda
 from dna_kmeres_parallel_tpu_torch.ops.encode import INVALID
 
 
@@ -57,6 +57,26 @@ def halo_exchange(shards: torch.Tensor, k: int, mesh) -> torch.Tensor:
     return torch.cat([shards, mesh.halo(heads)], dim=1)
 
 
+def stream_halo(shards: torch.Tensor, k: int, mesh) -> torch.Tensor:
+    """[local, Ts] uint8 shards -> [local, Ts + k - 1]: each shard followed
+    by the next k-1 bases of the stream, INVALID past its end.
+
+    Where Ts >= k - 1 those are the next shard's head (``halo_exchange``).
+    A shorter shard's halo spans several shards, where ``halo_exchange``
+    would hand over only Ts bases and lose the windows that reach past the
+    next shard: every shard's row is gathered (``mesh.all_gather``) and
+    each halo is read off the flat stream."""
+    h = k - 1
+    Ts = shards.shape[1]
+    if Ts >= h:
+        return halo_exchange(shards, k, mesh)
+    flat = mesh.all_gather(shards.contiguous()).reshape(-1)
+    flat = torch.cat([flat, flat.new_full((h,), INVALID)])
+    first = (torch.tensor(mesh.local_shards, device=shards.device) + 1) * Ts
+    idx = first[:, None] + torch.arange(h, device=shards.device)[None, :]
+    return torch.cat([shards, flat[idx]], dim=1)
+
+
 def count_sharded(bases: torch.Tensor, k: int, bins: int, canonical: bool, mesh,
                   n_own: int | None = None, acc: torch.Tensor | None = None) -> torch.Tensor:
     """A base stream sharded over ``mesh`` -> int32 [bins], ``acc`` (zeros
@@ -75,7 +95,7 @@ def count_sharded(bases: torch.Tensor, k: int, bins: int, canonical: bool, mesh,
                              f"mesh's {D} shards")
         bases = bases.reshape(D, -1)[mesh.local_shards]
     Ts = bases.shape[1]
-    with_halo = _by_shard(halo_exchange(bases, k, mesh), mesh, "count_sharded")
+    with_halo = _by_shard(stream_halo(bases, k, mesh), mesh, "count_sharded")
     if acc is None:
         acc = torch.zeros(bins, dtype=torch.int32, device=bases.device)
 
@@ -86,25 +106,36 @@ def count_sharded(bases: torch.Tensor, k: int, bins: int, canonical: bool, mesh,
     return mesh.sum_reduce(add, acc)
 
 
-def min_sum_matrix_sharded(counts: torch.Tensor, mesh) -> torch.Tensor:
+def _rect(panel: torch.Tensor, other: torch.Tensor, threshold: int | None) -> torch.Tensor:
+    """One shard's [Pr, S2] product: K4, or the threshold route at cmax
+    ``threshold`` (``ops/threshold_cuda``)."""
+    if threshold is None:
+        return distance_cuda.min_sum_matrix_rect(panel, other)
+    return threshold_cuda.min_sum_matrix_threshold(panel, threshold, other)
+
+
+def min_sum_matrix_sharded(counts: torch.Tensor, mesh,
+                           threshold: int | None = None) -> torch.Tensor:
     """Row-sharded (min,+) matrix: each shard's rows of the int32 [S, B]
-    counts against the gathered matrix (K4 per shard). Returns the local
-    shards' rows of the [S, S] int32 min-sums. S must divide by D."""
+    counts against the gathered matrix (K4 per shard, or the threshold
+    route at cmax ``threshold``). Returns the local shards' rows of the
+    [S, S] int32 min-sums. S must divide by D."""
     blocks = _by_shard(counts, mesh, "min_sum_matrix_sharded")
     full = mesh.all_gather(counts)
-    return torch.cat(mesh.run(lambda s: distance_cuda.min_sum_matrix_rect(blocks[s], full)))
+    return torch.cat(mesh.run(lambda s: _rect(blocks[s], full, threshold)))
 
 
-def min_sum_panel_sharded(panel: torch.Tensor, other: torch.Tensor, mesh) -> torch.Tensor:
+def min_sum_panel_sharded(panel: torch.Tensor, other: torch.Tensor, mesh,
+                          threshold: int | None = None) -> torch.Tensor:
     """Partner-sharded (min,+) panel: the replicated row panel [Pr, B]
-    against each shard's partner rows of ``other`` [S2, B] (K4 per shard),
-    the outputs side by side along columns, no collective. Returns the
-    local shards' columns of the [Pr, S2] int32 min-sums. S2 must divide
-    by D: pad with zero-count rows (their min-sums are 0) and slice them
-    off, as ``models/engine.min_sum_panel_mesh`` does."""
+    against each shard's partner rows of ``other`` [S2, B] (K4 per shard,
+    or the threshold route at cmax ``threshold``), the outputs side by
+    side along columns, no collective. Returns the local shards' columns
+    of the [Pr, S2] int32 min-sums. S2 must divide by D: pad with
+    zero-count rows (their min-sums are 0) and slice them off, as
+    ``models/engine.min_sum_panel_mesh`` does."""
     blocks = _by_shard(other, mesh, "min_sum_panel_sharded")
-    return torch.cat(mesh.run(lambda s: distance_cuda.min_sum_matrix_rect(panel, blocks[s])),
-                     dim=1)
+    return torch.cat(mesh.run(lambda s: _rect(panel, blocks[s], threshold)), dim=1)
 
 
 def shard_rows(flat: np.ndarray, mesh) -> np.ndarray:

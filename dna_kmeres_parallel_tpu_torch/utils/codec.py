@@ -13,6 +13,9 @@ from __future__ import annotations
 
 import numpy as np
 
+#: bits a base takes in the packed representation
+BITS_PER_BASE = 2
+
 #: code of a character outside {A, C, G, T}, and of the record separator
 INVALID_BASE = np.uint8(0xFF)
 
@@ -115,6 +118,30 @@ def canonical_code(code: int | np.ndarray, k: int):
     if np.ndim(out) == 0:
         return int(out)
     return out
+
+
+def pack_bases(base_codes: np.ndarray) -> tuple[np.ndarray, np.ndarray, int]:
+    """uint8 base codes -> (data, mask, length): data uint8 [ceil(L/4)], 4
+    bases a byte little-endian (an invalid base packs as 0); mask uint8
+    [ceil(L/8)], the validity bits little-endian (``native.pack_2bit_native``'s
+    format)."""
+    base_codes = np.asarray(base_codes, dtype=np.uint8)
+    L = base_codes.shape[0]
+    valid = base_codes < 4
+    safe = np.where(valid, base_codes, 0).astype(np.uint8)
+    data4 = np.concatenate([safe, np.zeros((-L) % 4, dtype=np.uint8)]).reshape(-1, 4)
+    packed = (data4[:, 0] | (data4[:, 1] << 2) | (data4[:, 2] << 4)
+              | (data4[:, 3] << 6)).astype(np.uint8)
+    return packed, np.packbits(valid, bitorder="little"), L
+
+
+def unpack_bases(packed: np.ndarray, mask: np.ndarray, length: int) -> np.ndarray:
+    """The inverse of ``pack_bases``: uint8 base codes, INVALID_BASE where
+    the validity bit is clear."""
+    packed = np.asarray(packed, dtype=np.uint8)
+    flat = ((packed[:, None] >> np.arange(0, 8, 2, dtype=np.uint8)) & 3).reshape(-1)[:length]
+    valid = np.unpackbits(np.asarray(mask, dtype=np.uint8), bitorder="little")[:length]
+    return np.where(valid.astype(bool), flat, INVALID_BASE).astype(np.uint8)
 
 
 def concat_with_sentinels(seqs) -> np.ndarray:

@@ -1,10 +1,12 @@
 """Profiler traces of a run, with ``torch.profiler``: the counterpart of
-the JAX package's ``jax.profiler`` trace."""
+the JAX package's ``jax.profiler`` trace; and its device-synchronized
+``wall_timer``."""
 
 from __future__ import annotations
 
 import contextlib
 import os
+import time
 
 
 @contextlib.contextmanager
@@ -25,3 +27,21 @@ def trace(log_dir: str | None):
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+@contextlib.contextmanager
+def wall_timer(out: dict, key: str):
+    """Wall seconds of the block into ``out[key]``, read after the work on
+    the tensors the block leaves in ``out[key + "_arrays"]`` (popped) has
+    finished: each card that holds one is synchronized first."""
+    t0 = time.perf_counter()
+    yield
+    arrays = out.pop(key + "_arrays", None)
+    if arrays is not None:
+        import torch
+
+        items = arrays if isinstance(arrays, (list, tuple)) else [arrays]
+        for dev in {a.device for a in items if isinstance(a, torch.Tensor)}:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+    out[key] = time.perf_counter() - t0

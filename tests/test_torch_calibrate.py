@@ -122,20 +122,20 @@ def test_fake_file_flips_union_dense_plan(tmp_path, monkeypatch):
     codes, cnts, offs = sparse_engine.build_pair_tables(_reads(), 21, device="cpu")
     slow_link = _write(tmp_path, monkeypatch, {
         "h2d_bytes_per_sec": 1e4, "d2h_bytes_per_sec": 1e4, "roundtrip_s": 10.0})
-    assert sparse_engine.union_dense_plan(codes, cnts, offs, device=CARD,
+    assert sparse_engine.union_dense_plan(codes, cnts, offs, device=CARD, threshold="off",
                                           rates=slow_link) is None
     fast_card = _write(tmp_path, monkeypatch, {
         "h2d_bytes_per_sec": 1e13, "d2h_bytes_per_sec": 1e13, "roundtrip_s": 0.0,
         "bin_pairs_per_sec": 1e16, "sparse_entry_pairs_per_sec_per_thread": 1e3,
         "threads": 1})
-    assert sparse_engine.union_dense_plan(codes, cnts, offs, device=CARD,
+    assert sparse_engine.union_dense_plan(codes, cnts, offs, device=CARD, threshold="off",
                                           rates=fast_card) is not None
     # the dense shape's rate is not the union gate's
     dense_only = _write(tmp_path, monkeypatch, {
         "h2d_bytes_per_sec": 1e13, "d2h_bytes_per_sec": 1e13, "roundtrip_s": 0.0,
         "bin_pairs_per_sec": 1.0, "dense_bin_pairs_per_sec": 1e16,
         "sparse_entry_pairs_per_sec_per_thread": 1e3, "threads": 1})
-    assert sparse_engine.union_dense_plan(codes, cnts, offs, device=CARD,
+    assert sparse_engine.union_dense_plan(codes, cnts, offs, device=CARD, threshold="off",
                                           rates=dense_only) is None
 
 

@@ -554,6 +554,7 @@ def test_sparse_and_midk_path_rehearsal(tmp_path, monkeypatch, counted_plain_ver
     union = chip_smoke.phase_union_path(CPU, "cpu", tmp_path)
     launches = union["launches"]
     assert fired(launches["(d) union=on"]) == {"min_sum_tri": 1}
+    assert fired(launches[chip_smoke.SPARSE_OFF]) == {"min_sum_tri": 1}
     assert fired(launches["(d) union=off"]) == fired(launches["(d) union=auto"]) == {}
     stream = next(n for key, n in launches.items() if key.startswith("(d) stream"))
     assert fired(stream) == {"min_sum_rect": 5}
@@ -566,9 +567,76 @@ def test_sparse_and_midk_path_rehearsal(tmp_path, monkeypatch, counted_plain_ver
     midk = chip_smoke.phase_midk_path(records, CPU, "cpu", tmp_path)
     assert fired(midk[chip_smoke.MIDK_MAIN]) == {
         "counts_matrix": 1, "counts_matrix_global": 1, "min_sum_tri": 1}
-    assert fired(midk["(g) k=10 stream"]) == {
+    assert fired(midk["(g) k=10 stream"]) == fired(midk[chip_smoke.MIDK_STREAM_OFF]) == {
         "counts_matrix": 1, "counts_matrix_global": 1, "min_sum_rect": 1}
     assert not list(tmp_path.iterdir())
+
+
+def test_follow_route_moves_the_products_to_the_threshold_route():
+    want = {"counts_matrix": 1, "min_sum_rect": 4}
+    assert chip_smoke.follow_route(want, "minplus") == want
+    assert chip_smoke.follow_route(want, "union/cuda") == want
+    assert chip_smoke.follow_route(want, "threshold") == {
+        "counts_matrix": 1, "min_sum_threshold": 4}
+    assert chip_smoke.follow_route({"min_sum_tri": 1}, "union/threshold") == {
+        "min_sum_threshold": 1}
+    # by the launch counts, where the run reports no route
+    assert chip_smoke.follow_route(want, got={"min_sum_threshold": 0}) == want
+    assert chip_smoke.follow_route(want, got={"min_sum_threshold": 4}) == {
+        "counts_matrix": 1, "min_sum_threshold": 4}
+
+
+def test_threshold_bound_takes_the_larger_time():
+    # (d)'s square: 2048 x 2048 x 111,940 MACs at bucket 1 over 9.9e14
+    ms, by = chip_smoke.threshold_bound(2048, 2048, 111_940, 1, True)
+    assert by == "operations" and ms == pytest.approx(2048 * 2048 * 111_940 / 9.9e14 * 1e3)
+    # (g) k=10's panel: 2 GiB of counts read, 1 GiB of planes
+    ms, by = chip_smoke.threshold_bound(256, 256, 4**10, 2, False)
+    want = (512 * 4**10 * 4 + 2 * 512 * 4**10 * 2 + 256 * 256 * 4) / 3.35e12 * 1e3
+    assert by == "bytes" and ms == pytest.approx(want)
+
+
+def test_threshold_phase_rehearsal(counted_plain_versions):
+    # The threshold phase on the CPU at small shapes: the route (its plain
+    # version here) held to K3/K4's plain versions and the plain product,
+    # timed by the host clock, the gate's choices recorded (auto plans
+    # nothing off the card).
+    from dna_kmeres_parallel_tpu_torch.models import sparse_engine
+    from dna_kmeres_parallel_tpu_torch.ops import distance_cuda
+
+    rng = np.random.default_rng(2)
+    a = torch.from_numpy(rng.integers(0, 4, (20, 64)).astype(np.int32))
+    b = torch.from_numpy(rng.integers(0, 3, (9, 64)).astype(np.int32))
+    seen = []
+
+    def choose(rates):
+        seen.append(rates)
+        return None
+
+    cases = [
+        chip_smoke.threshold_case("sym", a, None, lambda: distance_cuda.min_sum_matrix_tri(a),
+                                  choose),
+        chip_smoke.threshold_case("rect", b, a, lambda: distance_cuda.min_sum_matrix_rect(b, a),
+                                  choose, minplus_ms=1.0, cdist_ms=2.0),
+    ]
+    rates = sparse_engine.DistanceRates(threshold_macs_per_sec=1.0)
+    records = chip_smoke.phase_threshold(CPU, "cpu", cases, rates, sparse_engine.DistanceRates())
+    assert [r["shape"] for r in records] == ["sym", "rect"]
+    assert [r["bucket"] for r in records] == [4, 4] and records[0]["dims"] == [20, 20, 64]
+    assert records[1]["dims"] == [9, 20, 64] and records[1]["minplus_ms"] == 1.0
+    assert all(r["max_abs_err"] == 0 and r["gate"] == "minplus" for r in records)
+    assert seen == [rates, sparse_engine.DistanceRates()] * 2
+
+
+def test_threshold_phase_catches_a_wrong_product():
+    from dna_kmeres_parallel_tpu_torch.models import sparse_engine
+
+    a = torch.from_numpy(np.random.default_rng(3).integers(0, 4, (8, 16)).astype(np.int32))
+    wrong = chip_smoke.threshold_case("x", a, None, lambda: torch.zeros(8, 8, dtype=torch.int32),
+                                      lambda rates: None)
+    with pytest.raises(AssertionError, match="max_abs_err"):
+        chip_smoke.phase_threshold(CPU, "cpu", [wrong], sparse_engine.DistanceRates(),
+                                   sparse_engine.DistanceRates())
 
 
 def test_table_csv_check_catches_a_wrong_line(tmp_path):

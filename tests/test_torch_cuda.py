@@ -206,6 +206,63 @@ def test_min_sum_rect_at_wide_bins_matches_plain(cuda_device, S, S2, B, kind, ro
     assert torch.equal(got, distance.min_sum_matrix(a, b))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [None, 4096, 1 << 16])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
+@pytest.mark.parametrize("S,S2,B,cmax", [(1, None, 1, 1), (5, 3, 13, 2), (17, None, 64, 64),
+                                         (129, 200, 1000, 4), (300, None, 4099, 3)])
+def test_threshold_route_matches_plain_on_card(cuda_device, S, S2, B, cmax, dtype, budget):
+    # torch._int_mm on the card: rows under 17 and not multiples of 8,
+    # inner sizes not multiples of 8, int8 and int32 counts, the planes
+    # chunked by thresholds and by bins.
+    from dna_kmeres_parallel_tpu_torch.ops import threshold_cuda
+
+    rng = np.random.default_rng(S + B)
+    a = torch.from_numpy(rng.integers(0, cmax + 1, (S, B))).to(dtype).to(cuda_device)
+    b = None if S2 is None else torch.from_numpy(
+        rng.integers(0, cmax + 1, (S2, B))).to(dtype).to(cuda_device)
+    launches = threshold_cuda.THRESHOLD_LAUNCHES
+    got = threshold_cuda.min_sum_threshold_cuda(a, cmax, b, budget)
+    assert threshold_cuda.THRESHOLD_LAUNCHES == launches + 1
+    want = distance.min_sum_matrix(a.int(), None if b is None else b.int())
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert torch.equal(got.cpu(), threshold_cuda.threshold_product(
+        a.cpu(), cmax, None if b is None else b.cpu(), budget)[0])
+
+
+@pytest.mark.cuda
+def test_threshold_route_refuses_what_it_cannot_hold(cuda_device):
+    from dna_kmeres_parallel_tpu_torch.ops import threshold_cuda
+
+    a = torch.ones(4, 8, dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError, match="not representable"):
+        threshold_cuda.min_sum_matrix_threshold(a, 128)
+    big = torch.full((2, 1 << 20), 2048, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="2\\^31"):
+        threshold_cuda.min_sum_matrix_threshold(big, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,mesh", [(4, ()), (8, ()), (4, (3,))])
+def test_engine_threshold_route_equals_its_cpu_route(cuda_device, tmp_path, k, mesh):
+    # The dense engine with the route forced on, on the card, against the
+    # CPU's (the plain version) and the card's K3/K4 route.
+    from dna_kmeres_parallel_tpu_torch import KmerConfig
+    from dna_kmeres_parallel_tpu_torch.ops import threshold_cuda
+
+    rng = np.random.default_rng(k)
+    seqs = ["".join(rng.choice(list("ACGTN"), 300 + 7 * i)) for i in range(23)]
+    cfg = KmerConfig(k=k, mesh_shape=mesh)
+    launches = threshold_cuda.THRESHOLD_LAUNCHES
+    got = engine.KmerEngine(cfg, device=cuda_device, threshold="on").distance_sequences(seqs)
+    assert got.route == "threshold"
+    assert threshold_cuda.THRESHOLD_LAUNCHES == launches + (mesh[0] if mesh else 1)
+    off = engine.KmerEngine(cfg, device=cuda_device, threshold="off").distance_sequences(seqs)
+    cpu = engine.KmerEngine(cfg, device="cpu", threshold="on").distance_sequences(seqs)
+    assert off.route == "minplus" and cpu.route == "threshold"
+    assert np.array_equal(got.packed, off.packed) and np.array_equal(got.packed, cpu.packed)
+
+
 def counts(S: int, B: int, seed: int, dev, cmax: int = 9) -> torch.Tensor:
     rng = np.random.default_rng(seed)
     return torch.from_numpy(rng.integers(0, cmax + 1, (S, B)).astype(np.int32)).to(dev)

@@ -106,6 +106,34 @@ for union in ("off", "on"):
     sparse[union + " csv"] = open(out, "rb").read().decode()
 sparse["k9"] = KmerEngine(port.KmerConfig(k=9), device="cpu").distance_sequences(
     seqs).packed.view("u4").tolist()
+# The threshold route forced on (its plain version): the dense engine,
+# the union route, and the JAX package's public helpers' counterparts.
+thr = KmerEngine(port.KmerConfig(k=3), device="cpu", threshold="on", threshold_cap=256
+                 ).distance_sequences(seqs)
+assert thr.route == "threshold"
+sparse["threshold3"] = thr.packed.view("u4").tolist()
+sparse["threshold21"] = sparse_engine.distance_sparse_packed(
+    seqs, 21, device="cpu", union="on", threshold="on").view("u4").tolist()
+import numpy as np
+import torch
+
+from dna_kmeres_parallel_tpu_torch import native
+from dna_kmeres_parallel_tpu_torch.ops import distance as dist_ops, encode
+from dna_kmeres_parallel_tpu_torch.utils import profiling, triangular
+
+packed, mask, n = codec.pack_bases(flat)
+assert (codec.unpack_bases(packed, mask, n) == flat).all()
+assert (native.unpack_2bit_native(packed, mask, n) == flat).all()
+assert (encode.unpack_2bit(torch.from_numpy(packed)).numpy()[:n] == np.where(flat < 4, flat, 0)
+        ).all()
+sparse["dense3"] = native.count_dense_native(flat, 3).tolist()
+timed = {}
+with profiling.wall_timer(timed, "t"):
+    timed["t_arrays"] = dist_ops.distance_matrix_square(
+        torch.from_numpy(np.stack([codec.encode_bases("ACGTACGT")] * 2).astype(np.int32) % 4),
+        [8, 8], 1)
+assert triangular.square_to_packed(triangular.packed_to_square(np.arange(3), 3)).tolist() == [
+    0, 1, 2]
 # The data-parallel layer on a local mesh of 4 CPU shards: the streaming
 # counter's dense and sparse mesh arms, its super-k-mer route, the
 # partner-sharded distances of both engines, and the port's dry run.
@@ -193,6 +221,9 @@ def test_port_runs_with_jax_refused(tmp_path):
         assert out["sparse"][union] == sparse.view(np.uint32).tolist(), union
         assert out["sparse"][union + " csv"] == text, union
     assert out["sparse"]["k9"] == oracle.distance_matrix_packed(SEQS, 9).view(np.uint32).tolist()
+    assert out["sparse"]["threshold3"] == want.view(np.uint32).tolist()
+    assert out["sparse"]["threshold21"] == sparse.view(np.uint32).tolist()
+    assert out["sparse"]["dense3"] == sum(oracle.count_vector(s, 3) for s in SEQS).tolist()
     meshed = out["meshed"]
     assert meshed["dense5"] == oracle.count_table_any_k(SEQS, 5)
     for name in ("sparse21", "super21", "sparse_sharded21"):

@@ -17,7 +17,7 @@ from dna_kmeres_parallel_tpu.models import oracle
 from dna_kmeres_parallel_tpu.models import sparse_engine as jax_sparse
 from dna_kmeres_parallel_tpu_torch import native
 from dna_kmeres_parallel_tpu_torch.models import sparse_engine
-from dna_kmeres_parallel_tpu_torch.ops import distance_cuda
+from dna_kmeres_parallel_tpu_torch.ops import distance_cuda, threshold_cuda
 
 CPU = torch.device("cpu")
 #: k of the sparse regime the tests cover (mid k, k > 15, the widest)
@@ -319,7 +319,8 @@ def test_union_plan_auto_pins_its_boundary():
     for threads, planned in ((int(tie) + 1, False), (int(tie), True)):
         rates = sparse_engine.DistanceRates(**{**RATES.__dict__, "threads": threads})
         info = {}
-        plan = sparse_engine.union_dense_plan(codes, cnts, offs, device=card, rates=rates, info=info)
+        plan = sparse_engine.union_dense_plan(codes, cnts, offs, device=card, rates=rates,
+                                              threshold="off", info=info)
         assert (plan is not None) == planned, threads
         assert info["t_dev_total"] == pytest.approx(t_dev)
         assert info["t_host_total"] == pytest.approx(t_host_1 / threads)
@@ -329,8 +330,10 @@ def test_union_plan_auto_pins_its_boundary():
     rates = sparse_engine.DistanceRates(**{**RATES.__dict__, "threads": int(tie)})
     slow = sparse_engine.DistanceRates(
         **{**rates.__dict__, "roundtrip_s": t_host_1 / int(tie) - t_dev + 1e-9})
-    assert sparse_engine.union_dense_plan(codes, cnts, offs, device=card, rates=rates)
-    assert sparse_engine.union_dense_plan(codes, cnts, offs, device=card, rates=slow) is None
+    assert sparse_engine.union_dense_plan(codes, cnts, offs, device=card, rates=rates,
+                                          threshold="off")
+    assert sparse_engine.union_dense_plan(codes, cnts, offs, device=card, rates=slow,
+                                          threshold="off") is None
 
 
 def test_union_plan_gates_and_switch():
@@ -360,7 +363,8 @@ def test_union_plan_gates_and_switch():
         c = cnts.copy()
         c[0] = top
         info = {}
-        plan = sparse_engine.union_dense_plan(codes, c, offs, device=card, union="on", info=info)
+        plan = sparse_engine.union_dense_plan(codes, c, offs, device=card, union="on",
+                                              threshold="off", info=info)
         assert plan["dtype"] == dtype and info["union_bytes"] == 1_286_144
         assert info["t_dev_total"] == pytest.approx(
             8128 * 256 / sparse_engine.DistanceRates().bin_pairs_per_sec
@@ -404,6 +408,7 @@ def fake_card(monkeypatch):
 
     monkeypatch.setattr(distance_cuda, "min_sum_matrix_tri", failed_launch)
     monkeypatch.setattr(distance_cuda, "min_sum_matrix_rect", failed_launch)
+    monkeypatch.setattr(threshold_cuda, "min_sum_matrix_threshold", failed_launch)
     for name in ("min_sum_pairs_native", "min_sum_panel_native"):
         monkeypatch.setattr(native, name, host_route)
     return card
