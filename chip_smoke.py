@@ -1868,10 +1868,12 @@ def check_csv(path: Path, want, n_sample: int = 100_000) -> int:
 #: K3/K4's kernels in the SASS: (name, mangled-name fragments, outputs a
 #: thread accumulates, bins a stage)
 MIN_SUM_SASS = (
-    ("min_sum_rect u16x2", ("min_sum_rect_kernel", "ILb1E"), 128, 32),
-    ("min_sum_rect i32", ("min_sum_rect_kernel", "ILb0E"), 64, 32),
-    ("min_sum_tri u16x2", ("min_sum_tri_kernel", "ILb1E"), 128, 32),
-    ("min_sum_tri i32", ("min_sum_tri_kernel", "ILb0E"), 64, 32),
+    ("min_sum_rect u16x2", ("min_sum_rect_kernel", "ILb1ELb0E"), 128, 32),
+    ("min_sum_rect i32", ("min_sum_rect_kernel", "ILb0ELb0E"), 64, 32),
+    ("min_sum_tri u16x2", ("min_sum_tri_kernel", "ILb1ELb0E"), 128, 32),
+    ("min_sum_tri i32", ("min_sum_tri_kernel", "ILb0ELb0E"), 64, 32),
+    ("min_sum_rect u16x2 split", ("min_sum_rect_kernel", "ILb1ELb1E"), 128, 32),
+    ("min_sum_tri i32 split", ("min_sum_tri_kernel", "ILb0ELb1E"), 64, 32),
 )
 
 
@@ -1954,6 +1956,11 @@ ROUTE_KINDS = (
     ("big", "small", "u16x2"),
     ("wide", "wide", "i32"),
 )
+#: bins either side of a slice edge of K3/K4's bin split: at ROUTE_ROWS
+#: the products split 65,536 bins into 64 slices of 1,024 (ROUTE_BINS),
+#: 65,535 into 63 such and one of 1,023, 65,537 into 62 of 1,056 and one
+#: of 65
+SPLIT_BINS = (65535, 65537)
 
 
 def route_counts(rows: int, B: int, kind: str, seed: int):
@@ -2120,6 +2127,53 @@ def phase_distance_kernels(dev, card: str, records, so: Path | None = None) -> d
                 f"B={B}: max_abs_err={err} [{card}]")
         mats.clear()
 
+    # The bin split (P > 1) on both routes: the rows above either side of
+    # a slice edge (129 rows: K3's mirror tile), then operands and outputs
+    # off the 16-byte grid.
+    def split_of(rows, cols, B, route, symmetric):
+        n = distance_cuda.product_split(rows, cols, B, route, dev, symmetric)[0]
+        if n < 2:
+            raise AssertionError(f"[{rows}, {B}] x [{cols}, {B}] ({route}) does not split")
+        return n
+
+    for B in SPLIT_BINS:
+        for kind in ("small", "wide"):
+            want = "u16x2" if kind == "small" else "i32"
+            splits = {split_of(S, S, B, want, True) for S in ROUTE_ROWS}
+            err = max(routed("min_sum_tri", distance_cuda.min_sum_tri_cuda, want,
+                             mat(S, B, kind, 0)) for S in ROUTE_ROWS)
+            log(f"kernel check min_sum_tri split {sorted(splits)} {want} ({kind}) S in "
+                f"{ROUTE_ROWS}, B={B}: max_abs_err={err} [{card}]")
+        for ka, kc, want in ROUTE_KINDS:
+            splits = {split_of(S, S2, B, want, False) for S in ROUTE_ROWS for S2 in ROUTE_ROWS}
+            err = max(routed("min_sum_rect", distance_cuda.min_sum_rect_cuda, want,
+                             mat(S, B, ka, 0), mat(S2, B, kc, 1))
+                      for S in ROUTE_ROWS for S2 in ROUTE_ROWS)
+            log(f"kernel check min_sum_rect split {sorted(splits)} {want} ({ka} x {kc}) S, S2 "
+                f"in {ROUTE_ROWS}, B={B}: max_abs_err={err} [{card}]")
+        mats.clear()
+    for kind, want in (("small", "u16x2"), ("wide", "i32")):
+        B = SPLIT_BINS[0]
+        base = torch.from_numpy(route_counts(300, B, kind, 17)).to(dev)
+        a, c = base[1:200], base[3:]  # rows of an odd B: 4-byte aligned only
+        buf = torch.full((a.shape[0] * c.shape[0] + 1,), -1, dtype=torch.int32, device=dev)
+        out = buf[1:].view(a.shape[0], c.shape[0])
+        distance_cuda.launch_min_sum_rect(a, c, out, want)
+        check("min_sum_rect", out, distance.min_sum_matrix(a, c),
+              f"split {split_of(a.shape[0], c.shape[0], B, want, False)} {tuple(a.shape)} x "
+              f"{tuple(c.shape)}, rows and output off the 16-byte grid ({want})")
+        if int(buf[0]) != -1:
+            raise AssertionError("min_sum_rect split wrote before its output")
+        buf = torch.full((a.shape[0] ** 2 + 3,), -1, dtype=torch.int32, device=dev)
+        out = buf[3:].view(a.shape[0], a.shape[0])
+        distance_cuda.launch_min_sum_tri(a, out, want)
+        check("min_sum_tri", out, distance.min_sum_matrix(a),
+              f"split {split_of(a.shape[0], a.shape[0], B, want, True)} {tuple(a.shape)}, "
+              f"rows and output off the 16-byte grid ({want})")
+        if int(buf[:3].min()) != -1 or int(buf[:3].max()) != -1:
+            raise AssertionError("min_sum_tri split wrote before its output")
+        del base, a, c, buf, out
+
     # The distance path's shapes: (a)'s grid and counts at k=3, (b)'s grid
     # at k=8, and (c)'s panels against their partner rows.
     stream, starts, lengths = records
@@ -2179,6 +2233,7 @@ def phase_distance_kernels(dev, card: str, records, so: Path | None = None) -> d
         library_ms=time_ms(lambda: torch.cdist(af, af, p=1), 3),
         bound=min_sum_bound([(na, na)], 64, symmetric=True),
         shape=f"[{na}, 64] ({route})",
+        split=distance_cuda.product_split(na, na, 64, route, dev, True)[0],
     )
     wide_ms = time_ms(lambda: distance_cuda.launch_min_sum_tri(counts_a, out_a, "i32"), 10)
     check("min_sum_tri", out_a, distance.min_sum_matrix(counts_a), f"(a) {tuple(counts_a.shape)} (i32)")
@@ -2192,6 +2247,7 @@ def phase_distance_kernels(dev, card: str, records, so: Path | None = None) -> d
         library_ms=time_ms(lambda: torch.cdist(pf, cf, p=1), 3),
         bound=min_sum_bound([(npn, nall)], 64),
         shape=f"[{npn}, 64] x [{nall}, 64] ({route})",
+        split=distance_cuda.product_split(npn, nall, 64, route, dev, False)[0],
     )
     wide_ms = time_ms(lambda: distance_cuda.launch_min_sum_rect(panel, counts_all, out_c, "i32"), 10)
     check("min_sum_rect", out_c, distance.min_sum_matrix(panel, counts_all),
@@ -2202,7 +2258,8 @@ def phase_distance_kernels(dev, card: str, records, so: Path | None = None) -> d
     for name, r in rec.items():
         r["max_abs_err"] = worst[name]
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        log(f"kernel time {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+        split = f", {r['split']} bin slices" if "split" in r else ""
+        log(f"kernel time {name} {r['shape']}{split}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.3f} ms, torch.cdist {lib}, bound {r['bound'][0]:.4f} ms "
             f"({r['bound'][1]}) [{card}]")
 
@@ -2999,6 +3056,7 @@ def phase_wide_kernels(dev, card: str, records, union_tables) -> dict:
                 shapes["min_sum_tri"].append(dict(
                     run=tri_runs[run] if kind == "path" else None,
                     shape=f"[{rows}, {B}] ({route})",
+                    split=distance_cuda.product_split(rows, rows, B, route, dev, True)[0],
                     ms=ms, plain_ms=plain_ms,
                     library_ms=time_once_ms(lambda: torch.cdist(af, af, p=1)),
                     bound_ms=bound[0], bound_by=bound[1]))
@@ -3022,6 +3080,7 @@ def phase_wide_kernels(dev, card: str, records, union_tables) -> dict:
             shapes["min_sum_rect"].append(dict(
                 run=panel_runs.get(run) if kind == "path" else None,
                 shape=f"[{p.shape[0]}, {B}] x [{rows}, {B}] ({route})",
+                split=distance_cuda.product_split(p.shape[0], rows, B, route, dev, False)[0],
                 ms=time_ms(lambda: distance_cuda.launch_min_sum_rect(p, a, out, route), 3),
                 plain_ms=plain_ms, library_ms=time_once_ms(lambda: torch.cdist(pf, cf, p=1)),
                 bound_ms=bound[0], bound_by=bound[1]))
@@ -3030,7 +3089,8 @@ def phase_wide_kernels(dev, card: str, records, union_tables) -> dict:
     for name, recs in shapes.items():
         for r in recs:
             lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-            log(f"kernel time {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+            split = f", {r['split']} bin slices" if "split" in r else ""
+            log(f"kernel time {name} {r['shape']}{split}: kernel {r['ms']:.4f} ms, plain "
                 f"{r['plain_ms']:.3f} ms, torch.cdist {lib}, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}) [{card}]")
     torch.cuda.empty_cache()

@@ -56,10 +56,29 @@
 //     rows with 16-byte stores, realigned to the row's own alignment (the
 //     path's row lengths, 54,018 - r0, are not multiples of 4). K3's
 //     mirror tile is the transposed read of the same registers.
-//   - min_sum_tri (K3): a 1-D grid over the nt (nt + 1) / 2 upper-triangle
+//   - min_sum_tri (K3): a grid over the nt (nt + 1) / 2 upper-triangle
 //     tile pairs (ti <= tj); a block writes its tile and, for ti < tj, the
 //     mirror tile: the output is the full symmetric matrix.
-//   - min_sum_rect (K4): a 2-D grid over all tiles of [S, S2].
+//   - min_sum_rect (K4): a grid over all tiles of [S, S2].
+//  5. Bin slices (split-K), for products with few output tiles. A block
+//     walks every bin of its tile, so a product of a few hundred rows over
+//     10^5-10^6 bins launches 3-4 blocks on 132 SMs. The caller passes
+//     the bins a slice, whole 32-bin stages (ops/distance.min_sum_split,
+//     the one plan: B wherever the tiles alone give about two waves of
+//     resident blocks, else enough slices of at least 1,024 bins for
+//     about two waves), and the kernels launch P = ceil(B / slice)
+//     slices, the last ending at B. With P > 1 each block computes one
+//     tile over one slice, the output is zeroed on the stream, and the
+//     block adds its int32 tile (and K3's mirror) into it with
+//     fire-and-forget red.global.add.s32, staged through shared memory as
+//     the stores are, a warp covering output rows. A slice's partial is a
+//     sum over a subset of the bins, at most the whole min-sum, so no
+//     packed lane can reach 2^16 that the route's gate did not allow;
+//     integer addition is associative, so the result is bit-identical to
+//     P = 1 in any order. P = 1 launches the unsplit kernel: no memset,
+//     no atomics. K3's grid takes the slices on y, K4's folds them into x
+//     (slice-major, so that a slice's tiles run side by side and share
+//     its operand bytes in L2).
 // Rows and bins past the edge load as 0 and are never stored. The TPU
 // kernel's 256-bin slab scan existed for Mosaic's scoped VMEM and has no
 // counterpart here, nor does its tile-stack output with its gather.
@@ -220,19 +239,21 @@ __device__ __forceinline__ uint32_t lane_of(uint32_t w, int l) {
   return w;
 }
 
+// The tile's min-sums over bins [b_begin, b_end): b_begin is a multiple of
+// kBK, and b_end is one too or B (the stages load bins past B as 0).
 template <bool kPacked>
 __device__ __forceinline__ void tile_min_sum(
     const int32_t* __restrict__ A, int64_t S, const int32_t* __restrict__ C,
-    int64_t S2, int64_t B, int64_t r0, int64_t c0, uint32_t one,
-    uint32_t* smem, uint32_t (&acc)[8][8]) {
+    int64_t S2, int64_t B, int64_t r0, int64_t c0, int64_t b_begin,
+    int64_t b_end, uint32_t one, uint32_t* smem, uint32_t (&acc)[8][8]) {
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0;
   const bool vec_a = B % 4 == 0 && (reinterpret_cast<uintptr_t>(A) & 15) == 0;
   const bool vec_c = B % 4 == 0 && (reinterpret_cast<uintptr_t>(C) & 15) == 0;
-  for (int64_t b0 = 0; b0 < B; b0 += kBK) {
-    if (b0) __syncthreads();  // every thread is done with the last stage
+  for (int64_t b0 = b_begin; b0 < b_end; b0 += kBK) {
+    if (b0 != b_begin) __syncthreads();  // every thread is done with the last stage
     stage<kPacked>(A, S, C, S2, B, r0, c0, b0, vec_a, vec_c, smem);
     __syncthreads();
     stage_product<kPacked>(smem, acc, one);
@@ -247,11 +268,17 @@ __device__ __forceinline__ int out_index(int lr, int lc) {
   return lr * kTile + ((((lc >> 2) ^ sw) << 2) | (lc & 3));
 }
 
+// out += v, fire and forget (a RED: no value comes back).
+__device__ __forceinline__ void red_add(int32_t* p, uint32_t v) {
+  asm volatile("red.global.add.s32 [%0], %1;" ::"l"(__cvta_generic_to_global(p)), "r"(v)
+               : "memory");
+}
+
 // Writes the tile's int32 values to out (leading dimension ld): direct,
 // out[orow0 + r][ocol0 + c] = tile(r, c); transposed, the same with
 // tile(c, r). Only outputs with row < orows and column < ocols are
-// written.
-template <bool kPacked>
+// written; with kAdd they are added (red_add) instead of stored.
+template <bool kPacked, bool kAdd>
 __device__ __forceinline__ void store_tile(const uint32_t (&acc)[8][8],
                                            uint32_t* smem,
                                            int32_t* __restrict__ out,
@@ -313,6 +340,15 @@ __device__ __forceinline__ void store_tile(const uint32_t (&acc)[8][8],
       const int64_t orow = orow0 + 64 * h + lr;
       if (orow >= orows) break;
       int32_t* dst = out + orow * ld + ocol0;
+      if constexpr (kAdd) {
+        // Lane l adds columns l, l + 32, ...: 128-byte runs a warp.
+#pragma unroll
+        for (int q = 0; q < kTile / 32; ++q) {
+          const int lc = lane + 32 * q;
+          if (lc < ncol) red_add(dst + lc, smem[out_index(lr, lc)]);
+        }
+        continue;
+      }
       int head = static_cast<int>((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15) >> 2;
       if (head > ncol) head = static_cast<int>(ncol);
       const int nbody = static_cast<int>(ncol - head) >> 2;
@@ -339,10 +375,13 @@ __device__ __forceinline__ void store_tile(const uint32_t (&acc)[8][8],
   }
 }
 
-template <bool kPacked>
+// With kSplit, blockIdx.y is the bin slice, of ``slice`` bins (a multiple
+// of kBK), and the tiles are added into a zeroed out.
+template <bool kPacked, bool kSplit>
 __global__ void __launch_bounds__(Tiling<kPacked>::kThreads, Tiling<kPacked>::kMinBlocks)
 min_sum_tri_kernel(const int32_t* __restrict__ A, int64_t S, int64_t B,
-                   int64_t nt, uint32_t one, int32_t* __restrict__ out) {
+                   int64_t nt, int64_t slice, uint32_t one,
+                   int32_t* __restrict__ out) {
   __shared__ __align__(16) uint32_t smem[kSmemWords];
   // Tile pair t -> (ti, tj): row ti of the triangle starts at
   // ti * nt - ti (ti - 1) / 2. Estimate ti in double, then correct.
@@ -357,81 +396,133 @@ min_sum_tri_kernel(const int32_t* __restrict__ A, int64_t S, int64_t B,
   const int64_t tj = ti + (t - start(ti));
   const int64_t r0 = ti * kTile, c0 = tj * kTile;
 
+  int64_t b_begin = 0, b_end = B;
+  if constexpr (kSplit) {
+    b_begin = static_cast<int64_t>(blockIdx.y) * slice;
+    b_end = b_begin + slice < B ? b_begin + slice : B;
+  }
+
   uint32_t acc[8][8];
-  tile_min_sum<kPacked>(A, S, A, S, B, r0, c0, one, smem, acc);
-  store_tile<kPacked>(acc, smem, out, S, r0, S, c0, S, false);
-  if (ti != tj) store_tile<kPacked>(acc, smem, out, S, c0, S, r0, S, true);
+  tile_min_sum<kPacked>(A, S, A, S, B, r0, c0, b_begin, b_end, one, smem, acc);
+  store_tile<kPacked, kSplit>(acc, smem, out, S, r0, S, c0, S, false);
+  if (ti != tj) store_tile<kPacked, kSplit>(acc, smem, out, S, c0, S, r0, S, true);
 }
 
-template <bool kPacked>
+// blockIdx.x is the column tile, or with kSplit slice * cols + the
+// column tile (slices of ``slice`` bins, added into a zeroed out).
+template <bool kPacked, bool kSplit>
 __global__ void __launch_bounds__(Tiling<kPacked>::kThreads, Tiling<kPacked>::kMinBlocks)
 min_sum_rect_kernel(const int32_t* __restrict__ A, int64_t S,
                     const int32_t* __restrict__ C, int64_t S2, int64_t B,
-                    uint32_t one, int32_t* __restrict__ out) {
+                    int64_t cols, int64_t slice, uint32_t one,
+                    int32_t* __restrict__ out) {
   __shared__ __align__(16) uint32_t smem[kSmemWords];
+  int64_t ct = blockIdx.x, b_begin = 0, b_end = B;
+  if constexpr (kSplit) {
+    const int64_t s = ct / cols;
+    ct -= s * cols;
+    b_begin = s * slice;
+    b_end = b_begin + slice < B ? b_begin + slice : B;
+  }
   const int64_t r0 = static_cast<int64_t>(blockIdx.y) * kTile;
-  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * kTile;
+  const int64_t c0 = ct * kTile;
   uint32_t acc[8][8];
-  tile_min_sum<kPacked>(A, S, C, S2, B, r0, c0, one, smem, acc);
-  store_tile<kPacked>(acc, smem, out, S2, r0, S, c0, S2, false);
+  tile_min_sum<kPacked>(A, S, C, S2, B, r0, c0, b_begin, b_end, one, smem, acc);
+  store_tile<kPacked, kSplit>(acc, smem, out, S2, r0, S, c0, S2, false);
+}
+
+// The bin slices of ``slice`` bins a slice over B bins: ceil(B / slice),
+// where slice is below B; 1 (the unsplit kernel) where it is B or more.
+// -1 for a slice below B that is not a positive multiple of kBK.
+inline long long bin_slices(long long B, long long slice) {
+  if (slice >= B) return 1;
+  if (slice <= 0 || slice % kBK != 0) return -1;
+  return (B + slice - 1) / slice;
 }
 
 template <bool kPacked>
-int launch_tri(const int32_t* a, long long S, long long B, int32_t* out,
-               void* stream) {
+int launch_tri(const int32_t* a, long long S, long long B, long long slice,
+               int32_t* out, void* stream) {
+  const long long parts = bin_slices(B, slice);
+  if (parts < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (S <= 0) return 0;
   const long long nt = (S + kTile - 1) / kTile;
   const long long tiles = nt * (nt + 1) / 2;
-  if (tiles > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-  min_sum_tri_kernel<kPacked>
-      <<<static_cast<unsigned>(tiles), Tiling<kPacked>::kThreads, 0,
-         static_cast<cudaStream_t>(stream)>>>(a, S, B, nt, 1u, out);
+  if (tiles > 0x7FFFFFFFLL || parts > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (parts == 1) {
+    min_sum_tri_kernel<kPacked, false>
+        <<<static_cast<unsigned>(tiles), Tiling<kPacked>::kThreads, 0, st>>>(
+            a, S, B, nt, B, 1u, out);
+  } else {
+    const cudaError_t e = cudaMemsetAsync(out, 0, S * S * sizeof(int32_t), st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 blocks(static_cast<unsigned>(tiles), static_cast<unsigned>(parts));
+    min_sum_tri_kernel<kPacked, true>
+        <<<blocks, Tiling<kPacked>::kThreads, 0, st>>>(a, S, B, nt, slice, 1u, out);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kPacked>
 int launch_rect(const int32_t* a, long long S, const int32_t* c, long long S2,
-                long long B, int32_t* out, void* stream) {
+                long long B, long long slice, int32_t* out, void* stream) {
+  const long long parts = bin_slices(B, slice);
+  if (parts < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (S <= 0 || S2 <= 0) return 0;
   const long long rows = (S + kTile - 1) / kTile;
   const long long cols = (S2 + kTile - 1) / kTile;
-  if (rows > 65535 || cols > 0x7FFFFFFFLL)
+  if (rows > 65535 || cols * parts > 0x7FFFFFFFLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 blocks(static_cast<unsigned>(cols), static_cast<unsigned>(rows));
-  min_sum_rect_kernel<kPacked>
-      <<<blocks, Tiling<kPacked>::kThreads, 0,
-         static_cast<cudaStream_t>(stream)>>>(a, S, c, S2, B, 1u, out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const dim3 blocks(static_cast<unsigned>(cols * parts), static_cast<unsigned>(rows));
+  if (parts == 1) {
+    min_sum_rect_kernel<kPacked, false><<<blocks, Tiling<kPacked>::kThreads, 0, st>>>(
+        a, S, c, S2, B, cols, B, 1u, out);
+  } else {
+    const cudaError_t e = cudaMemsetAsync(out, 0, S * S2 * sizeof(int32_t), st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    min_sum_rect_kernel<kPacked, true><<<blocks, Tiling<kPacked>::kThreads, 0, st>>>(
+        a, S, c, S2, B, cols, slice, 1u, out);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // a int32 [S, B] -> out int32 [S, S], the full symmetric min-sum matrix,
-// on 32-bit lanes. Returns the cudaError_t of the launch.
+// on 32-bit lanes, over bin slices of ``slice`` bins (B or more: no split;
+// below B a multiple of kBK, and out must be contiguous, since it is
+// zeroed whole). Returns the cudaError_t of the launch (of the memset
+// before it, where that fails).
 extern "C" int kp_min_sum_tri(const int32_t* a, long long S, long long B,
-                              int32_t* out, void* stream) {
-  return launch_tri<false>(a, S, B, out, stream);
+                              long long slice, int32_t* out, void* stream) {
+  return launch_tri<false>(a, S, B, slice, out, stream);
 }
 
 // The same on packed 16-bit lanes: only for counts that are all >= 0 with
 // every row sum below 2^16.
 extern "C" int kp_min_sum_tri_u16x2(const int32_t* a, long long S,
-                                    long long B, int32_t* out, void* stream) {
-  return launch_tri<true>(a, S, B, out, stream);
+                                    long long B, long long slice, int32_t* out,
+                                    void* stream) {
+  return launch_tri<true>(a, S, B, slice, out, stream);
 }
 
-// a int32 [S, B], c int32 [S2, B] -> out int32 [S, S2], on 32-bit lanes.
-// Returns the cudaError_t of the launch.
+// a int32 [S, B], c int32 [S2, B] -> out int32 [S, S2], on 32-bit lanes,
+// over bin slices of ``slice`` bins, as kp_min_sum_tri. Returns the
+// cudaError_t.
 extern "C" int kp_min_sum_rect(const int32_t* a, long long S, const int32_t* c,
-                               long long S2, long long B, int32_t* out,
-                               void* stream) {
-  return launch_rect<false>(a, S, c, S2, B, out, stream);
+                               long long S2, long long B, long long slice,
+                               int32_t* out, void* stream) {
+  return launch_rect<false>(a, S, c, S2, B, slice, out, stream);
 }
 
 // The same on packed 16-bit lanes: only for counts that are all >= 0 where
 // a's or c's largest row sum is below 2^16.
 extern "C" int kp_min_sum_rect_u16x2(const int32_t* a, long long S,
                                      const int32_t* c, long long S2,
-                                     long long B, int32_t* out, void* stream) {
-  return launch_rect<true>(a, S, c, S2, B, out, stream);
+                                     long long B, long long slice, int32_t* out,
+                                     void* stream) {
+  return launch_rect<true>(a, S, c, S2, B, slice, out, stream);
 }

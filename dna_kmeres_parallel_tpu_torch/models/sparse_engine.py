@@ -410,14 +410,15 @@ class DistanceRates:
 
     Defaults: one NVIDIA H100 80GB HBM3 at 700.00 W (``nvidia-smi``'s name
     and power limit) and its 8-core host, measured by ``chip_smoke.py``
-    (PERF.md, section 7):
+    and, for the three K3 rates since K3/K4 split their bins,
+    ``kmer-gpu calibrate`` (PERF.md, section 6):
 
     - ``bin_pairs_per_sec``: K3's (min,+) product at a union-matrix shape,
       [2,048, 131,072] (``ops/distance.tri_time_per_pair``), the rate
       ``union_dense_plan`` reads;
     - ``dense_bin_pairs_per_sec``: K3 at a dense [S, 4^k] counts matrix,
-      [1,024, 4^9], the rate ``dense_distance_preferred`` reads (K3's rate
-      falls with its row tiles: 36 there against 136 at the union shape);
+      [1,024, 4^9], the rate ``dense_distance_preferred`` reads (36 output
+      tiles in 30 bin slices there, 136 in 8 at the union shape);
     - ``sparse_entry_pairs_per_sec_per_thread``: the native two-pointer,
       table entries of a pair stepped per second by one thread;
     - ``h2d_bytes_per_sec``, ``d2h_bytes_per_sec``: pinned copies to and
@@ -426,14 +427,19 @@ class DistanceRates:
     - ``threads``: the two-pointer's threads; ``None`` takes the native
       library's own count (the CPUs, at most 16);
     - ``peak_bin_pairs_per_sec``: K3 with every SM busy ([16,384, 64]),
-      the most the two rates above grow to with more output tiles
-      (``ops/distance.minplus_time``);
+      the most the two rates above reach at bins too few to split
+      (``ops/distance.minplus_time``); at 64 bins K3 is bound by its
+      stores, so this is below the wide-bin rates, where the split fills
+      the card;
     - ``threshold_macs_per_sec``: the threshold route's int8
       multiply-adds a second, its planes' build included
-      (``threshold_plan``)."""
+      (``threshold_plan``);
+    - ``sms``: the card's SMs, which ``ops/calibrate`` reads from it (the
+      H100 SXM's 132 here): the route reaches its rate only where its
+      output holds an output tile for each (``ops/distance.threshold_time``)."""
 
     bin_pairs_per_sec: float = dist_ops.TRI_BIN_PAIRS_PER_SEC
-    dense_bin_pairs_per_sec: float = 1.7e12
+    dense_bin_pairs_per_sec: float = 1.32e13
     sparse_entry_pairs_per_sec_per_thread: float = 8.9e7
     h2d_bytes_per_sec: float = 5.4e10
     d2h_bytes_per_sec: float = 5.5e10
@@ -441,6 +447,7 @@ class DistanceRates:
     threads: int | None = None
     peak_bin_pairs_per_sec: float = dist_ops.PEAK_BIN_PAIRS_PER_SEC
     threshold_macs_per_sec: float = dist_ops.THRESHOLD_MACS_PER_SEC
+    sms: int = 132
 
     def host_threads(self) -> int:
         if self.threads is not None:
@@ -533,7 +540,8 @@ def threshold_plan(
         return None
     bucket = 1 << (int(cmax) - 1).bit_length()
     limit = dist_ops.THRESHOLD_CMAX_DEFAULT if cap is None else int(cap)
-    t_thr = dist_ops.threshold_time(rows, cols, bins, bucket, rates.threshold_macs_per_sec)
+    t_thr = dist_ops.threshold_time(rows, cols, bins, bucket, rates.threshold_macs_per_sec,
+                                   rates.sms)
     if info is not None:
         info.update(threshold_cmax=bucket, t_threshold=t_thr, t_minplus=alt_s)
     if bucket > limit or row_sum_max >= 1 << 31:
@@ -664,7 +672,8 @@ def union_dense_plan(
     if cmax_thr is None:
         t_min_sum = pairs_exec * t_dev_pair
     else:
-        t_min_sum = dist_ops.threshold_time(S, S, D, cmax_thr, rates.threshold_macs_per_sec)
+        t_min_sum = dist_ops.threshold_time(S, S, D, cmax_thr, rates.threshold_macs_per_sec,
+                                            rates.sms)
         t_min_sum *= 1.0 if panel_rows is None else 0.5
     t_dev_total = (
         t_min_sum

@@ -9,17 +9,18 @@ host work):
 - ``measure_link``: pinned H2D and D2H bytes a second, and the round trip
   of a tiny K3 job (copy in, launch, copy out, waited for);
 - ``measure_compute``: K3's bin-pairs a second at three shapes, because
-  its rate falls with the number of row tiles: a dense [S, 4^k] counts
-  matrix built by K2 (``DENSE_SHAPE``, the rate
+  its rate depends on the blocks it launches (output tiles times bin
+  slices) and on the bins (at 64 it is bound by stores): a dense [S, 4^k]
+  counts matrix built by K2 (``DENSE_SHAPE``, the rate
   ``dense_distance_preferred`` reads), a union matrix (``UNION_SHAPE``,
   the rate ``union_dense_plan`` reads) and a matrix of many tiles
   (``PEAK_SHAPE``, every SM busy: the most ``ops/distance.minplus_time``
-  lets the other two grow to); the threshold route's int8
-  multiply-adds a second (``THRESHOLD_SHAPE``: the JAX package's method,
-  the difference between cmax 8 and cmax 2 over S * S * B * 6); and the
-  native two-pointer's entry-pairs a second a thread on tables near the
-  size the union gate meets (``HOST_TABLES``), run with the thread count
-  the two-pointer uses.
+  lets the rates grow to at bins too few to split); the threshold
+  route's int8 multiply-adds a second (``THRESHOLD_SHAPE``: the JAX
+  package's method, the difference between cmax 8 and cmax 2 over
+  S * S * B * 6); and the native two-pointer's entry-pairs a second a
+  thread on tables near the size the union gate meets (``HOST_TABLES``),
+  run with the thread count the two-pointer uses.
 
 On the CPU the same probes run at small shapes (the kernels' plain
 versions, a host memcpy for the link): tests, not rates to route by.
@@ -82,6 +83,7 @@ RATE_KEYS = (
     "threads",
     "peak_bin_pairs_per_sec",
     "threshold_macs_per_sec",
+    "sms",
 )
 
 
@@ -303,10 +305,13 @@ def measure_compute(device: str | torch.device = "cuda", threads: int | None = N
 
 def calibrate(device: str | torch.device = "cuda", link_only: bool = False,
               threads: int | None = None) -> dict:
-    """One calibration of this card and host: the fingerprint, the link,
-    and unless ``link_only`` the compute rates."""
+    """One calibration of this card and host: the fingerprint, the card's
+    SM count (``sms``), the link, and unless ``link_only`` the compute
+    rates."""
     dev = runtime.resolve_device(device)
     cal = {"fingerprint": fingerprint(dev), "device": str(dev)}
+    if dev.type == "cuda":
+        cal["sms"] = torch.cuda.get_device_properties(dev).multi_processor_count
     cal.update(measure_link(dev))
     if not link_only:
         cal.update(measure_compute(dev, threads))

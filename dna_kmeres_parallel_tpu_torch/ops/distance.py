@@ -8,7 +8,8 @@ version of K3 and K4), ``finish_distances``, ``finish_distances_panel``,
 ``tri_time_per_pair`` (with the card's rates), and of
 ``min_sum_matrix_mxu``, here ``min_sum_matrix_threshold`` (the plain
 version of the threshold route, ``ops/threshold_cuda``) with the time
-models its gate compares. The integer min-sums are exact on any device;
+models its gate compares, and K3/K4's plan of bin slices
+(``min_sum_split``). The integer min-sums are exact on any device;
 the float32 finish runs on the host in NumPy, whose division is IEEE
 correctly rounded, so the distances are bit-reproducible.
 """
@@ -23,19 +24,28 @@ _BLOCK_ELEMS = 1 << 24
 
 #: The per-pair time model of K3 and K4 on the card, which the distance
 #: gates of ``models/sparse_engine`` read: t = bins / rate a pair.
-#: Measured by ``chip_smoke.measure_gate_rates`` on one NVIDIA H100 80GB
-#: HBM3 at 700 W: K3 over phase (d)'s [2,048, 131,072] union matrix
-#: (6.77e12) (PERF.md, section 7).
-TRI_BIN_PAIRS_PER_SEC = 6.8e12
+#: Measured by ``kmer-gpu calibrate`` (``ops/calibrate``) on one NVIDIA
+#: H100 80GB HBM3 at 700.00 W: K3 over a [2,048, 131,072] union matrix in
+#: 8 bin slices (1.359e13) (PERF.md, section 6).
+TRI_BIN_PAIRS_PER_SEC = 1.36e13
 
 
 #: K3's rate with every SM busy: [16,384, 64] (8,256 output tiles), as
 #: ``ops/calibrate`` measured it on one NVIDIA H100 80GB HBM3 at 700 W
-#: (``scripts/threshold_probe.py``, PERF.md section 6); the rates measured
-#: at fewer tiles are below it.
+#: (``scripts/threshold_probe.py``, PERF.md section 6): what
+#: ``minplus_time``'s rate grows to at bins too few to split. At 64 bins
+#: K3 is bound by its stores, so the wide-bin rates are above it.
 PEAK_BIN_PAIRS_PER_SEC = 1.07e13
 #: K3/K4's output tile (``csrc/min_sum.cu``'s kTile)
 MINPLUS_TILE = 128
+#: Bins a stage of K3/K4 (``csrc/min_sum.cu``'s kBK), and the fewest bins
+#: a bin slice of their split holds: against 1,024 bins, adding a tile
+#: into the output is a small share of a block's work.
+MINPLUS_STAGE_BINS = 32
+MINPLUS_SLICE_MIN_BINS = 1024
+#: Blocks of each K3/K4 route resident on one SM (``Tiling::kMinBlocks``),
+#: by ``ops/distance_cuda``'s route names.
+MINPLUS_RESIDENT_BLOCKS = {"u16x2": 4, "i32": 2}
 #: the rows of the shapes ``ops/calibrate`` measures K3's dense and union
 #: rates at, [1024, 4^9] and [2048, 131,072]
 DENSE_RATE_ROWS = 1024
@@ -64,26 +74,64 @@ def minplus_tiles(rows: int, cols: int, symmetric: bool) -> int:
     return t * (t + 1) // 2 if symmetric else t * -(-cols // MINPLUS_TILE)
 
 
+def _slices_most(bins: int) -> int:
+    """The most bin slices of MINPLUS_SLICE_MIN_BINS that ``bins`` hold."""
+    return -(-bins // MINPLUS_STAGE_BINS) // (MINPLUS_SLICE_MIN_BINS // MINPLUS_STAGE_BINS)
+
+
+def min_sum_split(tiles: int, bins: int, route: str, sms: int) -> tuple[int, int]:
+    """(P, L): the bin slices K3/K4 cut a product of ``tiles`` output tiles
+    over ``bins`` bins into on ``route`` on a card of ``sms`` SMs, and the
+    bins of each (the last slice ends at ``bins``). The wrapper passes L to
+    the kernels, which launch ceil(bins / L) slices.
+
+    (1, bins) wherever the tiles alone give two waves of the route's
+    resident blocks (``sms`` x ``MINPLUS_RESIDENT_BLOCKS[route]``), or the
+    bins hold fewer than two slices of MINPLUS_SLICE_MIN_BINS. Otherwise
+    the fewest slices that give two waves, at most one a
+    MINPLUS_SLICE_MIN_BINS; L whole stages of MINPLUS_STAGE_BINS, as few
+    as give that count, so that no slice is empty."""
+    if route not in MINPLUS_RESIDENT_BLOCKS:
+        raise ValueError(f"route must be one of {tuple(MINPLUS_RESIDENT_BLOCKS)}, got {route!r}")
+    target = 2 * sms * MINPLUS_RESIDENT_BLOCKS[route]
+    most = _slices_most(bins)
+    if tiles <= 0 or tiles >= target or most < 2:
+        return 1, bins
+    stages = -(-bins // MINPLUS_STAGE_BINS)
+    per = -(-stages // min(-(-target // tiles), most))
+    return -(-stages // per), per * MINPLUS_STAGE_BINS
+
+
 def minplus_time(rows: int, cols: int, bins: int, symmetric: bool, *, rate: float,
                  rate_rows: int, peak: float = PEAK_BIN_PAIRS_PER_SEC) -> float:
     """Predicted seconds of K3 (``symmetric``, the pairs of [rows, rows])
-    or K4 ([rows, cols]) over ``bins`` columns. Their rate grows with the
-    output tiles in flight: ``rate`` was measured by K3 over ``rate_rows``
-    rows, so at t tiles it is rate * t / tiles(rate_rows), at most
-    ``peak`` (every SM busy)."""
+    or K4 ([rows, cols]) over ``bins`` columns. ``rate`` was measured by K3
+    over ``rate_rows`` rows at wide bins. Wherever the bins hold two
+    slices (``min_sum_split``), the kernels split them until the card is
+    full, so the rate is flat: pairs * bins / rate, whatever the tiles.
+    Fewer bins do not split, and the rate grows with the output tiles in
+    flight: rate * t / tiles(rate_rows) at t tiles, at most ``peak``
+    (every SM busy)."""
     pairs = rows * (rows - 1) / 2 if symmetric else rows * cols
-    tiles = minplus_tiles(rows, cols, symmetric)
-    eff = min(peak, rate * tiles / minplus_tiles(rate_rows, rate_rows, True))
+    if _slices_most(bins) >= 2:
+        eff = rate
+    else:
+        tiles = minplus_tiles(rows, cols, symmetric)
+        eff = min(peak, rate * tiles / minplus_tiles(rate_rows, rate_rows, True))
     return pairs * bins / max(eff, 1e-30)
 
 
-def threshold_time(rows: int, cols: int, bins: int, cmax: int,
-                   macs_per_sec: float = THRESHOLD_MACS_PER_SEC) -> float:
+def threshold_time(rows: int, cols: int, bins: int, cmax: int, macs_per_sec: float,
+                   sms: int) -> float:
     """Predicted seconds of the threshold route over [rows, bins] x
     [cols, bins] at ``cmax`` thresholds: it computes the whole rectangle
     (the whole square for a symmetric product), one multiply-add a bin,
-    pair and threshold."""
-    return rows * cols * bins * cmax / macs_per_sec
+    pair and threshold, at ``macs_per_sec`` where the output holds a
+    128 x 128 tile for each of the card's ``sms`` SMs, and slower by that
+    share where it holds fewer (the GEMM gives an SM an output tile;
+    PERF.md section 6 has its rate at 4, 64 and 256 such tiles)."""
+    slow = max(1.0, sms / max(1, minplus_tiles(rows, cols, False)))
+    return rows * cols * bins * cmax / macs_per_sec * slow
 
 
 def check_threshold(cmax: int, *mats: torch.Tensor) -> None:

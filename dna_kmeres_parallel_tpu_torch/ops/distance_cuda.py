@@ -17,9 +17,18 @@ with one ``min.u16x2``, exact where no count is negative and the smaller
 side's largest row sum is below 2^16 (no min-sum can then reach 2^16);
 ``"i32"`` runs the same tiling on 32-bit lanes for everything else. The
 route follows from the row sums that ``check_counts`` computes anyway.
+
+Both kernels also split the bins across blocks where the output tiles are
+too few to fill the card (``ops/distance.min_sum_split``, the one plan:
+the wrapper passes its slice length to the kernels): a product of a few
+hundred rows over 10^5 bins and more has 3-4 output tiles of 128 x 128.
+Each block then computes one tile over one slice of the bins and adds it
+into the zeroed output; the result is the same integers.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -36,6 +45,19 @@ PACKED, WIDE = "u16x2", "i32"
 ROUTE_LAUNCHES = {PACKED: 0, WIDE: 0}
 #: The packed route needs the smaller side's largest row sum below this.
 PACKED_LIMIT = 1 << 16
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def product_split(rows: int, cols: int, bins: int, route: str, device: torch.device,
+                  symmetric: bool) -> tuple[int, int]:
+    """``ops/distance.min_sum_split`` of K3 (``symmetric``, [rows, rows])
+    or K4 ([rows, cols]) on ``route``, with the SM count read from
+    ``device``: (bin slices, bins a slice)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    tiles = dist_ops.minplus_tiles(rows, cols, symmetric)
+    return dist_ops.min_sum_split(tiles, bins, route, _sms(index))
 
 
 def product_route(*bounds: int | None) -> str:
@@ -113,18 +135,20 @@ def _entry(name: str, route: str):
 
 
 def launch_min_sum_tri(counts: torch.Tensor, out: torch.Tensor, route: str) -> None:
-    """Launch K3 on ``route`` into ``out`` (int32 [S, S] on the card).
-    Checks shapes and devices only: the caller has checked the row sums
-    and chosen the route with ``product_route``."""
+    """Launch K3 on ``route`` into ``out`` (int32 [S, S] on the card),
+    over ``product_split``'s bin slices. Checks shapes and devices only:
+    the caller has checked the row sums and chosen the route with
+    ``product_route``."""
     global TRI_LAUNCHES
     _cuda_ready(counts, out)
     S, B = counts.shape
     if out.dtype != torch.int32 or out.shape != (S, S):
         raise ValueError(f"out must be int32 {(S, S)}, got {out.dtype} {tuple(out.shape)}")
     name, fn = _entry("kp_min_sum_tri", route)
+    _, slice_bins = product_split(S, S, B, route, counts.device, True)
     with torch.cuda.device(counts.device):
         stream = torch.cuda.current_stream(counts.device).cuda_stream
-        _launch(fn, name, counts.data_ptr(), S, B, out.data_ptr(), stream)
+        _launch(fn, name, counts.data_ptr(), S, B, slice_bins, out.data_ptr(), stream)
     TRI_LAUNCHES += 1
     ROUTE_LAUNCHES[route] += 1
 
@@ -132,9 +156,10 @@ def launch_min_sum_tri(counts: torch.Tensor, out: torch.Tensor, route: str) -> N
 def launch_min_sum_rect(
     counts: torch.Tensor, counts_other: torch.Tensor, out: torch.Tensor, route: str
 ) -> None:
-    """Launch K4 on ``route`` into ``out`` (int32 [S, S2] on the card).
-    Checks shapes and devices only: the caller has checked the row sums
-    and chosen the route with ``product_route``."""
+    """Launch K4 on ``route`` into ``out`` (int32 [S, S2] on the card),
+    over ``product_split``'s bin slices. Checks shapes and devices only:
+    the caller has checked the row sums and chosen the route with
+    ``product_route``."""
     global RECT_LAUNCHES
     _cuda_ready(counts, counts_other, out)
     S, B = counts.shape
@@ -144,9 +169,10 @@ def launch_min_sum_rect(
     if out.dtype != torch.int32 or out.shape != (S, S2):
         raise ValueError(f"out must be int32 {(S, S2)}, got {out.dtype} {tuple(out.shape)}")
     name, fn = _entry("kp_min_sum_rect", route)
+    _, slice_bins = product_split(S, S2, B, route, counts.device, False)
     with torch.cuda.device(counts.device):
         stream = torch.cuda.current_stream(counts.device).cuda_stream
-        _launch(fn, name, counts.data_ptr(), S, counts_other.data_ptr(), S2, B,
+        _launch(fn, name, counts.data_ptr(), S, counts_other.data_ptr(), S2, B, slice_bins,
                 out.data_ptr(), stream)
     RECT_LAUNCHES += 1
     ROUTE_LAUNCHES[route] += 1

@@ -128,11 +128,11 @@ def load() -> ctypes.CDLL:
     for name in ("kp_min_sum_tri", "kp_min_sum_tri_u16x2"):
         fn = getattr(lib, name)
         fn.restype = ci
-        fn.argtypes = [vp, ll, ll, vp, vp]
+        fn.argtypes = [vp, ll, ll, ll, vp, vp]
     for name in ("kp_min_sum_rect", "kp_min_sum_rect_u16x2"):
         fn = getattr(lib, name)
         fn.restype = ci
-        fn.argtypes = [vp, ll, vp, ll, ll, vp, vp]
+        fn.argtypes = [vp, ll, vp, ll, ll, ll, vp, vp]
     lib.kp_hist_planes.restype = ci
     lib.kp_hist_planes.argtypes = [vp, vp, ll, ll, ci, ci, vp, vp]
     lib.kp_hist_u8_small.restype = ci

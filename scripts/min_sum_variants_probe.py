@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where K3's and K4's time goes on one NVIDIA card: the port's (min,+)
 kernels (``dna_kmeres_parallel_tpu_torch/csrc/min_sum.cu``) beside three
-variants built from the same source, timed in alternating order in one
-process.
+variants built from the same source, and K4's bin split beside its other
+reduction, timed in alternating order in one process.
 
     python3 scripts/min_sum_variants_probe.py
 
@@ -21,9 +21,27 @@ Each variant is built by nvcc (``sm_90a``) into a temporary directory and
 timed with CUDA events on the distance path's counts: 54,018 seeded
 records of 1-2 kbase at k=3 (``chip_smoke.distance_records``), K4 at the
 first [2048, 64] panel against all records and K3 over all records, on the
-packed ``u16x2`` route. The plain-add build is checked equal to the
-kernel as built. Prints one line per measurement tagged with the card's
-name and power limit, then one JSON object. Imports nothing of JAX.
+packed ``u16x2`` route, all unsplit (one bin slice, as the port runs
+them there). The plain-add build is checked equal to the kernel as built.
+
+The split, at two products of few output tiles: K4 over [256, 131,072]
+counts against themselves on the ``i32`` route (row 0 sums to 2^16), and
+(g) k=10's panel, [256, 4^10] against itself on ``u16x2``
+(``chip_smoke.wide_counts``), each run
+
+- ``unsplit``: the kernel as built with one bin slice (the design before
+  the split);
+- ``split, atomics``: as the port runs it, with the plan's P
+  slices, each block adding its tile into the zeroed output;
+- ``split, workspace``: the same slices, each stored into its own plane
+  of an int32 [P, S, S2] workspace and summed by a second kernel
+  (``scripts/min_sum_variants.cu``).
+
+Each is checked equal to the plain version and timed twice over
+(alternating order), by ``chip_smoke.time_ms`` and behind a spin of the
+card (``torch.cuda._sleep``). Prints one line per measurement tagged with
+the card's name and power limit, then one JSON object. Imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -36,13 +54,23 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+#: the workspace build of the split (includes csrc/min_sum.cu)
+WS_SOURCE = ROOT / "scripts" / "min_sum_variants.cu"
+#: clock cycles the card spins before the gated timer's calls, while the
+#: host queues them (about 10 ms at the H100's clocks)
+QUEUE_CYCLES = 20_000_000
+#: the split's shapes: (name, rows, bins, counts kind, route)
+SPLIT_SHAPES = (
+    ("K4 [256, 131072] x [256, 131072]", 256, 131_072, "wide", "i32"),
+    ("K4 (g) k=10 panel [256, 4^10] x [256, 4^10]", 256, 4**10, "small", "u16x2"),
+)
 
 ADD = '  asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(m), "r"(one), "r"(acc));'
 PLAIN_ADD = "  d = acc + m + 0 * one;"
 STORES = (
-    "  store_tile<kPacked>(acc, smem, out, S, r0, S, c0, S, false);\n"
-    "  if (ti != tj) store_tile<kPacked>(acc, smem, out, S, c0, S, r0, S, true);",
-    "  store_tile<kPacked>(acc, smem, out, S2, r0, S, c0, S2, false);",
+    "  store_tile<kPacked, kSplit>(acc, smem, out, S, r0, S, c0, S, false);\n"
+    "  if (ti != tj) store_tile<kPacked, kSplit>(acc, smem, out, S, c0, S, r0, S, true);",
+    "  store_tile<kPacked, kSplit>(acc, smem, out, S2, r0, S, c0, S2, false);",
 )
 SINK = """  uint32_t x = 0;
 #pragma unroll
@@ -60,9 +88,82 @@ def variants(src: str) -> dict:
     for text in STORES:
         no_stores = no_stores.replace(text, SINK)
         one_tile = one_tile.replace(
-            text, "  store_tile<kPacked>(acc, smem, out, 128, 0, 128, 0, 128, false);")
+            text, "  store_tile<kPacked, kSplit>(acc, smem, out, 128, 0, 128, 0, 128, false);")
     return {"as built": src, "plain adds": src.replace(ADD, PLAIN_ADD), "no stores": no_stores,
             "one tile": one_tile}
+
+
+def gated_ms(fn, iters: int) -> float:
+    """``chip_smoke.time_ms`` with the timed calls queued behind a spin of
+    the card (QUEUE_CYCLES)."""
+    import torch
+
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def split_probe(unsplit, ws_lib, dev, card: str) -> dict:
+    """The SPLIT_SHAPES runs: {shape: {"split": P, candidate: {"ms": [..],
+    "gated_ms": [..]}}}; each candidate checked equal to the plain
+    version."""
+    import torch
+
+    import chip_smoke as cs
+    from dna_kmeres_parallel_tpu_torch.ops import distance, distance_cuda
+
+    stream = torch.cuda.current_stream().cuda_stream
+    result: dict = {}
+    for shape, rows, B, kind, route in SPLIT_SHAPES:
+        a = torch.from_numpy(cs.wide_counts(rows, B, kind, B)).to(dev)
+        c = torch.from_numpy(cs.wide_counts(rows, B, kind, B + 1)).to(dev)
+        if distance_cuda.product_route(*distance_cuda.check_counts(a, c)) != route:
+            raise AssertionError(f"{shape}: the counts do not take the {route} route")
+        P, L = distance_cuda.product_split(rows, rows, B, route, dev, False)
+        want = distance.min_sum_matrix(a, c)
+        out = torch.empty(rows, rows, dtype=torch.int32, device=dev)
+        ws = torch.empty(P, rows, rows, dtype=torch.int32, device=dev)
+        suffix = "" if route == "i32" else "_u16x2"
+        rect = getattr(unsplit, f"kp_min_sum_rect{suffix}")
+        rect_ws = getattr(ws_lib, f"kv_min_sum_rect_ws{suffix}")
+        args = (a.data_ptr(), rows, c.data_ptr(), rows, B)
+
+        def run(fn, *tail):
+            def call():
+                rc = fn(*args, *tail, stream)
+                if rc:
+                    raise RuntimeError(f"{shape}: launch failed, cudaError_t {rc}")
+            return call
+
+        cands = {"unsplit": run(rect, B, out.data_ptr()),
+                 "split, atomics": run(rect, L, out.data_ptr()),
+                 "split, workspace": run(rect_ws, L, ws.data_ptr(), out.data_ptr())}
+        rec = result.setdefault(shape, {"split": P, "route": route})
+        for name in list(cands) + list(cands)[::-1]:
+            out.fill_(-1)
+            cands[name]()
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                raise AssertionError(f"{name} differs from the plain version at {shape}")
+            iters = 3 if name == "unsplit" else 10
+            ms, gated = cs.time_ms(cands[name], iters), gated_ms(cands[name], iters)
+            times = rec.setdefault(name, {"ms": [], "gated_ms": []})
+            times["ms"].append(ms)
+            times["gated_ms"].append(gated)
+            print(f"{shape} ({route}, P={P}) {name}: {ms:.4f} ms, gated {gated:.4f} ms "
+                  f"[{card}]", flush=True)
+        del a, c, want, out, ws
+        torch.cuda.empty_cache()
+    return result
 
 
 def main() -> int:
@@ -87,14 +188,26 @@ def main() -> int:
             procs[name] = (so, subprocess.Popen(
                 [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-shared", "-o", str(so), str(cu)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        ws_so = Path(tmp) / "ws.so"
+        ws_proc = subprocess.Popen(
+            [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC_DIR), "-shared",
+             "-o", str(ws_so), str(WS_SOURCE)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for name, (so, proc) in procs.items():
             out = proc.communicate(timeout=600)[0]
             if proc.returncode:
                 raise RuntimeError(f"{name}: nvcc failed\n{out[-3000:]}")
             lib = ctypes.CDLL(str(so))
-            lib.kp_min_sum_rect_u16x2.argtypes = [vp, ll, vp, ll, ll, vp, vp]
-            lib.kp_min_sum_tri_u16x2.argtypes = [vp, ll, ll, vp, vp]
+            for fn in ("kp_min_sum_rect", "kp_min_sum_rect_u16x2"):
+                getattr(lib, fn).argtypes = [vp, ll, vp, ll, ll, ll, vp, vp]
+            lib.kp_min_sum_tri_u16x2.argtypes = [vp, ll, ll, ll, vp, vp]
             libs[name] = lib
+        out = ws_proc.communicate(timeout=600)[0]
+        if ws_proc.returncode:
+            raise RuntimeError(f"{WS_SOURCE.name}: nvcc failed\n{out[-3000:]}")
+        ws_lib = ctypes.CDLL(str(ws_so))
+        for fn in ("kv_min_sum_rect_ws", "kv_min_sum_rect_ws_u16x2"):
+            getattr(ws_lib, fn).argtypes = [vp, ll, vp, ll, ll, ll, vp, vp, vp]
 
     dev = torch.device("cuda", 0)
     stream, starts, lengths = cs.distance_records(54_018)
@@ -111,8 +224,9 @@ def main() -> int:
         out = outs[shape]
         if shape.startswith("K4"):
             return lambda: lib.kp_min_sum_rect_u16x2(panel.data_ptr(), 2048, counts.data_ptr(), S,
-                                                     64, out.data_ptr(), cuda_stream)
-        return lambda: lib.kp_min_sum_tri_u16x2(counts.data_ptr(), S, 64, out.data_ptr(), cuda_stream)
+                                                     64, 1, out.data_ptr(), cuda_stream)
+        return lambda: lib.kp_min_sum_tri_u16x2(counts.data_ptr(), S, 64, 1, out.data_ptr(),
+                                                cuda_stream)
 
     result: dict = {}
     order = list(libs) + list(libs)[::-1]
@@ -129,6 +243,9 @@ def main() -> int:
                     raise AssertionError(f"{name} differs from the kernel as built at {shape}")
             result.setdefault(shape, {}).setdefault(name, []).append(ms)
             print(f"{shape} {name}: {ms:.4f} ms [{card}]", flush=True)
+    del outs, counts, panel
+    torch.cuda.empty_cache()
+    result["split"] = split_probe(libs["as built"], ws_lib, dev, card)
     print(card)
     print(json.dumps({"card": card, "ms": result}))
     return 0

@@ -393,6 +393,101 @@ def test_min_sum_unaligned_operands_and_output(cuda_device, route):
     assert (buf2[:3] == -1).all()
 
 
+#: bins at a slice edge of K3/K4's bin split and either side of it (at
+#: ROUTE_ROWS: 64 slices of 1,024; 63 and one of 1,023; 62 of 1,056 and
+#: one of 65)
+SPLIT_BINS = (65535, 65536, 65537)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,route", [("small", "u16x2"), ("wide", "i32")])
+@pytest.mark.parametrize("B", SPLIT_BINS)
+@pytest.mark.parametrize("S", ROUTE_ROWS)
+def test_min_sum_split_tri_matches_plain(cuda_device, S, B, kind, route):
+    # K3 over bin slices: 129 rows add K3's mirror tile into the output
+    a = route_counts(S, B, kind, S * 13 + B, cuda_device)
+    assert distance_cuda.product_split(S, S, B, route, a.device, True)[0] > 1
+    launches, routes = distance_cuda.TRI_LAUNCHES, dict(distance_cuda.ROUTE_LAUNCHES)
+    got, taken = routed(distance_cuda.min_sum_matrix_tri, a)
+    assert taken == route
+    assert distance_cuda.TRI_LAUNCHES == launches + 1
+    assert distance_cuda.ROUTE_LAUNCHES[route] == routes[route] + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, distance.min_sum_matrix(a))
+    assert int(got[0, 0]) == (65535 if kind == "small" else 65536)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "kinds,route",
+    [(("small", "small"), "u16x2"), (("big", "small"), "u16x2"), (("wide", "wide"), "i32")],
+)
+@pytest.mark.parametrize("B", SPLIT_BINS)
+@pytest.mark.parametrize("S,S2", [(1, 1), (127, 129), (128, 1), (129, 128)])
+def test_min_sum_split_rect_matches_plain(cuda_device, S, S2, B, kinds, route):
+    a = route_counts(S, B, kinds[0], S * 13 + B, cuda_device)
+    b = route_counts(S2, B, kinds[1], S2 * 17 + B + 1, cuda_device)
+    assert distance_cuda.product_split(S, S2, B, route, a.device, False)[0] > 1
+    launches, routes = distance_cuda.RECT_LAUNCHES, dict(distance_cuda.ROUTE_LAUNCHES)
+    got, taken = routed(distance_cuda.min_sum_matrix_rect, a, b)
+    assert taken == route
+    assert distance_cuda.RECT_LAUNCHES == launches + 1
+    assert distance_cuda.ROUTE_LAUNCHES[route] == routes[route] + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, distance.min_sum_matrix(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["u16x2", "i32"])
+def test_min_sum_split_unaligned_operands_and_output(cuda_device, route):
+    # Rows of 65,535 bins (4-byte aligned only) and outputs 4 and 12 bytes
+    # past a 16-byte boundary: the zeroing and the adds stay in the output.
+    base = counts(300, 65535, 9, cuda_device, cmax=1)  # row sums below 2^16
+    a, b = base[1:200], base[3:]
+    assert distance_cuda.product_split(199, 297, 65535, route, a.device, False)[0] > 1
+    buf = torch.full((a.shape[0] * b.shape[0] + 2,), -1, dtype=torch.int32, device=cuda_device)
+    out = buf[1:-1].view(a.shape[0], b.shape[0])
+    distance_cuda.launch_min_sum_rect(a, b, out, route)
+    buf2 = torch.full((a.shape[0] ** 2 + 4,), -1, dtype=torch.int32, device=cuda_device)
+    tri = buf2[3:-1].view(a.shape[0], a.shape[0])
+    distance_cuda.launch_min_sum_tri(a, tri, route)
+    torch.cuda.synchronize()
+    assert torch.equal(out, distance.min_sum_matrix(a, b))
+    assert int(buf[0]) == -1 and int(buf[-1]) == -1
+    assert torch.equal(tri, distance.min_sum_matrix(a))
+    assert (buf2[:3] == -1).all() and int(buf2[-1]) == -1
+
+
+@pytest.mark.cuda
+def test_min_sum_split_reads_the_card(cuda_device):
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for route in ("u16x2", "i32"):
+        assert distance_cuda.product_split(16384, 16384, 64, route, cuda_device, True) == (1, 64)
+        assert distance_cuda.product_split(2048, 54018, 64, route, cuda_device, False) == (1, 64)
+        assert distance_cuda.product_split(256, 256, 4**10, route, cuda_device, False) == (
+            distance.min_sum_split(4, 4**10, route, sms))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["kp_min_sum_tri", "kp_min_sum_tri_u16x2"])
+def test_min_sum_split_refuses_a_slice_off_the_stages(cuda_device, entry):
+    # a slice length below B must be a positive multiple of the 32-bin
+    # stage: anything else is cudaErrorInvalidValue, launched nowhere
+    from dna_kmeres_parallel_tpu_torch.ops import kernels
+
+    a = counts(2, 4096, 3, cuda_device, cmax=1)
+    out = torch.full((2, 2), -1, dtype=torch.int32, device=cuda_device)
+    fn = getattr(kernels.load(), entry)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    for bad in (0, -32, 1000, 1025):
+        assert fn(a.data_ptr(), 2, 4096, bad, out.data_ptr(), stream) == 1
+    torch.cuda.synchronize()
+    assert (out == -1).all()
+    assert fn(a.data_ptr(), 2, 4096, 1024, out.data_ptr(), stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, distance.min_sum_matrix(a))
+
+
 @pytest.mark.cuda
 def test_min_sum_cuda_tensors_never_reach_the_plain_version(cuda_device, monkeypatch):
     def refuse(*a, **kw):
