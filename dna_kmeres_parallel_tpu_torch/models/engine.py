@@ -28,6 +28,7 @@ from dna_kmeres_parallel_tpu_torch.ops import encode as encode_ops
 from dna_kmeres_parallel_tpu_torch.ops.encode_cuda import host_planes_from_packfmt
 from dna_kmeres_parallel_tpu_torch.utils import codec, fasta
 from dna_kmeres_parallel_tpu_torch.utils.config import KmerConfig
+from dna_kmeres_parallel_tpu_torch.utils.profiling import span
 
 
 _LANE = 128
@@ -386,22 +387,20 @@ class KmerEngine:
 
             def drain() -> None:
                 nonlocal acc_windows
-                t = time.perf_counter()
-                hist[:] += acc.cpu().numpy()  # waits for the queued batches
-                acc.zero_()
-                acc_windows = 0
-                phases["d2h"] += time.perf_counter() - t
+                with span("d2h", phases):
+                    hist[:] += acc.cpu().numpy()  # waits for the queued batches
+                    acc.zero_()
+                    acc_windows = 0
 
             for start in range(0, total, batch):
                 end = min(start + batch, total)
                 if flush_first(acc_windows, end - start, cfg.batch_bases):
                     drain()
-                t = time.perf_counter()
-                seg = flat[start : min(end + cfg.k - 1, total)]
-                padded = np.full(T, codec.INVALID_BASE, dtype=np.uint8)
-                padded[: seg.shape[0]] = seg
-                host = self._stage(padded)
-                phases["staging"] += time.perf_counter() - t
+                with span("staging", phases):
+                    seg = flat[start : min(end + cfg.k - 1, total)]
+                    padded = np.full(T, codec.INVALID_BASE, dtype=np.uint8)
+                    padded[: seg.shape[0]] = seg
+                    host = self._stage(padded)
                 marks.append(self._ship_and_count(host, end - start, acc))
                 acc_windows += end - start
             if acc_windows:
@@ -416,23 +415,31 @@ class KmerEngine:
         )
 
     def count_sequences(self, seqs: list[str]) -> CountResult:
-        flat = codec.concat_with_sentinels(seqs)
-        return self.count_stream(flat, sum(len(s) for s in seqs), len(seqs))
+        """Count in-memory sequences; the root span ``count_sequences``
+        counts the table's rows (the histogram's 4^k bins)."""
+        with span("count_sequences") as root:
+            flat = codec.concat_with_sentinels(seqs)
+            res = self.count_stream(flat, sum(len(s) for s in seqs), len(seqs))
+            root.count("rows", res.hist.shape[0])
+        return res
 
     def count_file(self, source) -> CountResult:
         """Count a FASTA file: the native parser for a path with the modern
-        record semantics, the Python parsers otherwise."""
+        record semantics, the Python parsers otherwise. The root span
+        ``count_file`` counts the histogram's 4^k bins as ``rows``."""
         cfg = self.config
-        t0 = time.perf_counter()
-        if cfg.parser_variant == "modern" and isinstance(source, (str, os.PathLike)):
-            parsed = native.parse_fasta_native(source, max_seqs=cfg.max_seqs)
-            parse_s = time.perf_counter() - t0
-            res = self.count_stream(parsed.stream, parsed.total_bases, parsed.n_seqs)
-        else:
-            seqs = [r.seq for r in self._parse(source)]
-            parse_s = time.perf_counter() - t0
-            res = self.count_sequences(seqs)
-        res.phases["parse"] = parse_s
+        parse: dict[str, float] = {}
+        with span("count_file") as root:
+            if cfg.parser_variant == "modern" and isinstance(source, (str, os.PathLike)):
+                with span("parse", parse):
+                    parsed = native.parse_fasta_native(source, max_seqs=cfg.max_seqs)
+                res = self.count_stream(parsed.stream, parsed.total_bases, parsed.n_seqs)
+            else:
+                with span("parse", parse):
+                    seqs = [r.seq for r in self._parse(source)]
+                res = self.count_sequences(seqs)
+            res.phases["parse"] = parse["parse"]
+            root.count("rows", res.hist.shape[0])
         return res
 
     def _parse(self, source) -> list[fasta.FastaRecord]:
@@ -471,31 +478,36 @@ class KmerEngine:
     # ------------------------------------------------------------- distances
     def _distances(self, stream, offsets, lengths, ids, phases, t0) -> DistanceResult:
         cfg, dev = self.config, self.device
-        t = time.perf_counter()
-        m0 = runtime.mark(dev)
-        counts = self._counts_on_device(stream, offsets, lengths)
-        m1 = runtime.mark(dev)
-        mesh = self._mesh()
-        S = len(lengths)
-        cmax = self._threshold_cmax(counts, S, mesh is None) if S else None
-        if mesh is not None and S:
-            # The whole square as one partner-sharded panel (K4 or the
-            # threshold route per shard).
-            sums = min_sum_panel_mesh(counts, counts, mesh, threshold=cmax)
-        elif cmax is not None:
-            sums = threshold_cuda.min_sum_matrix_threshold(counts, cmax)
-        else:
-            sums = distance_cuda.min_sum_matrix_tri(counts)
-        m2 = runtime.mark(dev)
-        sums_np = sums.cpu().numpy()  # waits for the device
-        counts_np = counts.cpu().numpy()
-        del sums
-        phases["counts"] = runtime.span_s(m0, m1)
-        phases["min_sum"] = runtime.span_s(m1, m2)
-        phases["d2h"] = time.perf_counter() - t - phases["counts"] - phases["min_sum"]
-        t = time.perf_counter()
-        packed = dist_ops.finish_packed(sums_np, lengths, cfg.k)
-        phases["finish"] = time.perf_counter() - t
+        # d2h: the host wall from here to the results' arrival, less the
+        # device phases it spans
+        with span("d2h", phases):
+            m0 = runtime.mark(dev)
+            counts = self._counts_on_device(stream, offsets, lengths)
+            m1 = runtime.mark(dev)
+            mesh = self._mesh()
+            S = len(lengths)
+            cmax = self._threshold_cmax(counts, S, mesh is None) if S else None
+            if mesh is not None and S:
+                # The whole square as one partner-sharded panel (K4 or the
+                # threshold route per shard).
+                sums = min_sum_panel_mesh(counts, counts, mesh, threshold=cmax)
+            elif cmax is not None:
+                sums = threshold_cuda.min_sum_matrix_threshold(counts, cmax)
+            else:
+                sums = distance_cuda.min_sum_matrix_tri(counts)
+            m2 = runtime.mark(dev)
+            with span("d2h.wait"):
+                runtime.wait(m2)
+            with span("d2h.copy") as copy:
+                sums_np = sums.cpu().numpy()
+                counts_np = counts.cpu().numpy()
+                copy.count("bytes", sums_np.nbytes + counts_np.nbytes)
+            del sums
+            phases["counts"] = runtime.span_s(m0, m1)
+            phases["min_sum"] = runtime.span_s(m1, m2)
+        phases["d2h"] -= phases["counts"] + phases["min_sum"]
+        with span("finish", phases):
+            packed = dist_ops.finish_packed(sums_np, lengths, cfg.k)
         n = len(lengths)
         return DistanceResult(
             k=cfg.k,
@@ -511,11 +523,15 @@ class KmerEngine:
     def distance_sequences(
         self, seqs: list[str], ids: list[str] | None = None
     ) -> DistanceResult:
-        """Packed pairwise distances of in-memory sequences."""
+        """Packed pairwise distances of in-memory sequences; the root span
+        ``distance_sequences`` counts the pairs as ``rows``."""
         self._require_distance_k(len(seqs))
         t0 = time.perf_counter()
         phases = dict.fromkeys(DIST_PHASES, 0.0)
-        return self._distances(*seq_stream(seqs), ids, phases, t0)
+        with span("distance_sequences") as root:
+            res = self._distances(*seq_stream(seqs), ids, phases, t0)
+            root.count("rows", res.packed.shape[0])
+        return res
 
     def distance_file(self, source) -> DistanceResult:
         """Packed pairwise distances of the records of a FASTA file (the
@@ -525,15 +541,18 @@ class KmerEngine:
         cfg = self.config
         t0 = time.perf_counter()
         phases = dict.fromkeys(DIST_PHASES, 0.0)
-        if cfg.parser_variant == "modern" and isinstance(source, (str, os.PathLike)):
-            parsed = native.parse_fasta_text(source, max_seqs=cfg.max_seqs)
-            args = (parsed.stream, parsed.offsets[:-1], parsed.lengths, parsed.ids)
-        else:
-            records = self._parse(source)
-            args = (*seq_stream([r.seq for r in records]), [r.id for r in records])
-        self._require_distance_k(len(args[2]))
-        phases["parse"] = time.perf_counter() - t0
-        return self._distances(*args, phases, t0)
+        with span("distance_file") as root:
+            with span("parse", phases):
+                if cfg.parser_variant == "modern" and isinstance(source, (str, os.PathLike)):
+                    parsed = native.parse_fasta_text(source, max_seqs=cfg.max_seqs)
+                    args = (parsed.stream, parsed.offsets[:-1], parsed.lengths, parsed.ids)
+                else:
+                    records = self._parse(source)
+                    args = (*seq_stream([r.seq for r in records]), [r.id for r in records])
+                self._require_distance_k(len(args[2]))
+            res = self._distances(*args, phases, t0)
+            root.count("rows", res.packed.shape[0])
+        return res
 
     def distance_stream_to_csv(
         self,
@@ -605,22 +624,21 @@ class KmerEngine:
         info["route"] = "minplus" if cmax is None else "threshold"
 
         def panel_fn(r0: int, r1: int) -> np.ndarray:
-            t = time.perf_counter()
-            m0 = runtime.mark(dev)
-            if mesh is not None:
-                sums = min_sum_panel_mesh(counts[r0:r1], counts[r0:], mesh, threshold=cmax)
-            elif cmax is not None:
-                sums = threshold_cuda.min_sum_matrix_threshold(counts[r0:r1], cmax, counts[r0:])
-            else:
-                sums = distance_cuda.min_sum_matrix_rect(counts[r0:r1], counts[r0:])
-            m1 = runtime.mark(dev)
-            host = sums.cpu().numpy()  # waits for the device
-            min_sum = runtime.span_s(m0, m1)
+            with span("d2h", phases):
+                m0 = runtime.mark(dev)
+                if mesh is not None:
+                    sums = min_sum_panel_mesh(counts[r0:r1], counts[r0:], mesh, threshold=cmax)
+                elif cmax is not None:
+                    sums = threshold_cuda.min_sum_matrix_threshold(counts[r0:r1], cmax, counts[r0:])
+                else:
+                    sums = distance_cuda.min_sum_matrix_rect(counts[r0:r1], counts[r0:])
+                m1 = runtime.mark(dev)
+                host = sums.cpu().numpy()  # waits for the device
+                min_sum = runtime.span_s(m0, m1)
             phases["min_sum"] += min_sum
-            phases["d2h"] += time.perf_counter() - t - min_sum
-            t = time.perf_counter()
-            flat = dist_ops.finish_upper(host, lengths[r0:r1], lengths[r0:], cfg.k, r0, r0)
-            phases["finish"] += time.perf_counter() - t
+            phases["d2h"] -= min_sum
+            with span("finish", phases):
+                flat = dist_ops.finish_upper(host, lengths[r0:r1], lengths[r0:], cfg.k, r0, r0)
             return flat
 
         return panel_fn

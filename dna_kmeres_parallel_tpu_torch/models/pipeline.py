@@ -175,7 +175,8 @@ class StreamingCounter:
         the progress (bounded work slices, and crash simulation in tests).
         max_retries: transient failures of a batch's device call are
         retried this many times before they surface. trace_dir: write a
-        ``torch.profiler`` trace of the run there. pallas_sort: with
+        ``torch.profiler`` trace of the run there, and its spans as
+        ``spans.jsonl`` (``utils/profiling.trace``). pallas_sort: with
         ``device_sort=True``, sort single-word rows with the row-sort
         kernel K11 (``SparseKmerEngine``'s argument)."""
         self.config = config or KmerConfig()

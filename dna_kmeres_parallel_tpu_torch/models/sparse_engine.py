@@ -56,6 +56,7 @@ from dna_kmeres_parallel_tpu_torch.ops import distance_cuda, runtime, threshold_
 from dna_kmeres_parallel_tpu_torch.ops import sparse as sparse_ops
 from dna_kmeres_parallel_tpu_torch.utils import codec, fasta
 from dna_kmeres_parallel_tpu_torch.utils.config import KmerConfig
+from dna_kmeres_parallel_tpu_torch.utils.profiling import span
 
 #: Phases of SparseCountResult.phases, in the order a batch runs them.
 PHASES = ("parse", "staging", "h2d", "kernel", "d2h", "compact", "merge", "sort")
@@ -92,14 +93,22 @@ def encode_staged(staged: tuple, n_own: int, k: int, canonical: bool):
     return sparse_ops.encode_words(staged[0], n_own, k, canonical)
 
 
-def fetch_words(words) -> tuple[np.ndarray, ...]:
+def fetch_words(words, ready=None) -> tuple[np.ndarray, ...]:
     """Word planes (on the device, or already copied to the host) -> NumPy
     arrays viewed as the unsigned words they hold (int32 -> u32, int16 ->
-    u16). A plane on the card is copied, which waits for the device."""
-    out = []
-    for w in words:
-        a = w.cpu().numpy()
-        out.append(a.view(np.uint16 if a.dtype == np.int16 else np.uint32))
+    u16). A plane on the card is copied, which waits for the device. The
+    copy is the span ``d2h.copy`` (counter ``bytes``); with ``ready`` (a
+    ``runtime.mark`` after the words' last kernel) the wait for the
+    device is a span of its own before it, ``d2h.wait``."""
+    if ready is not None:
+        with span("d2h.wait"):
+            runtime.wait(ready)
+    with span("d2h.copy") as copy:
+        out = []
+        for w in words:
+            a = w.cpu().numpy()
+            out.append(a.view(np.uint16 if a.dtype == np.int16 else np.uint32))
+            copy.count("bytes", a.nbytes)
     return tuple(out)
 
 
@@ -288,14 +297,6 @@ class SparseKmerEngine:
         dev = self.device
         t_start = time.perf_counter()
         phases = dict.fromkeys(PHASES, 0.0)
-        t = t_start
-
-        def lap(name: str) -> None:
-            nonlocal t
-            now = time.perf_counter()
-            phases[name] += now - t
-            t = now
-
         codes = np.zeros(0, np.uint64)
         counts = np.zeros(0, np.int64)
         total = flat.shape[0]
@@ -303,42 +304,42 @@ class SparseKmerEngine:
             batch, T = batch_plan(total, cfg.k, cfg.batch_bases)
             ladder = MergeLadder()
             for start in range(0, total, batch):
-                end = min(start + batch, total)
-                seg = flat[start : min(end + cfg.k - 1, total)]
-                padded = np.full(T, codec.INVALID_BASE, dtype=np.uint8)
-                padded[: seg.shape[0]] = seg
-                host = stage_words(padded, cfg.pack_input)
-                lap("staging")
-                m0 = runtime.mark(dev)
-                staged = tuple(host_to_device(a, dev) for a in host)
-                m1 = runtime.mark(dev)
-                words = encode_staged(staged, end - start, cfg.k, cfg.canonical)
-                m2 = runtime.mark(dev)
-                if cfg.device_sort:
-                    words = sparse_ops.sort_encoded(
-                        words, end - start, cfg.sort_row_len, self.pallas_sort
-                    )
-                m3 = runtime.mark(dev)
-                host = fetch_words(words)  # waits for the device
-                del words
-                spans = {
-                    "h2d": runtime.span_s(m0, m1),
-                    "kernel": runtime.span_s(m1, m2),
-                    "sort": runtime.span_s(m2, m3),
-                }
-                for name, span in spans.items():
-                    phases[name] += span
-                lap("d2h")
-                phases["d2h"] -= sum(spans.values())
-                if cfg.device_sort:
-                    table = compact_table(host)
-                else:
-                    table = compact_unsorted(host, cfg.k)
-                lap("compact")
-                ladder.push(table)
-                lap("merge")
-            codes, counts = ladder.result()
-            lap("merge")
+                with span("staging", phases):
+                    end = min(start + batch, total)
+                    seg = flat[start : min(end + cfg.k - 1, total)]
+                    padded = np.full(T, codec.INVALID_BASE, dtype=np.uint8)
+                    padded[: seg.shape[0]] = seg
+                    host = stage_words(padded, cfg.pack_input)
+                # d2h: the host wall from here to the words' arrival, less
+                # the device phases it spans
+                with span("d2h", phases):
+                    m0 = runtime.mark(dev)
+                    staged = tuple(host_to_device(a, dev) for a in host)
+                    m1 = runtime.mark(dev)
+                    words = encode_staged(staged, end - start, cfg.k, cfg.canonical)
+                    m2 = runtime.mark(dev)
+                    if cfg.device_sort:
+                        words = sparse_ops.sort_encoded(
+                            words, end - start, cfg.sort_row_len, self.pallas_sort
+                        )
+                    m3 = runtime.mark(dev)
+                    host = fetch_words(words, m3)
+                    del words
+                    device_s = 0.0
+                    for name, a, b in (("h2d", m0, m1), ("kernel", m1, m2), ("sort", m2, m3)):
+                        seconds = runtime.span_s(a, b)
+                        phases[name] += seconds
+                        device_s += seconds
+                phases["d2h"] -= device_s
+                with span("compact", phases):
+                    if cfg.device_sort:
+                        table = compact_table(host)
+                    else:
+                        table = compact_unsorted(host, cfg.k)
+                with span("merge", phases):
+                    ladder.push(table)
+            with span("merge", phases):
+                codes, counts = ladder.result()
         return SparseCountResult(
             k=cfg.k,
             canonical=cfg.canonical,
@@ -351,31 +352,36 @@ class SparseKmerEngine:
         )
 
     def count_sequences(self, seqs: list[str]) -> SparseCountResult:
-        flat = codec.concat_with_sentinels(seqs)
-        return self.count_stream(flat, sum(len(s) for s in seqs), len(seqs))
+        with span("count_sequences") as root:
+            flat = codec.concat_with_sentinels(seqs)
+            res = self.count_stream(flat, sum(len(s) for s in seqs), len(seqs))
+            root.count("rows", res.codes.shape[0])
+        return res
 
     def count_file(self, source) -> SparseCountResult:
         cfg = self.config
-        t0 = time.perf_counter()
-        if cfg.parser_variant == "modern" and isinstance(
-            source, (str, os.PathLike)
-        ):
-            parsed = native.parse_fasta_native(source, max_seqs=cfg.max_seqs)
-            parse_s = time.perf_counter() - t0
-            res = self.count_stream(
-                parsed.stream, parsed.total_bases, parsed.n_seqs
-            )
-        else:
-            if cfg.parser_variant == "modern":
-                records = fasta.parse_fasta(source, max_seqs=cfg.max_seqs)
-            else:
-                records = fasta.parse_fasta_reference(
-                    source, variant=cfg.parser_variant, max_seqs=cfg.max_seqs
+        parse: dict[str, float] = {}
+        with span("count_file") as root:
+            if cfg.parser_variant == "modern" and isinstance(
+                source, (str, os.PathLike)
+            ):
+                with span("parse", parse):
+                    parsed = native.parse_fasta_native(source, max_seqs=cfg.max_seqs)
+                res = self.count_stream(
+                    parsed.stream, parsed.total_bases, parsed.n_seqs
                 )
-            seqs = [r.seq for r in records]
-            parse_s = time.perf_counter() - t0
-            res = self.count_sequences(seqs)
-        res.phases["parse"] = parse_s
+            else:
+                with span("parse", parse):
+                    if cfg.parser_variant == "modern":
+                        records = fasta.parse_fasta(source, max_seqs=cfg.max_seqs)
+                    else:
+                        records = fasta.parse_fasta_reference(
+                            source, variant=cfg.parser_variant, max_seqs=cfg.max_seqs
+                        )
+                    seqs = [r.seq for r in records]
+                res = self.count_sequences(seqs)
+            res.phases["parse"] = parse["parse"]
+            root.count("rows", res.codes.shape[0])
         return res
 
 
@@ -851,12 +857,6 @@ def build_pair_tables(
             out_offs)
 
 
-def _lap(phases: dict, name: str, t: float) -> float:
-    now = time.perf_counter()
-    phases[name] = phases.get(name, 0.0) + now - t
-    return now
-
-
 def distance_sparse_packed(
     seqs: list[str],
     k: int,
@@ -889,25 +889,24 @@ def distance_sparse_packed(
     finish)."""
     dev = runtime.resolve_device(device)
     phases: dict[str, float] = {}
-    t = time.perf_counter()
-    codes, cnts, offs = build_pair_tables(seqs, k, canonical, dev)
-    lengths = np.array([len(s) for s in seqs], dtype=np.int64)
-    t = _lap(phases, "tables", t)
     info = {} if info is None else info
-    plan = union_dense_plan(
-        codes, cnts, offs, device=dev, union=union, budget_bytes=union_budget_bytes,
-        rates=rates, threshold=threshold, threshold_cap=threshold_cap, info=info,
-    )
-    t = _lap(phases, "plan", t)
-    if plan is not None:
-        sums = union_dense_min_sums(codes, cnts, offs, plan, dev)
-        info.update(route=f"union/{plan['impl']}", cmax=plan["cmax"])
-    else:
-        sums = native.min_sum_pairs_native(codes, cnts, offs)
-        info["route"] = "host/sparse"
-    t = _lap(phases, "min_sum", t)
-    out = finish_distances_packed(sums, lengths, k)
-    _lap(phases, "finish", t)
+    with span("tables", phases):
+        codes, cnts, offs = build_pair_tables(seqs, k, canonical, dev)
+        lengths = np.array([len(s) for s in seqs], dtype=np.int64)
+    with span("plan", phases):
+        plan = union_dense_plan(
+            codes, cnts, offs, device=dev, union=union, budget_bytes=union_budget_bytes,
+            rates=rates, threshold=threshold, threshold_cap=threshold_cap, info=info,
+        )
+    with span("min_sum", phases):
+        if plan is not None:
+            sums = union_dense_min_sums(codes, cnts, offs, plan, dev)
+            info.update(route=f"union/{plan['impl']}", cmax=plan["cmax"])
+        else:
+            sums = native.min_sum_pairs_native(codes, cnts, offs)
+            info["route"] = "host/sparse"
+    with span("finish", phases):
+        out = finish_distances_packed(sums, lengths, k)
     info["phases"] = phases
     return out
 
@@ -996,11 +995,11 @@ def distance_sparse_stream_to_csv(
     resumed or not. row_lo/row_hi bound the rows this writer owns. The
     result carries the writer's keys, ``route`` and ``phases`` (tables,
     and the writer's write). ``mesh``: see ``make_sparse_panel_fn``."""
-    t = time.perf_counter()
-    dev = runtime.resolve_device(device)
-    codes, cnts, offs = build_pair_tables(seqs, k, canonical, dev)
-    lengths = np.array([len(s) for s in seqs], dtype=np.int64)
-    tables_s = time.perf_counter() - t
+    phases: dict[str, float] = {}
+    with span("tables", phases):
+        dev = runtime.resolve_device(device)
+        codes, cnts, offs = build_pair_tables(seqs, k, canonical, dev)
+        lengths = np.array([len(s) for s in seqs], dtype=np.int64)
     info = {} if info is None else info
     panel_fn = make_sparse_panel_fn(
         codes, cnts, offs, lengths, k, panel_rows, device=dev, mesh=mesh, union=union,
@@ -1020,5 +1019,5 @@ def distance_sparse_stream_to_csv(
         row_lo=row_lo, row_hi=row_hi,
     )
     report["route"] = info["route"]
-    report["phases"] = {"tables": tables_s, "write": report["write_s"]}
+    report["phases"] = {"tables": phases["tables"], "write": report["write_s"]}
     return report

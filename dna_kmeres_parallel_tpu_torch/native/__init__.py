@@ -31,6 +31,8 @@ from pathlib import Path
 
 import numpy as np
 
+from dna_kmeres_parallel_tpu_torch.utils import profiling
+
 SOURCE = Path(__file__).resolve().parent / "kmer_host.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_native"
 
@@ -456,21 +458,25 @@ def merge_tables_native(
 
 
 def _merge(tables):
+    """One native merge of ``tables``: the span ``merge.pair`` (counter
+    ``rows_out``, the merged table's rows)."""
     if len(tables) == 1:
         return tables[0]
     lib = load()
-    m = len(tables)
-    codes = [np.ascontiguousarray(t[0], dtype=np.uint64) for t in tables]
-    cnts = [np.ascontiguousarray(t[1], dtype=np.int64) for t in tables]
-    lens = np.array([c.shape[0] for c in codes], dtype=np.int64)
-    out_code = np.zeros(int(lens.sum()), dtype=np.uint64)
-    out_cnt = np.zeros(int(lens.sum()), dtype=np.int64)
-    code_ptrs = np.array([_ptr(c) for c in codes], dtype=np.uint64)
-    cnt_ptrs = np.array([_ptr(c) for c in cnts], dtype=np.uint64)
-    w = lib.kp_merge_tables(
-        m, _ptr(code_ptrs), _ptr(cnt_ptrs), _ptr(lens),
-        _ptr(out_code), _ptr(out_cnt),
-    )
+    with profiling.span("merge.pair") as pair:
+        m = len(tables)
+        codes = [np.ascontiguousarray(t[0], dtype=np.uint64) for t in tables]
+        cnts = [np.ascontiguousarray(t[1], dtype=np.int64) for t in tables]
+        lens = np.array([c.shape[0] for c in codes], dtype=np.int64)
+        out_code = np.zeros(int(lens.sum()), dtype=np.uint64)
+        out_cnt = np.zeros(int(lens.sum()), dtype=np.int64)
+        code_ptrs = np.array([_ptr(c) for c in codes], dtype=np.uint64)
+        cnt_ptrs = np.array([_ptr(c) for c in cnts], dtype=np.uint64)
+        w = lib.kp_merge_tables(
+            m, _ptr(code_ptrs), _ptr(cnt_ptrs), _ptr(lens),
+            _ptr(out_code), _ptr(out_cnt),
+        )
+        pair.count("rows_out", w)
     return out_code[:w], out_cnt[:w]
 
 

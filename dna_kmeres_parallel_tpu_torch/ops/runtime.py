@@ -45,6 +45,13 @@ def mark(dev: torch.device):
     return event
 
 
+def wait(m) -> None:
+    """Wait on the host until the device has reached ``mark`` point ``m``
+    (on the CPU it has already)."""
+    if not isinstance(m, float):
+        m.synchronize()
+
+
 def span_s(a, b) -> float:
     """Seconds between two ``mark`` points (on the card this waits for the
     later event, which has normally completed by the time it is read)."""

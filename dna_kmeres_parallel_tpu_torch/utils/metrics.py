@@ -7,8 +7,9 @@ from __future__ import annotations
 import json
 import time
 from collections import defaultdict
-from contextlib import contextmanager
 from dataclasses import dataclass, field
+
+from dna_kmeres_parallel_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -20,13 +21,11 @@ class Metrics:
     def count(self, name: str, n: int = 1) -> None:
         self.counters[name] += n
 
-    @contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.phase_seconds[name] += time.perf_counter() - t0
+    def phase(self, name: str) -> span:
+        """A span (``utils/profiling``) that adds its seconds to
+        ``phase_seconds[name]``: on the profiler's timeline as
+        ``kmer.<name>`` while a trace records."""
+        return span(name, self.phase_seconds)
 
     def rate(self, counter: str, phase: str) -> float:
         dt = self.phase_seconds.get(phase, 0.0)

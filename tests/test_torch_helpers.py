@@ -5,8 +5,7 @@ the same seeded inputs: ``utils/codec`` (``BITS_PER_BASE``,
 ``square_to_packed``), ``ops/encode`` (``ascii_to_bases``,
 ``unpack_2bit``, ``unpack_mask``), ``native`` (``ParsedFasta
 .sequence_codes``, ``count_dense_native``, ``unpack_2bit_native``),
-``utils/profiling.wall_timer`` and ``ops/distance
-.distance_matrix_square``.
+and ``ops/distance.distance_matrix_square``.
 
 Integers and float32 bits: the tolerance is zero."""
 
@@ -19,11 +18,10 @@ from dna_kmeres_parallel_tpu import native as jax_native
 from dna_kmeres_parallel_tpu.ops import distance as jax_distance
 from dna_kmeres_parallel_tpu.ops import encode as jax_encode
 from dna_kmeres_parallel_tpu.utils import codec as jax_codec
-from dna_kmeres_parallel_tpu.utils import profiling as jax_profiling
 from dna_kmeres_parallel_tpu.utils import triangular as jax_triangular
 from dna_kmeres_parallel_tpu_torch import native
 from dna_kmeres_parallel_tpu_torch.ops import distance, encode
-from dna_kmeres_parallel_tpu_torch.utils import codec, profiling, triangular
+from dna_kmeres_parallel_tpu_torch.utils import codec, triangular
 
 
 def bases(seed: int, n: int) -> np.ndarray:
@@ -113,20 +111,6 @@ def test_sequence_codes_match_jax(tmp_path):
     assert got.n_seqs == want.n_seqs == 3
     for i in range(3):
         assert np.array_equal(got.sequence_codes(i), want.sequence_codes(i))
-
-
-def test_wall_timer_matches_jax():
-    # The block's seconds under the key; the arrays it leaves under
-    # key + "_arrays" are waited for and popped.
-    for timer, arrays in ((profiling.wall_timer, [torch.ones(3), np.zeros(2)]),
-                          (jax_profiling.wall_timer, [jnp.ones(3)])):
-        out = {}
-        with timer(out, "t"):
-            out["t_arrays"] = arrays
-        assert set(out) == {"t"} and out["t"] >= 0.0
-        with timer(out, "plain"):
-            pass
-        assert set(out) == {"t", "plain"}
 
 
 @pytest.mark.parametrize("k", [3, 4])
