@@ -53,7 +53,10 @@ exits nonzero:
    alignment), then timed with CUDA events at the distance path's shapes,
    beside their plain versions and, for K3/K4, ``torch.cdist(p=1)``; K2
    checked and timed at (a)'s grid, (c)'s (all records, one launch),
-   (b)'s at k=8 and 8 rows of 4 Mbase (split across warps);
+   (b)'s at k=8 and 8 rows of 4 Mbase (split across warps); the finish
+   kernel (float32 distances of the packed upper triangle) at (c)'s first
+   panel and at the triangle of all records, bit for bit against its
+   plain version on the same min-sums, and timed beside it;
 6. the distance path on a seeded FASTA of ``--records`` records of
    1,000-2,000 bases (default 54,018, the reference program's design
    scale): (a) ``distance_file`` at k=3 on the first 16,384 records, (b)
@@ -1672,6 +1675,7 @@ COUNTERS = {
     "counts_matrix_global": ("histogram_cuda", "COUNTS_GLOBAL_LAUNCHES"),
     "min_sum_tri": ("distance_cuda", "TRI_LAUNCHES"),
     "min_sum_rect": ("distance_cuda", "RECT_LAUNCHES"),
+    "finish_upper": ("distance_cuda", "FINISH_LAUNCHES"),
     "hist_planes": ("histogram_cuda", "PLANES_LAUNCHES"),
     "hist_u8": ("histogram_cuda", "U8_LAUNCHES"),
     "hist_u8_small": ("histogram_cuda", "SMALL_LAUNCHES"),
@@ -2024,7 +2028,8 @@ def phase_distance_kernels(dev, card: str, records, so: Path | None = None) -> d
     """K2, K3 and K4 against their plain versions on edge shapes (K3 and
     K4 on both routes), then timed at the distance path's shapes: K3 at
     (a)'s 16,384 records and at all 54,018, K4 at (c)'s first panel and
-    over all its panels. Returns each kernel's record."""
+    over all its panels, and the finish kernel on K4's and K3's outputs
+    there. Returns each kernel's record."""
     import numpy as np
     import torch
 
@@ -2056,6 +2061,30 @@ def phase_distance_kernels(dev, card: str, records, so: Path | None = None) -> d
             shapes = " x ".join(str(tuple(m.shape)) for m in mats)
             raise AssertionError(f"{name} ({want}) disagrees with plain at {shapes}")
         return err
+
+    def finish_shape(run, sums, lr, lc, what):
+        """The finish kernel on the min-sums ``sums`` (rows and columns both
+        from sequence 0), held bit for bit to its plain version on the same
+        tensors, then both timed; the bound is 8 bytes a pair (the int32
+        read, the float32 written)."""
+        R, C = sums.shape
+        got = distance_cuda.finish_upper_cuda(sums, lr, lc, 3)
+        want = distance.finish_upper_plain(sums, lr, lc, 3)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"finish_upper disagrees with plain at {what} [{R}, {C}]")
+        pairs = got.numel()
+        del got, want
+        bound = bound_ms(8 * pairs, 0)
+        sh = dict(
+            run=run, shape=f"[{R}, {C}] min-sums, {pairs} pairs",
+            ms=time_ms(lambda: distance_cuda.finish_upper_cuda(sums, lr, lc, 3), 10),
+            plain_ms=time_ms(lambda: distance.finish_upper_plain(sums, lr, lc, 3), 2),
+            bound_ms=bound[0], bound_by=bound[1],
+        )
+        log(f"kernel check finish_upper {what} [{R}, {C}]: bit for bit its plain version; "
+            f"kernel {sh['ms']:.4f} ms, plain {sh['plain_ms']:.3f} ms, bound "
+            f"{bound[0]:.4f} ms ({bound[1]}, {pairs} pairs) [{card}]")
+        return sh
 
     if so is not None:
         for name, rep in min_sum_sass(so).items():
@@ -2255,6 +2284,8 @@ def phase_distance_kernels(dev, card: str, records, so: Path | None = None) -> d
     log(f"kernel time min_sum_rect [{npn}, 64] x [{nall}, 64] on the i32 route: "
         f"{wide_ms:.4f} ms [{card}]")
     del pf, cf
+    len_all = torch.from_numpy(lengths.astype(np.int64)).to(dev)
+    finish = [finish_shape("(c)", out_c, len_all[:npn], len_all, "(c)'s first panel")]
     for name, r in rec.items():
         r["max_abs_err"] = worst[name]
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
@@ -2307,6 +2338,8 @@ def phase_distance_kernels(dev, card: str, records, so: Path | None = None) -> d
         check("min_sum_tri", out[r0:r1], distance.min_sum_matrix(counts_all[r0:r1], counts_all),
               f"[{nall}, 64] rows {r0}..{r1 - 1} ({route})")
     big_ms = time_ms(lambda: distance_cuda.launch_min_sum_tri(counts_all, out, route), 5)
+    finish.insert(0, finish_shape("", out, len_all, len_all, "the triangle of all records"))
+    rec["finish_upper"] = dict(finish[0], max_abs_err=0, shapes=finish)
     del out
     torch.cuda.empty_cache()
     plain_big = time_once_ms(lambda: distance.min_sum_matrix(counts_all))
@@ -2428,7 +2461,7 @@ def phase_distance_path(records, path: Path, dev, card: str, keep: dict | None =
     none = dict.fromkeys(read_launches(), 0)
     seqs = record_strings(stream, starts, lengths)
     launches = {}
-    in_memory = {"counts_matrix": 1, "min_sum_tri": 1}
+    in_memory = {"counts_matrix": 1, "min_sum_tri": 1, "finish_upper": 1}
     na, nb = min(DIST_ROWS_A, S), min(DIST_ROWS_B, S)
     name = f"(a) distance_file(k=3, max_seqs={na})"
     launches[name] = check_in_memory_run(
@@ -2447,7 +2480,8 @@ def phase_distance_path(records, path: Path, dev, card: str, keep: dict | None =
     out = eng.distance_stream_to_csv(seqs, csv, panel_rows=PANEL_ROWS, max_panels=1)
     wall = time.perf_counter() - t
     launches["(c)"] = expect_launches(
-        name, {**none, **follow_route({"counts_matrix": 1, "min_sum_rect": 1}, out["route"])})
+        name, {**none, **follow_route({"counts_matrix": 1, "min_sum_rect": 1, "finish_upper": 1},
+                                      out["route"])})
     taken = routes_taken()
     rows = min(PANEL_ROWS, S - 1)
     ref_counts = reference_counts(stream, starts, lengths, 3, False, dev)
@@ -2901,7 +2935,8 @@ def phase_midk_path(records, dev, card: str, tmp: Path) -> dict:
     launches = {MIDK_MAIN: check_in_memory_run(
         f"{MIDK_MAIN}: KmerEngine(k=9).distance_sequences({n} records)", 9, n,
         lambda: KmerEngine(KmerConfig(k=9), device=dev).distance_sequences(seqs),
-        records, dev, card, {"counts_matrix": 1, "counts_matrix_global": 1, "min_sum_tri": 1})}
+        records, dev, card, {"counts_matrix": 1, "counts_matrix_global": 1, "min_sum_tri": 1,
+                             "finish_upper": 1})}
 
     n = min(MIDK_STREAM_ROWS, lengths.size)
     ref_counts = reference_counts(stream, starts[:n], lengths[:n], 10, False, dev)
@@ -2922,8 +2957,8 @@ def phase_midk_path(records, dev, card: str, tmp: Path) -> dict:
             raise AssertionError(f"{name}: route {out['route']} with the threshold route off")
         launches[name] = expect_launches(name, {
             **dict.fromkeys(read_launches(), 0), **follow_route(
-                {"counts_matrix": 1, "counts_matrix_global": 1, "min_sum_rect": 1},
-                out["route"])})
+                {"counts_matrix": 1, "counts_matrix_global": 1, "min_sum_rect": 1,
+                 "finish_upper": 1}, out["route"])})
         taken = routes_taken()
         checked = check_csv(csv, want)
         report_run(f"{name}: KmerEngine(k=10, threshold={threshold}).distance_stream_to_csv("
@@ -3550,7 +3585,8 @@ def phase_cli(main_fasta: Path, main_table, hists, n_batches: int, dist_fasta: P
         report, wall = run_cli(["distance", *on, "--k", 3, "--max-seqs", n, dist_fasta, "-o",
                                 one_shot])
         launches[name] = expect_launches(
-            name, {**none, **follow_route({"counts_matrix": 1, "min_sum_tri": 1})})
+            name, {**none, **follow_route({"counts_matrix": 1, "min_sum_tri": 1,
+                                           "finish_upper": 1})})
         checked = check_csv(one_shot, want)
         log(f"{name} ({n} records): wall {wall:.3f} s (distances {report['elapsed_s']:.3f} s), "
             f"engine {report['engine']}; {checked} CSV lines equal the reference [{card}]")
@@ -3569,7 +3605,8 @@ def phase_cli(main_fasta: Path, main_table, hists, n_batches: int, dist_fasta: P
         second, wall2 = run_cli(argv)
         n_panels = len(panel_shapes(n, CLI_PANEL_ROWS))
         launches[name] = expect_launches(
-            name, {**none, **follow_route({"counts_matrix": 2, "min_sum_rect": n_panels})})
+            name, {**none, **follow_route({"counts_matrix": 2, "min_sum_rect": n_panels,
+                                           "finish_upper": n_panels})})
         if first["completed"] or not (second["resumed"] and second["completed"]):
             raise AssertionError(f"{name}: legs {first}, {second}")
         if csv.read_bytes() != one_shot.read_bytes():
@@ -3909,7 +3946,8 @@ def phase_mesh_distance(dist_path: Path, dist_records, keep: dict, union: dict, 
 
     for D in (MESH_D, MESH_D_ODD):
         name = f"(a) distance_file(k=3, max_seqs={na}, mesh_shape=({D},))"
-        res, wall = timed(name, {"counts_matrix": 1, "min_sum_rect": D}, lambda: port.distance_file(
+        want = {"counts_matrix": 1, "min_sum_rect": D, "finish_upper": 1}
+        res, wall = timed(name, want, lambda: port.distance_file(
             str(dist_path), k=3, device=dev, max_seqs=na, mesh_shape=(D,)))
         if not same_bits(res.packed, keep["(a)"]):
             raise AssertionError(f"{name}: distances differ from phase 6's")
@@ -3921,7 +3959,7 @@ def phase_mesh_distance(dist_path: Path, dist_records, keep: dict, union: dict, 
                f"mesh_shape=({D},))"
         csv = tmp / f"mesh{D}_c.csv"
         eng = KmerEngine(KmerConfig(k=3, mesh_shape=(D,)), device=dev)
-        out, wall = timed(name, {"counts_matrix": 1, "min_sum_rect": D},
+        out, wall = timed(name, want,
                           lambda: eng.distance_stream_to_csv(seqs, csv, panel_rows=PANEL_ROWS,
                                                              max_panels=1))
         if not same_file(csv, keep["(c)"]):
@@ -3980,7 +4018,7 @@ def phase_mesh_distance(dist_path: Path, dist_records, keep: dict, union: dict, 
         (["count", "--k", 17, "--max-seqs", n], "c17.csv", {"encode_packed": MESH_D * per}),
         (["stream", "--k", 21, "--max-seqs", n], "s21.csv", {"encode_packed": MESH_D * per}),
         (["distance", "--k", 3, "--max-seqs", nd], "d3.csv",
-         {"counts_matrix": 1, "min_sum_rect": MESH_D}),
+         {"counts_matrix": 1, "min_sum_rect": MESH_D, "finish_upper": 1}),
     ):
         name = f"kmer-gpu {' '.join(map(str, argv))} --mesh {MESH_D}"
         plain, meshed = tmp / f"plain_{out}", tmp / f"mesh_{out}"
@@ -4226,8 +4264,9 @@ def phase_multihost(main_fasta: Path, hists: dict, head, dist_records, union: di
         S = dist_sub[2].size
         name = f"distance_file_multihost_resumable(k=3, {S} records), {group}"
         csv = tmp / "mh_one3.csv"
-        report, wall = timed(name, {"counts_matrix": 1,
-                                    "min_sum_rect": -(-(S - 1) // PANEL_ROWS)}, lambda: (
+        n_panels = -(-(S - 1) // PANEL_ROWS)
+        report, wall = timed(name, {"counts_matrix": 1, "min_sum_rect": n_panels,
+                                    "finish_upper": n_panels}, lambda: (
             multihost.distance_file_multihost_resumable(
                 str(dist_path), KmerConfig(k=3), str(csv), panel_rows=PANEL_ROWS, device=dev)))
         if report["regime"] != "dense" or not same_file(csv, k3_csv):
@@ -4306,8 +4345,8 @@ def phase_multihost(main_fasta: Path, hists: dict, head, dist_records, union: di
                    f"{('stopped', 'resumed')[leg]}"
             got = legs[leg][r][1]["dist"]["launches"]
             launches[name] = expect_launches(name, {
-                **none, **card_only(follow_route({"counts_matrix": 1, "min_sum_rect": n},
-                                                 got=got))}, got)
+                **none, **card_only(follow_route(
+                    {"counts_matrix": 1, "min_sum_rect": n, "finish_upper": n}, got=got))}, got)
         if not legs[1][r][1]["dist"]["all_complete"]:
             raise AssertionError(f"{group}: rank {r}'s distances are not complete")
     tables = [(legs[1][r][0]["bucket.codes"], legs[1][r][0]["bucket.counts"]) for r in range(2)]
@@ -4526,6 +4565,24 @@ def main() -> int:
             "library_ms": r["library_ms"],
             **extra,
         })
+    # the finish kernel at the triangle of all records (the launches of a
+    # distance_file call) and at (c)'s first panel
+    r = dist["finish_upper"]
+    run_key = next(key for key in dist_launches if key.startswith("(a)"))
+    kernels_json.append({
+        "name": "finish_upper",
+        "route": "cuda",
+        "source": "dna_kmeres_parallel_tpu_torch/csrc/finish.cu",
+        "replaces": "dna_kmeres_parallel_tpu/ops/distance.py:162 (the host finish, NumPy)",
+        "launches": dist_launches[run_key]["finish_upper"],
+        "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"],
+        "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"],
+        "library_ms": None,
+        "shapes": with_launches(r["shapes"], "finish_upper", dist_launches),
+    })
     shapes = with_launches(wide["shapes"]["counts_matrix_global"], "counts_matrix_global",
                            dist_launches)
     kernels_json.append({

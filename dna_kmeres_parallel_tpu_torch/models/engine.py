@@ -169,10 +169,10 @@ class DistanceResult:
     counts: np.ndarray | None = None  # int32 [n, 4^k] per-sequence counts
     elapsed_s: float = 0.0
     #: seconds per phase (DIST_PHASES). On the card ``counts`` (grid
-    #: staging, H2D and K2) and ``min_sum`` (K3 or K4) are spans of the
-    #: device timeline between CUDA events, and ``d2h`` is the rest of the
-    #: host wall until the results are on the host; the other phases are
-    #: host-clock spans.
+    #: staging, H2D and K2), ``min_sum`` (K3 or K4) and ``finish`` (the
+    #: finish kernel) are spans of the device timeline between CUDA
+    #: events, and ``d2h`` is the rest of the host wall until the results
+    #: are on the host; the other phases are host-clock spans.
     phases: dict[str, float] = field(default_factory=dict)
     #: the (min,+) product's route: "threshold" or "minplus" (K3, or K4
     #: over a mesh)
@@ -234,10 +234,12 @@ class KmerEngine:
     (K2), the (min,+) product (K3 for all pairs, K4 for a streamed panel,
     or the threshold route where ``sparse_engine.threshold_plan`` takes
     it: ``threshold`` "auto", "on" or "off", ``threshold_cap``, under
-    ``rates``), and the float32 finish on the host. Above 4^8 bins (k =
-    9..15) a run must pass ``sparse_engine.dense_distance_feasible`` (the
-    [S, 4^k] int32 matrix within 2 GiB): else it raises, and the sparse
-    tables of ``sparse_engine.distance_sparse_packed`` serve it."""
+    ``rates``), and the float32 finish on the same device (the finish
+    kernel on the card), whose packed triangle alone comes to the host.
+    Above 4^8 bins (k = 9..15) a run must pass
+    ``sparse_engine.dense_distance_feasible`` (the [S, 4^k] int32 matrix
+    within 2 GiB): else it raises, and the sparse tables of
+    ``sparse_engine.distance_sparse_packed`` serve it."""
 
     def __init__(
         self,
@@ -481,6 +483,7 @@ class KmerEngine:
         # d2h: the host wall from here to the results' arrival, less the
         # device phases it spans
         with span("d2h", phases):
+            lens = host_to_device(np.asarray(lengths, dtype=np.int64), dev)
             m0 = runtime.mark(dev)
             counts = self._counts_on_device(stream, offsets, lengths)
             m1 = runtime.mark(dev)
@@ -496,29 +499,42 @@ class KmerEngine:
             else:
                 sums = distance_cuda.min_sum_matrix_tri(counts)
             m2 = runtime.mark(dev)
+            packed = self._finish(sums, lens, lens, 0)
+            m3 = runtime.mark(dev)
+            del sums  # only the packed triangle and the counts come back
             with span("d2h.wait"):
-                runtime.wait(m2)
+                runtime.wait(m3)
             with span("d2h.copy") as copy:
-                sums_np = sums.cpu().numpy()
+                packed_np = packed.cpu().numpy()
                 counts_np = counts.cpu().numpy()
-                copy.count("bytes", sums_np.nbytes + counts_np.nbytes)
-            del sums
+                copy.count("bytes", packed_np.nbytes + counts_np.nbytes)
             phases["counts"] = runtime.span_s(m0, m1)
             phases["min_sum"] = runtime.span_s(m1, m2)
-        phases["d2h"] -= phases["counts"] + phases["min_sum"]
-        with span("finish", phases):
-            packed = dist_ops.finish_packed(sums_np, lengths, cfg.k)
+            phases["finish"] = runtime.span_s(m2, m3)
+        phases["d2h"] -= phases["counts"] + phases["min_sum"] + phases["finish"]
         n = len(lengths)
         return DistanceResult(
             k=cfg.k,
             n=n,
             ids=ids or [f">seq{i}" for i in range(n)],
-            packed=packed,
+            packed=packed_np,
             counts=counts_np,
             elapsed_s=time.perf_counter() - t0,
             phases=phases,
             route="minplus" if cmax is None else "threshold",
         )
+
+    def _finish(self, sums, lengths_rows, lengths_cols, r0: int) -> torch.Tensor:
+        """The packed float32 distances of a panel whose rows start at
+        sequence ``r0`` and columns at ``r0`` (the square at 0), on the
+        sums' device (``distance_cuda.finish_upper_packed``: the finish
+        kernel on the card). Its span counts ``device_pairs``, the pairs
+        the kernel finished (0 on the CPU)."""
+        with span("finish") as fin:
+            out = distance_cuda.finish_upper_packed(
+                sums, lengths_rows, lengths_cols, self.config.k, r0, r0)
+            fin.count("device_pairs", out.numel() if out.is_cuda else 0)
+        return out
 
     def distance_sequences(
         self, seqs: list[str], ids: list[str] | None = None
@@ -568,7 +584,7 @@ class KmerEngine:
         matrix never exists. The counts matrix stays on the device; each
         panel of ``panel_rows`` rows takes its (min,+) product against the
         partner rows after its first row (K4 on the card), is finished on
-        the host and appended by ``distance_stream.stream_panels_to_csv``
+        the device and appended by ``distance_stream.stream_panels_to_csv``
         (fsync, then checkpoint; a resumed run is byte-identical).
         max_panels bounds the panels of this call; row_lo/row_hi stream one
         row block. The result carries the writer's keys plus ``phases``."""
@@ -612,9 +628,9 @@ class KmerEngine:
         ``info``, when given, receives the ``route`` and the gate's
         predictions."""
         self._require_distance_k(len(counts))
-        cfg, dev = self.config, self.device
+        dev = self.device
         counts = torch.as_tensor(counts).to(dev)
-        lengths = np.asarray(lengths, dtype=np.int64)
+        lengths = host_to_device(np.asarray(lengths, dtype=np.int64), dev)
         phases = dict.fromkeys(DIST_PHASES, 0.0) if phases is None else phases
         mesh = self._mesh()
         info = {} if info is None else info
@@ -633,13 +649,15 @@ class KmerEngine:
                 else:
                     sums = distance_cuda.min_sum_matrix_rect(counts[r0:r1], counts[r0:])
                 m1 = runtime.mark(dev)
-                host = sums.cpu().numpy()  # waits for the device
-                min_sum = runtime.span_s(m0, m1)
+                flat = self._finish(sums, lengths[r0:r1], lengths[r0:], r0)
+                m2 = runtime.mark(dev)
+                del sums
+                host = flat.cpu().numpy()  # waits for the device
+                min_sum, finish = runtime.span_s(m0, m1), runtime.span_s(m1, m2)
             phases["min_sum"] += min_sum
-            phases["d2h"] -= min_sum
-            with span("finish", phases):
-                flat = dist_ops.finish_upper(host, lengths[r0:r1], lengths[r0:], cfg.k, r0, r0)
-            return flat
+            phases["finish"] += finish
+            phases["d2h"] -= min_sum + finish
+            return host
 
         return panel_fn
 

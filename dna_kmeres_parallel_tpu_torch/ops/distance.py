@@ -9,9 +9,12 @@ version of K3 and K4), ``finish_distances``, ``finish_distances_panel``,
 ``min_sum_matrix_mxu``, here ``min_sum_matrix_threshold`` (the plain
 version of the threshold route, ``ops/threshold_cuda``) with the time
 models its gate compares, and K3/K4's plan of bin slices
-(``min_sum_split``). The integer min-sums are exact on any device;
-the float32 finish runs on the host in NumPy, whose division is IEEE
-correctly rounded, so the distances are bit-reproducible.
+(``min_sum_split``). The integer min-sums are exact on any device. The
+float32 finish is correctly rounded wherever it runs: on the host in
+``finish_upper_plain`` (the plain PyTorch version of the card's finish
+kernel, ``csrc/finish.cu``; ``finish_upper`` and ``finish_packed`` are its
+NumPy forms), pinned bit for bit to NumPy's ``finish_distances_panel``,
+and on the card in the kernel; so the distances are bit-reproducible.
 """
 
 from __future__ import annotations
@@ -220,29 +223,77 @@ def finish_distances_panel(
 def finish_upper(
     min_sums: np.ndarray, lengths_rows, lengths_cols, k: int, r0: int = 0, base: int = 0
 ) -> np.ndarray:
-    """Packed float32 distances of a panel's strict upper triangle, row by
-    row: row i of the panel is sequence r0 + i, column j is sequence
-    base + j, and only the columns after the row's own sequence are
-    finished (``finish_distances_panel`` on each row's tail)."""
-    R, C = min_sums.shape
-    lr = np.asarray(lengths_rows, dtype=np.int64)
-    lc = np.asarray(lengths_cols, dtype=np.int64)
-    first = np.clip(np.arange(R) + r0 + 1 - base, 0, C)
-    out = np.empty(int((C - first).sum()), dtype=np.float32)
-    pos = 0
-    with np.errstate(divide="ignore", invalid="ignore"):
-        for i, f in enumerate(first.tolist()):
-            out[pos : pos + C - f] = finish_distances_panel(
-                min_sums[i : i + 1, f:], lr[i : i + 1], lc[f:], k
-            )[0]
-            pos += C - f
-    return out
+    """Packed float32 distances of a panel's strict upper triangle: row i
+    of the panel is sequence r0 + i, column j is sequence base + j, and
+    only the columns after the row's own sequence are finished. The NumPy
+    form of ``finish_upper_plain``, which computes it."""
+    return finish_upper_plain(
+        torch.from_numpy(np.asarray(min_sums)),
+        torch.from_numpy(np.asarray(lengths_rows, dtype=np.int64)),
+        torch.from_numpy(np.asarray(lengths_cols, dtype=np.int64)),
+        k, r0, base,
+    ).numpy()
 
 
 def finish_packed(min_sums: np.ndarray, lengths: np.ndarray, k: int) -> np.ndarray:
-    """Square [S, S] min-sums -> packed float32 distances, finished row by
-    row over the upper triangle only."""
+    """Square [S, S] min-sums -> packed float32 distances of the upper
+    triangle (``finish_upper`` of the whole square)."""
     return finish_upper(min_sums, lengths, lengths, k)
+
+
+#: elements of one row block of ``finish_upper_plain``
+_FINISH_BLOCK_ELEMS = 1 << 22
+#: NumPy's float32 NaN on x86 as int32 bits (0xFFC00000, the sign set),
+#: which 0 / 0 gives there: the CSV writer's ``%f`` prints it as "-nan"
+NUMPY_NAN_BITS = 0xFFC00000 - (1 << 32)
+
+
+def _skipped(x: int, C: int) -> int:
+    """sum_{u=0}^{x-1} min(u, C), 0 for x <= 0 (``csrc/finish.cu``'s
+    ``skipped``)."""
+    if x <= 0:
+        return 0
+    if x <= C + 1:
+        return x * (x - 1) // 2
+    return C * (C + 1) // 2 + (x - C - 1) * C
+
+
+def packed_upper_size(R: int, C: int, r0: int = 0, base: int = 0) -> int:
+    """Elements of ``finish_upper``'s output for an [R, C] panel: row i
+    keeps the columns from clamp(i + r0 + 1 - base, 0, C) on."""
+    d = r0 + 1 - base
+    return R * C - (_skipped(R + d, C) - _skipped(d, C))
+
+
+def finish_upper_plain(
+    min_sums: torch.Tensor, lengths_rows: torch.Tensor, lengths_cols: torch.Tensor,
+    k: int, r0: int = 0, base: int = 0,
+) -> torch.Tensor:
+    """The host float32 finish in PyTorch, and the plain version of the
+    card's finish kernel (``ops/distance_cuda.finish_upper_cuda``): int32
+    [R, C] min-sums, int64 lengths [R] and [C] -> float32 packed
+    distances in ``finish_upper``'s layout, on their device. Bit for bit
+    ``finish_distances_panel`` on x86: an int32 and an int64 to float32
+    conversion, one correctly rounded division and subtraction, and every
+    NaN written as ``NUMPY_NAN_BITS``. Row blocks of about 2^22
+    elements."""
+    R, C = min_sums.shape
+    d = r0 + 1 - base
+    dev = min_sums.device
+    out = torch.empty(packed_upper_size(R, C, r0, base), dtype=torch.float32, device=dev)
+    nan = torch.tensor(NUMPY_NAN_BITS, dtype=torch.int32, device=dev).view(torch.float32)
+    cols = torch.arange(C, device=dev)
+    step = max(1, _FINISH_BLOCK_ELEMS // max(C, 1))
+    pos = 0
+    for a in range(0, R, step):
+        b = min(a + step, R)
+        keep = cols[None, :] >= torch.arange(a + d, b + d, device=dev)[:, None]
+        den = torch.minimum(lengths_rows[a:b, None], lengths_cols[None, :]) - k + 1
+        dist = 1.0 - min_sums[a:b].to(torch.float32) / den.to(torch.float32)
+        dist = torch.where(torch.isnan(dist), nan, dist)[keep]
+        out[pos : pos + dist.numel()] = dist
+        pos += dist.numel()
+    return out
 
 
 def distance_matrix_square(counts: torch.Tensor, lengths, k: int) -> torch.Tensor:
@@ -262,9 +313,11 @@ def distance_matrix_square(counts: torch.Tensor, lengths, k: int) -> torch.Tenso
 
 def distance_matrix_packed(counts: torch.Tensor, lengths, k: int) -> np.ndarray:
     """Packed strict-upper-triangle float32 distances (the reference's
-    layout), bit-exact: the symmetric (min,+) product on the counts'
-    device (K3 on the card) and the host float32 finish."""
+    layout), bit-exact: the symmetric (min,+) product and the float32
+    finish on the counts' device (K3 and the finish kernel on the card),
+    and only the packed triangle copied to the host."""
     from dna_kmeres_parallel_tpu_torch.ops import distance_cuda
 
-    sums = distance_cuda.min_sum_matrix_tri(counts).cpu().numpy()
-    return finish_packed(sums, np.asarray(lengths), k)
+    sums = distance_cuda.min_sum_matrix_tri(counts)
+    lens = torch.as_tensor(np.asarray(lengths, dtype=np.int64)).to(counts.device)
+    return distance_cuda.finish_upper_packed(sums, lens, lens, k).cpu().numpy()

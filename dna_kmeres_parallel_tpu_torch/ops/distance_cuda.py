@@ -1,4 +1,5 @@
-"""K3 and K4, the tiled (min,+) products: CUDA wrappers.
+"""K3 and K4, the tiled (min,+) products, and the float32 finish: CUDA
+wrappers.
 
 The kernels (``csrc/min_sum.cu``) replace the TPU kernels
 ``dna_kmeres_parallel_tpu/ops/distance_pallas.py::min_sum_matrix_pallas_tri``
@@ -24,6 +25,13 @@ the wrapper passes its slice length to the kernels): a product of a few
 hundred rows over 10^5 bins and more has 3-4 output tiles of 128 x 128.
 Each block then computes one tile over one slice of the bins and adds it
 into the zeroed output; the result is the same integers.
+
+The finish kernel (``csrc/finish.cu``, no Pallas kernel: the JAX package
+finishes on the host) turns the min-sums where the product left them into
+the packed float32 distances of their strict upper triangle, bit for bit
+its plain version, ``ops/distance.finish_upper_plain``;
+``finish_upper_packed`` picks the kernel or the host finish by the sums'
+device.
 """
 
 from __future__ import annotations
@@ -45,6 +53,10 @@ PACKED, WIDE = "u16x2", "i32"
 ROUTE_LAUNCHES = {PACKED: 0, WIDE: 0}
 #: The packed route needs the smaller side's largest row sum below this.
 PACKED_LIMIT = 1 << 16
+#: Launches of the finish kernel since the count was last reset.
+FINISH_LAUNCHES = 0
+
+
 @functools.cache
 def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -241,3 +253,71 @@ def min_sum_matrix_rect(counts: torch.Tensor, counts_other: torch.Tensor) -> tor
         raise ValueError(f"no min-sum for device {counts.device}")
     check_counts(counts, counts_other)
     return dist_ops.min_sum_matrix(counts, counts_other)
+
+
+def _check_finish(min_sums: torch.Tensor, lengths_rows: torch.Tensor,
+                  lengths_cols: torch.Tensor) -> None:
+    if min_sums.dtype != torch.int32 or min_sums.dim() != 2:
+        raise ValueError(f"min-sums must be a 2-D int32 tensor, got {min_sums.dtype} "
+                         f"{tuple(min_sums.shape)}")
+    R, C = min_sums.shape
+    for name, lens, n in (("lengths_rows", lengths_rows, R), ("lengths_cols", lengths_cols, C)):
+        if lens.dtype != torch.int64 or tuple(lens.shape) != (n,):
+            raise ValueError(f"{name} must be int64 [{n}], got {lens.dtype} {tuple(lens.shape)}")
+        if lens.device != min_sums.device:
+            raise ValueError(f"{name} is on {lens.device}, the min-sums on {min_sums.device}")
+
+
+def finish_upper_cuda(
+    min_sums: torch.Tensor, lengths_rows: torch.Tensor, lengths_cols: torch.Tensor,
+    k: int, r0: int = 0, base: int = 0,
+) -> torch.Tensor:
+    """The finish kernel: int32 [R, C] min-sums on the card (columns
+    contiguous, any row stride of at least C) and contiguous int64
+    lengths there -> the float32 packed distances of ``finish_upper``'s
+    layout, on the card, on the current stream."""
+    global FINISH_LAUNCHES
+    _check_finish(min_sums, lengths_rows, lengths_cols)
+    if min_sums.device.type != "cuda":
+        raise ValueError(f"the finish kernel needs tensors on the card, got {min_sums.device}")
+    R, C = min_sums.shape
+    if (C > 1 and min_sums.stride(1) != 1) or (R > 1 and min_sums.stride(0) < C):
+        raise ValueError(f"the min-sums' rows must be contiguous and apart, got strides "
+                         f"{min_sums.stride()} for {tuple(min_sums.shape)}")
+    if not (lengths_rows.is_contiguous() and lengths_cols.is_contiguous()):
+        raise ValueError("the finish kernel needs contiguous lengths")
+    out = torch.empty(dist_ops.packed_upper_size(R, C, r0, base), dtype=torch.float32,
+                      device=min_sums.device)
+    if out.numel():
+        from dna_kmeres_parallel_tpu_torch.ops import kernels
+
+        ld = min_sums.stride(0) if R > 1 else C
+        with torch.cuda.device(min_sums.device):
+            stream = torch.cuda.current_stream(min_sums.device).cuda_stream
+            _launch(kernels.load().kp_finish_upper, "kp_finish_upper", min_sums.data_ptr(),
+                    R, C, ld, lengths_rows.data_ptr(), lengths_cols.data_ptr(), k, r0, base,
+                    out.data_ptr(), stream)
+        FINISH_LAUNCHES += 1
+    return out
+
+
+def finish_upper_packed(
+    min_sums: torch.Tensor, lengths_rows: torch.Tensor, lengths_cols: torch.Tensor,
+    k: int, r0: int = 0, base: int = 0,
+) -> torch.Tensor:
+    """Packed float32 distances of a panel's strict upper triangle (row i
+    is sequence r0 + i, column j sequence base + j; ``finish_upper``'s
+    layout) on the min-sums' device: the finish kernel on the card, the
+    host finish on the CPU (``finish_packed`` for an all-pairs square, whose
+    rows and columns share one lengths tensor, else ``finish_upper``). The
+    lengths are int64 on the same device."""
+    if min_sums.device.type == "cuda":
+        return finish_upper_cuda(min_sums, lengths_rows, lengths_cols, k, r0, base)
+    if min_sums.device.type != "cpu":
+        raise ValueError(f"no finish for device {min_sums.device}")
+    _check_finish(min_sums, lengths_rows, lengths_cols)
+    sums, rows = min_sums.numpy(), lengths_rows.numpy()
+    if r0 == base == 0 and lengths_rows is lengths_cols:
+        return torch.from_numpy(dist_ops.finish_packed(sums, rows, k))
+    return torch.from_numpy(
+        dist_ops.finish_upper(sums, rows, lengths_cols.numpy(), k, r0, base))

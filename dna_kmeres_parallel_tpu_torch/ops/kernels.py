@@ -133,6 +133,8 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.restype = ci
         fn.argtypes = [vp, ll, vp, ll, ll, ll, vp, vp]
+    lib.kp_finish_upper.restype = ci
+    lib.kp_finish_upper.argtypes = [vp, ll, ll, ll, vp, vp, ll, ll, ll, vp, vp]
     lib.kp_hist_planes.restype = ci
     lib.kp_hist_planes.argtypes = [vp, vp, ll, ll, ci, ci, vp, vp]
     lib.kp_hist_u8_small.restype = ci

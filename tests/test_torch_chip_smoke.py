@@ -139,6 +139,7 @@ def counted_plain_versions(monkeypatch):
 
     plain_counts = histogram_cuda.counts_matrix_reference
     tri, rect = distance_cuda.min_sum_matrix_tri, distance_cuda.min_sum_matrix_rect
+    finish = distance_cuda.finish_upper_packed
 
     def counts(grid, k, bins, canonical=False):
         histogram_cuda.COUNTS_LAUNCHES += 1
@@ -153,9 +154,15 @@ def counted_plain_versions(monkeypatch):
         distance_cuda.RECT_LAUNCHES += 1
         return rect(a, b)
 
+    def counted_finish(*args):
+        out = finish(*args)
+        distance_cuda.FINISH_LAUNCHES += int(out.numel() > 0)
+        return out
+
     monkeypatch.setattr(histogram_cuda, "counts_matrix_reference", counts)
     monkeypatch.setattr(distance_cuda, "min_sum_matrix_tri", counted_tri)
     monkeypatch.setattr(distance_cuda, "min_sum_matrix_rect", counted_rect)
+    monkeypatch.setattr(distance_cuda, "finish_upper_packed", counted_finish)
     monkeypatch.setattr(distance_cuda, "min_sum_tri_cuda", distance.min_sum_matrix)
     monkeypatch.setattr(distance_cuda, "min_sum_rect_cuda", distance.min_sum_matrix)
 
@@ -274,7 +281,8 @@ def test_distance_path_rehearsal(tmp_path, monkeypatch, counted_plain_versions):
     chip_smoke.write_fasta(path, *records)
     launches = chip_smoke.phase_distance_path(records, path, CPU, "cpu")
     assert [key[:3] for key in launches] == ["(a)", "(b)", "(c)"]
-    assert {n: c for n, c in launches["(c)"].items() if c} == {"counts_matrix": 1, "min_sum_rect": 1}
+    assert {n: c for n, c in launches["(c)"].items() if c} == {
+        "counts_matrix": 1, "min_sum_rect": 1, "finish_upper": 1}
     assert not (tmp_path / "dist.csv").exists()
 
 
@@ -566,9 +574,9 @@ def test_sparse_and_midk_path_rehearsal(tmp_path, monkeypatch, counted_plain_ver
     assert [fired(n) for n in long.values()] == [{"encode_packed": 3}]
     midk = chip_smoke.phase_midk_path(records, CPU, "cpu", tmp_path)
     assert fired(midk[chip_smoke.MIDK_MAIN]) == {
-        "counts_matrix": 1, "counts_matrix_global": 1, "min_sum_tri": 1}
+        "counts_matrix": 1, "counts_matrix_global": 1, "min_sum_tri": 1, "finish_upper": 1}
     assert fired(midk["(g) k=10 stream"]) == fired(midk[chip_smoke.MIDK_STREAM_OFF]) == {
-        "counts_matrix": 1, "counts_matrix_global": 1, "min_sum_rect": 1}
+        "counts_matrix": 1, "counts_matrix_global": 1, "min_sum_rect": 1, "finish_upper": 1}
     assert not list(tmp_path.iterdir())
 
 
@@ -701,9 +709,10 @@ def test_cli_path_rehearsal(records, tmp_path, monkeypatch, counted_plain_versio
     assert fired(chip_smoke.CLI_MAIN) == {"encode_packed": 1}
     assert fired("kmer-gpu count --k 3") == {"hist_packed_small": 1}
     assert fired("kmer-gpu count --k 8 --canonical") == {"hist_planes": 1}
-    assert fired("kmer-gpu distance --k 3") == {"counts_matrix": 1, "min_sum_tri": 1}
+    assert fired("kmer-gpu distance --k 3") == {
+        "counts_matrix": 1, "min_sum_tri": 1, "finish_upper": 1}
     assert fired("kmer-gpu distance --k 3 --stream-panel 8 --checkpoint") == {
-        "counts_matrix": 2, "min_sum_rect": 4}
+        "counts_matrix": 2, "min_sum_rect": 4, "finish_upper": 4}
     assert fired("kmer-gpu distance --k 21") == {}  # the CPU: the host route
     assert sorted(p.name for p in work.iterdir()) == ["cal"]
 
@@ -776,10 +785,12 @@ def test_mesh_distance_rehearsal(tmp_path, monkeypatch, counted_plain_versions,
     names = list(fired)
     assert len(names) == 9
     for i, D in ((0, chip_smoke.MESH_D), (3, chip_smoke.MESH_D_ODD)):
-        assert fired[names[i]] == fired[names[i + 1]] == {"counts_matrix": 1, "min_sum_rect": D}
+        assert fired[names[i]] == fired[names[i + 1]] == {
+            "counts_matrix": 1, "min_sum_rect": D, "finish_upper": 1}
         assert fired[names[i + 2]] == {"min_sum_rect": D * 5}  # 40 reads, panels of 8
     assert fired[names[6]] == fired[names[7]] == {"encode_packed": chip_smoke.MESH_D}
-    assert fired[names[8]] == {"counts_matrix": 1, "min_sum_rect": chip_smoke.MESH_D}
+    assert fired[names[8]] == {
+        "counts_matrix": 1, "min_sum_rect": chip_smoke.MESH_D, "finish_upper": 1}
     assert not list(work.iterdir())
 
 
@@ -824,7 +835,8 @@ def test_multihost_rehearsal(records, tmp_path, monkeypatch, counted_plain_versi
     assert fired[names[2]] == {"hist_u8_small": n - chip_smoke.MULTIHOST_STOP_STEPS}
     assert fired[names[3]] == {"encode_packed_minimizer": steps}
     assert fired[names[4]] == {"encode_packed": steps}
-    assert fired[names[5]] == {"counts_matrix": 1, "min_sum_rect": 2}  # 29 rows, panels of 16
+    assert fired[names[5]] == {  # 29 rows, panels of 16
+        "counts_matrix": 1, "min_sum_rect": 2, "finish_upper": 2}
     assert fired[names[6]] == {}  # the CPU takes the host route at k=21
     assert len(names) == 7 + 2 * 5 and not any(fired[name] for name in names[7:])
     assert all("rank 0" in name or "rank 1" in name for name in names[7:])

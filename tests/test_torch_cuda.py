@@ -1,8 +1,8 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
 the card: K1 (encode) and its minimizer plane K1m, K2 (counts matrix), K3
-and K4 ((min,+) products), K5-K8 (dense histograms), K9 (u8 encode), K10
-(owner segments), P1 (row roll) and K11 (row sort); and the paths that
-run them.
+and K4 ((min,+) products), the float32 distance finish, K5-K8 (dense
+histograms), K9 (u8 encode), K10 (owner segments), P1 (row roll) and K11
+(row sort); and the paths that run them.
 Every test here needs an NVIDIA card and skips without one.
 
 The file imports no JAX, so it also runs where JAX is not installed (as on
@@ -31,6 +31,7 @@ from dna_kmeres_parallel_tpu_torch.utils import codec
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
+from test_torch_finish import LAYOUTS, SIZES, assert_same_bits, finish_case  # noqa: E402
 
 KS = [1, 11, 13, 15, 16, 21, 23, 24, 31]
 
@@ -1526,3 +1527,121 @@ def test_stream_mesh_and_super_on_card(cuda_device, tmp_path):
         else:
             assert np.array_equal(got.codes, want.codes)
             assert np.array_equal(got.counts, want.counts)
+
+
+def finish_on_card(sums, lr, lc, k, r0, base, dev):
+    """The finish entry on the card over NumPy inputs, and the launches it
+    made."""
+    launches = distance_cuda.FINISH_LAUNCHES
+    got = distance_cuda.finish_upper_packed(
+        torch.as_tensor(sums).to(dev), torch.from_numpy(lr).to(dev),
+        torch.from_numpy(lc).to(dev), k, r0, base)
+    torch.cuda.synchronize()
+    assert got.is_cuda and got.dtype == torch.float32
+    return got.cpu().numpy(), distance_cuda.FINISH_LAUNCHES - launches
+
+
+def plain_finish(sums, lr, lc, k, r0, base) -> np.ndarray:
+    return distance.finish_upper_plain(torch.as_tensor(sums), torch.from_numpy(lr),
+                                       torch.from_numpy(lc), k, r0, base).numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 21])
+@pytest.mark.parametrize("lengths", ["short", "huge"])
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+@pytest.mark.parametrize("S", [*SIZES, 3000])
+def test_finish_kernel_matches_plain(cuda_device, S, layout, lengths, k):
+    sums, lr, lc, r0, base = finish_case(S, layout, lengths, k)
+    want = plain_finish(sums, lr, lc, k, r0, base)
+    got, launches = finish_on_card(sums, lr, lc, k, r0, base, cuda_device)
+    assert launches == (1 if want.size else 0)
+    assert_same_bits(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset,pad", [(1, 0), (2, 3), (3, 1), (0, 5), (0, 4)])
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_finish_kernel_unaligned_row_stride(cuda_device, layout, offset, pad):
+    """Rows that lie apart (the mesh's sliced square) at every alignment
+    of the input against the output."""
+    sums, lr, lc, r0, base = finish_case(300, layout, "short", 3)
+    R, C = sums.shape
+    flat = torch.full((offset + R * (C + pad) + 8,), -1, dtype=torch.int32, device=cuda_device)
+    view = flat[offset : offset + R * (C + pad)].view(R, C + pad)[:, :C]
+    view.copy_(torch.from_numpy(sums))
+    got, launches = finish_on_card(view, lr, lc, 3, r0, base, cuda_device)
+    assert launches == 1
+    assert_same_bits(got, plain_finish(sums, lr, lc, 3, r0, base))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("base", [0, 30000, 54019])
+def test_finish_kernel_at_the_cells_rows(cuda_device, base):
+    """Random sums [54,018, 64]: the cell's record count as rows; at base
+    54,019 every row keeps all 64 columns."""
+    rng = np.random.default_rng(54018)
+    sums = rng.integers(0, 3000, (54018, 64)).astype(np.int32)
+    lr = rng.integers(1000, 2001, 54018)
+    lc = rng.integers(1000, 2001, 64)
+    lc[:2] = [2, 1 << 30]
+    got, launches = finish_on_card(sums, lr, lc, 3, 0, base, cuda_device)
+    assert launches == 1
+    assert_same_bits(got, plain_finish(sums, lr, lc, 3, 0, base))
+
+
+def short_records(n: int = 41, seed: int = 21) -> list[str]:
+    """Seeded records of 0-600 bases, 2% N, with records of k - 1 = 2
+    bases (no 3-mer: NaN against each other and longer ones) and fewer."""
+    rng = np.random.default_rng(seed)
+    alphabet = np.array(list("ACGTN"))
+    seqs = ["".join(alphabet[rng.choice(5, size=m, p=[0.245] * 4 + [0.02])])
+            for m in rng.integers(0, 601, n)]
+    return seqs + ["AC", "GT", "A", ""]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["minplus", "threshold", "mesh"])
+def test_distance_file_on_card_finishes_there(cuda_device, tmp_path, route):
+    """``distance_file`` on the card equals its CPU route bit for bit, on
+    each product route (the mesh's square is a strided slice); the finish
+    is the kernel's device span, one launch a call."""
+    from dna_kmeres_parallel_tpu_torch import KmerConfig
+
+    seqs = short_records()
+    path = tmp_path / "in.fasta"
+    path.write_text("".join(f">r{i}\n{s}\n" for i, s in enumerate(seqs)))
+    cfg = KmerConfig(k=3, mesh_shape=(3,) if route == "mesh" else ())
+    kw = {"threshold": "on" if route == "threshold" else "off"}
+    want = engine.KmerEngine(cfg, device="cpu", **kw).distance_file(str(path))
+    eng = engine.KmerEngine(cfg, device=cuda_device, **kw)
+    for _ in range(2):
+        launches = distance_cuda.FINISH_LAUNCHES
+        got = eng.distance_file(str(path))
+        assert distance_cuda.FINISH_LAUNCHES == launches + 1
+        assert got.phases["finish"] > 0
+        assert got.route == ("threshold" if route == "threshold" else "minplus")
+        assert np.array_equal(got.counts, want.counts)
+        assert_same_bits(got.packed, want.packed)
+    assert np.isnan(want.packed).any()
+
+
+@pytest.mark.cuda
+def test_dense_csv_stream_on_card_is_the_references_csv(cuda_device, tmp_path):
+    """The dense CSV stream's panels, finished by the kernel, are byte for
+    byte the CSV of the port's NumPy oracle, with records shorter than k."""
+    from dna_kmeres_parallel_tpu_torch import KmerConfig
+    from dna_kmeres_parallel_tpu_torch.models import oracle
+    from dna_kmeres_parallel_tpu_torch.utils import io
+
+    seqs = short_records()
+    launches = distance_cuda.FINISH_LAUNCHES
+    eng = engine.KmerEngine(KmerConfig(k=3), device=cuda_device)
+    res = eng.distance_stream_to_csv(seqs, tmp_path / "card.csv", panel_rows=8)
+    panels = -(-(len(seqs) - 1) // 8)
+    assert distance_cuda.FINISH_LAUNCHES == launches + panels
+    assert res["completed"] and res["phases"]["finish"] > 0
+    io.write_distances_csv(tmp_path / "ref.csv", oracle.distance_matrix_packed(seqs, 3))
+    data = (tmp_path / "card.csv").read_bytes()
+    assert b"-nan" in data
+    assert data == (tmp_path / "ref.csv").read_bytes()

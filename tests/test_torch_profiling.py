@@ -224,9 +224,14 @@ def test_distance_copy_counts_the_results_bytes(fasta, k):
     assert len(copies) == 1
     S = res.n
     assert res.counts.nbytes == S * 4**k * 4
-    assert copies[0]["counters"] == {"bytes": S * S * 4 + res.counts.nbytes}
+    # the packed float32 triangle, finished on the counts' device, and the
+    # counts: the [S, S] min-sums stay where the product left them
+    assert res.packed.nbytes == S * (S - 1) // 2 * 4
+    assert copies[0]["counters"] == {"bytes": res.packed.nbytes + res.counts.nbytes}
     names = [r["name"] for r in profiling.records()]
-    assert names == ["parse", "d2h.wait", "d2h.copy", "d2h", "finish", "distance_file"]
+    assert names == ["parse", "finish", "d2h.wait", "d2h.copy", "d2h", "distance_file"]
+    finish = next(r for r in profiling.records() if r["name"] == "finish")
+    assert finish["parent"] == "d2h" and finish["counters"] == {"device_pairs": 0}
 
 
 def test_trace_writes_the_blocks_spans(tmp_path):
