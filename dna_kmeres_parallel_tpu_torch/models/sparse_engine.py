@@ -331,11 +331,13 @@ class SparseKmerEngine:
                         phases[name] += seconds
                         device_s += seconds
                 phases["d2h"] -= device_s
-                with span("compact", phases):
+                with span("compact", phases) as compact:
                     if cfg.device_sort:
                         table = compact_table(host)
                     else:
                         table = compact_unsorted(host, cfg.k)
+                    compact.count("words", host[0].size)
+                    compact.count("rows", table[0].size)
                 with span("merge", phases):
                     ladder.push(table)
             with span("merge", phases):
@@ -365,8 +367,10 @@ class SparseKmerEngine:
             if cfg.parser_variant == "modern" and isinstance(
                 source, (str, os.PathLike)
             ):
-                with span("parse", parse):
+                with span("parse", parse) as parse_span:
                     parsed = native.parse_fasta_native(source, max_seqs=cfg.max_seqs)
+                    parse_span.count("records", parsed.n_seqs)
+                    parse_span.count("bytes", os.path.getsize(source))
                 res = self.count_stream(
                     parsed.stream, parsed.total_bases, parsed.n_seqs
                 )

@@ -14,7 +14,8 @@ sparse counter (one stream, or per-record tables of many records), the
 k-way merge of sorted (code, count) tables, the pairwise min-sums of
 per-sequence sorted tables (the sparse distance path's two-pointer) and
 the ``%f`` CSV formatter. Nothing falls back: a failed build raises with the
-compiler's output.
+compiler's output. Loading the library has glibc keep freed memory in its
+heap (``keep_freed_memory``), so the host routes reuse pages they faulted.
 """
 
 from __future__ import annotations
@@ -104,10 +105,39 @@ def build() -> Path:
     return so
 
 
+#: mallopt(3)'s parameters, as glibc's malloc.h numbers them
+M_TRIM_THRESHOLD, M_MMAP_MAX = -1, -4
+
+
+def keep_freed_memory() -> bool:
+    """Have the C library serve large blocks from its heap and keep what
+    is freed there (mallopt(3): ``M_MMAP_MAX`` 0, ``M_TRIM_THRESHOLD``
+    -1), instead of mapping each block afresh and unmapping it on free.
+
+    The sparse counter's arrays of a batch (the copied window words, the
+    compactor's scratch and table, each merged table) are tens to hundreds
+    of MB, as are the parse's. Mapped afresh, each faults its pages in
+    again, on the compactor's threads at once: a 255 Mbase call spent more
+    system time than wall time, and its pace moved with the host's load.
+    Kept, a count reuses pages its earlier batches and calls faulted in;
+    the process's resident size stays at its peak. Returns whether the C
+    library took both settings (False where it has no ``mallopt``)."""
+    try:
+        mallopt = ctypes.CDLL(None).mallopt
+    except (OSError, AttributeError):
+        return False
+    mallopt.restype = ctypes.c_int
+    mallopt.argtypes = [ctypes.c_int, ctypes.c_int]
+    return bool(mallopt(M_MMAP_MAX, 0)) & bool(mallopt(M_TRIM_THRESHOLD, -1))
+
+
 @functools.cache
 def load() -> ctypes.CDLL:
-    """The built library, with every entry point's C signature declared."""
+    """The built library, with every entry point's C signature declared.
+    Loading it also keeps freed memory in the heap (``keep_freed_memory``)
+    for the host routes that call it."""
     lib = ctypes.CDLL(str(build()))
+    keep_freed_memory()
     vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.kp_parse_fasta_range.restype = ci
     lib.kp_parse_fasta_range.argtypes = [
@@ -405,8 +435,9 @@ def compact_unsorted_native(
     n = lo.shape[0]
     hi_ptr = None if hi is None else _ptr(hi)
     cap = lib.kp_count_valid(hi_ptr, hi_width, _ptr(lo), n, kbits)
-    out_code = np.zeros(cap, dtype=np.uint64)
-    out_cnt = np.zeros(cap, dtype=np.int64)
+    # uncleared: the compactor writes the first w entries, the rest is unread
+    out_code = np.empty(cap, dtype=np.uint64)
+    out_cnt = np.empty(cap, dtype=np.int64)
     w = lib.kp_compact_unsorted(
         hi_ptr, hi_width, _ptr(lo), n, kbits, _ptr(out_code), _ptr(out_cnt)
     )
@@ -468,8 +499,9 @@ def _merge(tables):
         codes = [np.ascontiguousarray(t[0], dtype=np.uint64) for t in tables]
         cnts = [np.ascontiguousarray(t[1], dtype=np.int64) for t in tables]
         lens = np.array([c.shape[0] for c in codes], dtype=np.int64)
-        out_code = np.zeros(int(lens.sum()), dtype=np.uint64)
-        out_cnt = np.zeros(int(lens.sum()), dtype=np.int64)
+        # uncleared: the merge writes the first w entries, the rest is unread
+        out_code = np.empty(int(lens.sum()), dtype=np.uint64)
+        out_cnt = np.empty(int(lens.sum()), dtype=np.int64)
         code_ptrs = np.array([_ptr(c) for c in codes], dtype=np.uint64)
         cnt_ptrs = np.array([_ptr(c) for c in cnts], dtype=np.uint64)
         w = lib.kp_merge_tables(

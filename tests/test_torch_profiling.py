@@ -4,7 +4,8 @@ nothing and opens no range; under ``torch.profiler`` its records nest
 under one call id and its ranges reach the exported trace; the log is
 bounded; the engines keep their ``phases`` keys; and the counters the
 benchmark reads count what they say (``merge.pair`` rows, ``d2h.copy``
-bytes, the root's rows)."""
+bytes, the root's rows, the parse's records and file bytes, each
+compaction's words and rows)."""
 
 import collections
 import json
@@ -214,6 +215,45 @@ def test_sparse_count_spans(fasta):
     copies = [r["counters"]["bytes"] for r in recs if r["name"] == "d2h.copy"]
     assert copies == [T * (4 + 2)] * batches
     assert next(r for r in recs if r["parent"] is None)["counters"] == {"rows": res.codes.size}
+
+
+@pytest.mark.parametrize("fmt", ["fasta", "fastq"])
+def test_sparse_parse_counts_records_and_file_bytes(tmp_path, fmt):
+    path = tmp_path / f"in.{fmt}"
+    if fmt == "fasta":
+        path.write_text("".join(f">r{i}\n{s}\n" for i, s in enumerate(seqs())))
+    else:  # quality lines that begin with '@' and '+'
+        path.write_text("".join(f"@r{i}\n{s}\n+\n{'@+' + 'I' * (len(s) - 2)}\n"
+                                for i, s in enumerate(seqs())))
+    with recorded():
+        port.count_file(path, k=21, device="cpu")
+    (parse,) = [r for r in profiling.records() if r["name"] == "parse"]
+    assert parse["counters"] == {"records": 12, "bytes": path.stat().st_size}
+
+
+@pytest.mark.parametrize("k, repeats", [(21, 1), (21, 3), (10, 1)])
+def test_sparse_compact_counts_words_and_rows(tmp_path, k, repeats):
+    # every window of these reads is distinct, so a batch table holds one
+    # row a valid window, unless the reads repeat inside the batch; k=10
+    # counts on the sparse counter and densifies
+    reads = [s for s in seqs() for _ in range(repeats)]
+    path = tmp_path / "in.fasta"
+    path.write_text("".join(f">r{i}\n{s}\n" for i, s in enumerate(reads)))
+    with recorded():
+        res = port.count_file(path, k=k, device="cpu", batch_bases=2048)
+    compacts = [r["counters"] for r in profiling.records() if r["name"] == "compact"]
+    total = sum(len(s) + 1 for s in reads) - 1
+    _, T = engine.batch_plan(total, k, 2048)
+    assert len(compacts) == -(-total // 2048) > 1
+    assert [c["words"] for c in compacts] == [T] * len(compacts)
+    windows = sum(len(s) - k + 1 for s in reads)
+    rows = sum(c["rows"] for c in compacts)
+    if k == 10:
+        assert 0 < rows <= windows
+    elif repeats == 1:
+        assert rows == windows == res.counts.sum() == res.codes.size
+    else:  # repeats fold inside a batch table; the merge folds the rest
+        assert res.distinct_kmers <= rows < windows
 
 
 @pytest.mark.parametrize("k", [2, 3])
