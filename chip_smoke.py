@@ -26,11 +26,17 @@ exits nonzero:
    streams shorter than k and unaligned, and timed at the k=21 batch;
 4. the main path: exact k-mer counting of a seeded random FASTA of
    ``--bases`` bases (default 256 Mbase, about one large human
-   chromosome) through ``count_file`` and ``SparseKmerEngine``. Each table
+   chromosome) through ``count_file`` and ``SparseKmerEngine``, each on
+   the card's table build (the default; the route each call took is
+   printed) and on the host's (``device_sort=False``), the two tables bit
+   for bit. Each table
    is checked code for code and count for count against a plain reference
    that shares no code with the port: every window of the generated
    records encoded in int64 on the card, then ``torch.unique``. The
-   kernel's launch count is checked against the batch count. Then the
+   kernel's launch count is checked against the batch count. The card's
+   build is timed step by step at each run's size (``torch.sort``,
+   ``sparse.rle_keys``, the rows' copy) and its device peak held to the
+   gate's ``card_table_bytes``. Then the
    dense path on the same file: ``count_file`` at k=3 (K7 from the packed
    batch, and no ``unpack_stream`` on the card), canonical k=6 and k=8
    (K5), and with
@@ -593,7 +599,78 @@ def cached(refs: dict, key: tuple, make):
     return refs[key]
 
 
+def time_card_table(stream, k: int, canonical: bool, dev, ref, card: str) -> dict:
+    """The card's table build of ``SparseKmerEngine`` at the main path's
+    size, step by step: the call's keys (every valid window's reference
+    code as its sort key, the sentinels after them) sorted by
+    ``torch.sort``, run-length by ``sparse.rle_keys``, both timed by CUDA
+    events, then the distinct rows copied by ``sparse_engine.fetch_table``
+    (host clock), the table held to the reference. Twice: the first build
+    also grows the allocator's pool. The build's device peak, the key
+    buffer included, is held to ``card_table_bytes``, which the gate
+    reserves (on the card; the CPU rehearses the steps)."""
+    import numpy as np
+    import torch
+
+    from dna_kmeres_parallel_tpu_torch.models.sparse_engine import (
+        card_table_bytes,
+        fetch_table,
+    )
+    from dna_kmeres_parallel_tpu_torch.ops import runtime
+    from dna_kmeres_parallel_tpu_torch.ops import sparse as sparse_ops
+
+    dtype = sparse_ops.key_dtype(k)
+    n = stream.size
+    key_bytes = n * dtype.itemsize
+    cuda = dev.type == "cuda"  # the CPU rehearses the steps, with no peak
+    out = {}
+    for rep in range(2):
+        codes = torch.cat(list(reference_codes(stream, k, canonical, dev)))
+        keys = torch.full((n,), sparse_ops.key_sentinel(dtype), dtype=dtype, device=dev)
+        keys[: codes.numel()] = codes if dtype == torch.int64 else (codes - (1 << 31)).to(dtype)
+        del codes
+        if cuda:
+            torch.cuda.synchronize(dev)
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        m0 = runtime.mark(dev)
+        ordered = torch.sort(keys).values
+        del keys
+        m1 = runtime.mark(dev)
+        (keys_c,), runs, n_distinct = sparse_ops.rle_keys(ordered)
+        del ordered
+        m2 = runtime.mark(dev)
+        rows = int(n_distinct)
+        peak = torch.cuda.max_memory_allocated(dev) - base + key_bytes if cuda else 0
+        t = time.perf_counter()
+        codes_h, counts_h = fetch_table(keys_c, runs, rows)
+        copy_s = time.perf_counter() - t
+        del keys_c, runs
+        if not (np.array_equal(codes_h, ref[0]) and np.array_equal(counts_h, ref[1])):
+            raise AssertionError(f"card table k={k}: differs from the reference")
+        need = card_table_bytes(n, dtype.itemsize)
+        if peak > need:
+            raise AssertionError(f"card table k={k}: device peak {peak} B over the gate's "
+                                 f"{need} B")
+        out = {"sort_ms": runtime.span_s(m0, m1) * 1e3, "rle_ms": runtime.span_s(m1, m2) * 1e3,
+               "copy_s": copy_s, "rows": rows, "peak_bytes": peak,
+               "peak_per_window": peak / n, "gate_per_window": need / n}
+        log(f"card table k={k}{' canonical' if canonical else ''} ({n} windows, "
+            f"{dtype} keys), build {rep + 1}: torch.sort {out['sort_ms']:.3f} ms, "
+            f"rle_keys {out['rle_ms']:.3f} ms, copy of {rows} rows "
+            f"{copy_s * 1e3:.3f} ms ({rows * 16 / max(copy_s, 1e-9) / 1e9:.3f} GB/s); "
+            f"device peak {peak} B = {peak / n:.2f} B a window, {peak / key_bytes:.2f}x "
+            f"the keys (gate {need / n:.0f} B a window) [{card}]")
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
 def phase_main_path(records, path: Path, dev, card: str, refs: dict | None = None) -> int:
+    """Each count run on the card's table build (the default) and on the
+    host's (``device_sort=False``) in turn: the route each call took, both
+    tables bit for bit against each other and the reference, and the
+    card's build timed step by step (``time_card_table``)."""
     import numpy as np
     import torch
 
@@ -608,12 +685,12 @@ def phase_main_path(records, path: Path, dev, card: str, refs: dict | None = Non
     refs = {} if refs is None else refs
     runs = [
         ("count_file(k=21)", 21, False,
-         lambda: port.count_file(str(path), k=21, device=dev)),
+         lambda **kw: port.count_file(str(path), k=21, device=dev, **kw)),
         ("SparseKmerEngine(k=21, canonical)", 21, True,
-         lambda: SparseKmerEngine(KmerConfig(k=21, canonical=True), device=dev)
+         lambda **kw: SparseKmerEngine(KmerConfig(k=21, canonical=True, **kw), device=dev)
          .count_file(str(path))),
         ("SparseKmerEngine(k=11, canonical)", 11, True,
-         lambda: SparseKmerEngine(KmerConfig(k=11, canonical=True), device=dev)
+         lambda **kw: SparseKmerEngine(KmerConfig(k=11, canonical=True, **kw), device=dev)
          .count_file(str(path))),
     ]
     main_launches = None
@@ -626,35 +703,50 @@ def phase_main_path(records, path: Path, dev, card: str, refs: dict | None = Non
         ref_s = time.perf_counter() - t
         batch, _ = batch_plan(stream.size, k, KmerConfig().batch_bases)
         n_batches = math.ceil(stream.size / batch)
-        reset_launches()
-        t = time.perf_counter()
-        res = run()
-        wall = time.perf_counter() - t
-        got = read_launches()
-        launches = got["encode_packed"]
-        if any(got[n] for n in got if n != "encode_packed"):
-            raise AssertionError(f"{name}: other kernels launched: {got}")
-        if (res.n_seqs, res.total_bases) != (lengths.size, int(lengths.sum())):
-            raise AssertionError(
-                f"{name}: {res.n_seqs} records of {res.total_bases} bases parsed"
-            )
-        if not (
-            np.array_equal(res.codes, ref_codes)
-            and np.array_equal(res.counts, ref_counts)
-        ):
-            raise AssertionError(f"{name}: table differs from the reference")
-        if launches != n_batches:
-            raise AssertionError(
-                f"{name}: {launches} kernel launches for {n_batches} batches"
-            )
-        if main_launches is None:  # the first run is the main path's
-            main_launches = launches
-        phases = " ".join(f"{p}={s:.3f}" for p, s in res.phases.items())
-        log(f"{name}: {res.distinct_kmers} distinct, {res.total_kmers} k-mers, "
-            f"equal to the reference ({ref_s:.2f} s); "
-            f"{launches} launches for {n_batches} batches; "
-            f"wall {wall:.3f} s, {res.total_bases / wall / 1e9:.4f} Gbase/s; "
-            f"phases s: {phases} [{card}]")
+        tables = []
+        for route, kw in (("card", {}), ("host", {"device_sort": False})):
+            reset_launches()
+            t = time.perf_counter()
+            res = run(**kw)
+            wall = time.perf_counter() - t
+            got = read_launches()
+            launches = got["encode_packed"]
+            if any(got[n] for n in got if n != "encode_packed"):
+                raise AssertionError(f"{name}: other kernels launched: {got}")
+            if res.table_on_card != (route == "card"):
+                raise AssertionError(f"{name}, {route} route: table_on_card "
+                                     f"{res.table_on_card}")
+            if (res.n_seqs, res.total_bases) != (lengths.size, int(lengths.sum())):
+                raise AssertionError(
+                    f"{name}: {res.n_seqs} records of {res.total_bases} bases parsed"
+                )
+            if not (
+                np.array_equal(res.codes, ref_codes)
+                and np.array_equal(res.counts, ref_counts)
+            ):
+                raise AssertionError(f"{name}, {route} route: table differs from the reference")
+            if launches != n_batches:
+                raise AssertionError(
+                    f"{name}: {launches} kernel launches for {n_batches} batches"
+                )
+            if main_launches is None:  # the first run is the main path's
+                main_launches = launches
+            tables.append(res)
+            phases = " ".join(f"{p}={s:.3f}" for p, s in res.phases.items())
+            log(f"{name}, table built on the {route} (table_on_card={res.table_on_card}): "
+                f"{res.distinct_kmers} distinct, {res.total_kmers} k-mers, "
+                f"equal to the reference ({ref_s:.2f} s); "
+                f"{launches} launches for {n_batches} batches; "
+                f"wall {wall:.3f} s, {res.total_bases / wall / 1e9:.4f} Gbase/s; "
+                f"phases s: {phases} [{card}]")
+            del res
+        card_res, host_res = tables
+        if not (card_res.codes.tobytes() == host_res.codes.tobytes()
+                and card_res.counts.tobytes() == host_res.counts.tobytes()):
+            raise AssertionError(f"{name}: the card's table differs from the host's")
+        log(f"{name}: the card's table equals the host's bit for bit [{card}]")
+        del tables, card_res, host_res
+        time_card_table(stream, k, canonical, dev, (ref_codes, ref_counts), card)
     return main_launches
 
 

@@ -1,13 +1,19 @@
-"""Sparse (sorted-table) k-mer counting: encode on the device, compact on
-the host.
+"""Sparse (sorted-table) k-mer counting: encode on the device, build the
+table on the card where it fits, else on the host.
 
 The port of ``dna_kmeres_parallel_tpu/models/sparse_engine.py``'s
 single-host counting route. Each batch of the flat base stream (plus a
 k-1 base halo) is staged on the host (u32 planes with ``pack_input``, the
-padded u8 bases without it), encoded into split window words on the
-device (K1 from planes, K9 from bases), copied back, and turned into a
-sorted (code, count) table by the native MSD+LSD radix compactor; a merge
-ladder folds the batch tables into one. Counts are exact integers.
+padded u8 bases without it) and encoded into split window words on the
+device (K1 from planes, K9 from bases). With ``device_sort=None`` (the
+default) on a card whose free memory holds the call's windows
+(``card_table_fits``), each batch's owned windows become sort keys in one
+buffer of the call on the card; after the last batch one ``torch.sort``
+and a run-length (``sparse.rle_keys``) build the sorted (code, count)
+table there, and only its distinct rows are copied to the host. Every
+other call copies each batch's words back, turns them into a table by the
+native MSD+LSD radix compactor, and folds the batch tables into one by a
+merge ladder. Counts are exact integers either way.
 
 With ``device_sort=True`` the device also sorts each batch's words:
 ``sort_row_len`` rows sorted independently (K11 for single-word keys
@@ -157,6 +163,46 @@ def table_from_rle(words_c, counts, n_distinct) -> tuple[np.ndarray, np.ndarray]
     return sparse_ops.merged_code64(*planes), cnt
 
 
+def fetch_table(keys_c, runs, rows: int) -> tuple[np.ndarray, np.ndarray]:
+    """The first ``rows`` entries of ``sparse.rle_keys``' output (distinct
+    keys, int32 counts) -> the host table (codes_u64, counts_i64), each
+    converted on the device and copied once: the span ``d2h.copy``
+    (counter ``bytes``)."""
+    with span("d2h.copy") as copy:
+        codes = sparse_ops.codes_of_keys(keys_c[:rows]).cpu().numpy().view(np.uint64)
+        counts = runs[:rows].to(torch.int64).cpu().numpy()
+        copy.count("bytes", codes.nbytes + counts.nbytes)
+    return codes, counts
+
+
+#: the device bytes a window that the card's table build reserves: copies
+#: of the window's key and of an 8-byte word (the sort's int64 indices,
+#: the run-length's positions). Its peak, the call's key buffer included,
+#: measured 48.22 B a window with int64 keys and 37.00 with int32 ones at
+#: 257.5 M windows on an H100 (PERF.md, section 6); this reserves 56 and 44
+CARD_TABLE_KEY_COPIES = 3
+CARD_TABLE_INDEX_COPIES = 4
+
+
+def card_table_bytes(windows: int, key_bytes: int) -> int:
+    """The device memory ``SparseKmerEngine``'s table build on the card
+    needs for a call of ``windows`` windows whose keys take ``key_bytes``
+    bytes each."""
+    return windows * (CARD_TABLE_KEY_COPIES * key_bytes + CARD_TABLE_INDEX_COPIES * 8)
+
+
+def card_table_fits(device: torch.device, windows: int, key_bytes: int) -> bool:
+    """Whether the card builds a call's table: the device is a card, the
+    call has fewer than 2^31 windows (the run-length's positions are
+    int32), and the card's free memory, with what PyTorch's allocator
+    holds unused, takes ``card_table_bytes``."""
+    if device.type != "cuda" or windows >= 1 << 31:
+        return False
+    free, _ = torch.cuda.mem_get_info(device)
+    free += torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    return free >= card_table_bytes(windows, key_bytes)
+
+
 def merge_sparse_tables(
     tables: list[tuple[np.ndarray, np.ndarray]]
 ) -> tuple[np.ndarray, np.ndarray]:
@@ -231,11 +277,17 @@ class SparseCountResult:
     total_bases: int
     elapsed_s: float = 0.0
     #: seconds per phase (PHASES), summed over batches. On the card h2d,
-    #: kernel (the encode) and sort (the device sort, 0 without
-    #: ``device_sort``) are device-timeline spans (CUDA events), and d2h is
-    #: the rest of the host wall from the end of staging to the words'
-    #: arrival on the host; the other phases are host-clock spans.
+    #: kernel (the encode) and sort (the device sort: each batch's with
+    #: ``device_sort``, the call's keys' on the card route, else 0) are
+    #: device-timeline spans (CUDA events), and d2h is the rest of the host
+    #: wall from the end of staging to the words' arrival on the host (on
+    #: the card route: of the batches' ships and the table's copy); the
+    #: other phases are host-clock spans (compact, on the card route, less
+    #: the sort).
     phases: dict[str, float] = field(default_factory=dict)
+    #: whether the card built the table from the call's keys (one sort
+    #: and run-length), not the host from per-batch tables
+    table_on_card: bool = False
 
     @property
     def total_kmers(self) -> int:
@@ -293,55 +345,24 @@ class SparseKmerEngine:
     def count_stream(
         self, flat: np.ndarray, total_bases: int, n_seqs: int
     ) -> SparseCountResult:
+        """Count a flat base stream (u8 codes, one 0xFF between records)
+        into the sorted table. With ``device_sort=None`` on a card whose
+        free memory holds the call's keys (``card_table_fits``) the card
+        builds the table (``_table_on_card``); every other call builds it
+        on the host from per-batch tables (``_table_on_host``)."""
         cfg = self.config
-        dev = self.device
         t_start = time.perf_counter()
         phases = dict.fromkeys(PHASES, 0.0)
         codes = np.zeros(0, np.uint64)
         counts = np.zeros(0, np.int64)
         total = flat.shape[0]
+        on_card = False
         if total >= cfg.k:
-            batch, T = batch_plan(total, cfg.k, cfg.batch_bases)
-            ladder = MergeLadder()
-            for start in range(0, total, batch):
-                with span("staging", phases):
-                    end = min(start + batch, total)
-                    seg = flat[start : min(end + cfg.k - 1, total)]
-                    padded = np.full(T, codec.INVALID_BASE, dtype=np.uint8)
-                    padded[: seg.shape[0]] = seg
-                    host = stage_words(padded, cfg.pack_input)
-                # d2h: the host wall from here to the words' arrival, less
-                # the device phases it spans
-                with span("d2h", phases):
-                    m0 = runtime.mark(dev)
-                    staged = tuple(host_to_device(a, dev) for a in host)
-                    m1 = runtime.mark(dev)
-                    words = encode_staged(staged, end - start, cfg.k, cfg.canonical)
-                    m2 = runtime.mark(dev)
-                    if cfg.device_sort:
-                        words = sparse_ops.sort_encoded(
-                            words, end - start, cfg.sort_row_len, self.pallas_sort
-                        )
-                    m3 = runtime.mark(dev)
-                    host = fetch_words(words, m3)
-                    del words
-                    device_s = 0.0
-                    for name, a, b in (("h2d", m0, m1), ("kernel", m1, m2), ("sort", m2, m3)):
-                        seconds = runtime.span_s(a, b)
-                        phases[name] += seconds
-                        device_s += seconds
-                phases["d2h"] -= device_s
-                with span("compact", phases) as compact:
-                    if cfg.device_sort:
-                        table = compact_table(host)
-                    else:
-                        table = compact_unsorted(host, cfg.k)
-                    compact.count("words", host[0].size)
-                    compact.count("rows", table[0].size)
-                with span("merge", phases):
-                    ladder.push(table)
-            with span("merge", phases):
-                codes, counts = ladder.result()
+            on_card = cfg.device_sort is None and card_table_fits(
+                self.device, total, sparse_ops.key_dtype(cfg.k).itemsize
+            )
+            build = self._table_on_card if on_card else self._table_on_host
+            codes, counts = build(flat, phases)
         return SparseCountResult(
             k=cfg.k,
             canonical=cfg.canonical,
@@ -351,13 +372,117 @@ class SparseKmerEngine:
             total_bases=total_bases,
             elapsed_s=time.perf_counter() - t_start,
             phases=phases,
+            table_on_card=on_card,
         )
+
+    def _staged_batches(self, flat: np.ndarray, phases: dict):
+        """(start, end, staged host arrays) of each batch: it owns the
+        windows that start in [start, end) and reads k-1 halo bases past
+        it, padded with 0xFF to the batch length (the ``staging`` span)."""
+        cfg = self.config
+        total = flat.shape[0]
+        batch, T = batch_plan(total, cfg.k, cfg.batch_bases)
+        for start in range(0, total, batch):
+            with span("staging", phases):
+                end = min(start + batch, total)
+                seg = flat[start : min(end + cfg.k - 1, total)]
+                padded = np.full(T, codec.INVALID_BASE, dtype=np.uint8)
+                padded[: seg.shape[0]] = seg
+                host = stage_words(padded, cfg.pack_input)
+            yield start, end, host
+
+    def _ship(self, host: tuple, n_own: int):
+        """A staged batch copied to the device and encoded there: (the
+        word tuple, device marks before the copy, after it and after the
+        encode)."""
+        cfg, dev = self.config, self.device
+        m0 = runtime.mark(dev)
+        staged = tuple(host_to_device(a, dev) for a in host)
+        m1 = runtime.mark(dev)
+        words = encode_staged(staged, n_own, cfg.k, cfg.canonical)
+        return words, (m0, m1, runtime.mark(dev))
+
+    def _table_on_host(self, flat: np.ndarray, phases: dict):
+        """Each batch's words (sorted on the device with ``device_sort``)
+        copied to the host and compacted there into a table, the tables
+        merged by a ``MergeLadder``."""
+        cfg, dev = self.config, self.device
+        ladder = MergeLadder()
+        for start, end, host in self._staged_batches(flat, phases):
+            # d2h: the host wall from here to the words' arrival, less the
+            # device phases it spans
+            with span("d2h", phases):
+                words, (m0, m1, m2) = self._ship(host, end - start)
+                if cfg.device_sort:
+                    words = sparse_ops.sort_encoded(
+                        words, end - start, cfg.sort_row_len, self.pallas_sort
+                    )
+                m3 = runtime.mark(dev)
+                host = fetch_words(words, m3)
+                del words
+                device_s = 0.0
+                for name, a, b in (("h2d", m0, m1), ("kernel", m1, m2), ("sort", m2, m3)):
+                    seconds = runtime.span_s(a, b)
+                    phases[name] += seconds
+                    device_s += seconds
+            phases["d2h"] -= device_s
+            with span("compact", phases) as compact:
+                if cfg.device_sort:
+                    table = compact_table(host)
+                else:
+                    table = compact_unsorted(host, cfg.k)
+                compact.count("words", host[0].size)
+                compact.count("rows", table[0].size)
+            with span("merge", phases):
+                ladder.push(table)
+        with span("merge", phases):
+            return ladder.result()
+
+    def _table_on_card(self, flat: np.ndarray, phases: dict):
+        """Each batch's owned windows written as sort keys into one buffer
+        of the call's windows on the device, with no wait between batches;
+        then one sort and run-length of the buffer (the ``compact`` span,
+        less the sort's device time, which is ``sort``), and one copy of
+        the distinct (code, count) rows to the host. Nothing merges."""
+        cfg, dev = self.config, self.device
+        keys = torch.empty(flat.shape[0], dtype=sparse_ops.key_dtype(cfg.k), device=dev)
+        marks = []
+        for start, end, host in self._staged_batches(flat, phases):
+            # d2h: the host wall of the ships and of the table's copy, less
+            # the device phases of the ships (read after the loop)
+            with span("d2h", phases):
+                words, m = self._ship(host, end - start)
+                keys[start:end] = sparse_ops._sort_key(tuple(w[: end - start] for w in words))
+                del words
+            marks.append(m)
+        with span("compact", phases) as compact:
+            m3 = runtime.mark(dev)
+            ordered = torch.sort(keys).values
+            del keys
+            m4 = runtime.mark(dev)
+            (keys_c,), runs, n_distinct = sparse_ops.rle_keys(ordered)
+            del ordered
+            rows = int(n_distinct)  # waits for the device
+            compact.count("words", flat.shape[0])
+            compact.count("rows", rows)
+        sort_s = runtime.span_s(m3, m4)
+        phases["sort"] += sort_s
+        phases["compact"] -= sort_s
+        with span("d2h", phases):
+            table = fetch_table(keys_c, runs, rows)
+        for m0, m1, m2 in marks:
+            for name, a, b in (("h2d", m0, m1), ("kernel", m1, m2)):
+                seconds = runtime.span_s(a, b)
+                phases[name] += seconds
+                phases["d2h"] -= seconds
+        return table
 
     def count_sequences(self, seqs: list[str]) -> SparseCountResult:
         with span("count_sequences") as root:
             flat = codec.concat_with_sentinels(seqs)
             res = self.count_stream(flat, sum(len(s) for s in seqs), len(seqs))
             root.count("rows", res.codes.shape[0])
+            root.count("table_on_card", res.table_on_card)
         return res
 
     def count_file(self, source) -> SparseCountResult:
@@ -386,6 +511,7 @@ class SparseKmerEngine:
                 res = self.count_sequences(seqs)
             res.phases["parse"] = parse["parse"]
             root.count("rows", res.codes.shape[0])
+            root.count("table_on_card", res.table_on_card)
         return res
 
 

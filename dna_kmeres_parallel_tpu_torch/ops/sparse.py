@@ -200,6 +200,27 @@ def _sort_key(words) -> torch.Tensor:
     return torch.where(hi != word_sentinel(hi.dtype), key, _INT64_MAX)
 
 
+def key_dtype(k: int) -> torch.dtype:
+    """The dtype of ``_sort_key``'s keys at this k: int32 for one word,
+    int64 for two."""
+    return torch.int32 if k <= MAX_SINGLE_WORD_K else torch.int64
+
+
+def key_sentinel(dtype: torch.dtype) -> int:
+    """The key of an invalid or unowned window, which sorts last: the
+    dtype's largest value (the biased all-ones word, or INT64_MAX)."""
+    return torch.iinfo(dtype).max
+
+
+def codes_of_keys(key: torch.Tensor) -> torch.Tensor:
+    """Valid keys -> the int64 k-mer codes they order: a single word's
+    bias taken off, a two-word key as it is (hi << 32 | lo, the code
+    ``merged_code64`` forms on the host)."""
+    if key.dtype == torch.int32:
+        return (key ^ _INT32_MIN).to(torch.int64) & 0xFFFFFFFF
+    return key
+
+
 def _words_of_key(key: torch.Tensor, words) -> tuple:
     """Inverse of ``_sort_key``: the key back to word planes like ``words``."""
     if len(words) == 1:
@@ -286,10 +307,13 @@ def sort_words_rows_planes(
     return sort_encoded(words, n_own, row_len, pallas_sort)
 
 
-def run_starts(words) -> torch.Tensor:
+def run_starts(words, sentinel: int | None = None) -> torch.Tensor:
     """Flat sorted words -> bool run-start flags: True at the first word of
-    each distinct run, False throughout the sentinel tail."""
-    valid = words[0] != word_sentinel(words[0].dtype)
+    each distinct run, False throughout the sentinel tail. ``sentinel`` is
+    the first plane's (default: the words' all-ones sentinel)."""
+    if sentinel is None:
+        sentinel = word_sentinel(words[0].dtype)
+    valid = words[0] != sentinel
     starts = valid.clone()
     neq = torch.zeros_like(valid[1:])
     for w in words:
@@ -335,26 +359,30 @@ def sort_unique_counts(
     return _with_counts(words, starts, k)
 
 
-def rle_sorted(words) -> tuple:
+def rle_sorted(words, sentinel: int | None = None) -> tuple:
     """Flat sorted words -> (words_c, counts_i32, n_distinct_i32): the
     distinct codes moved to the front in code order, counts[j] the j-th
     distinct code's multiplicity; entries past n_distinct are sentinels
     (and garbage counts), and a batch with no valid window gives
     n_distinct 0. Nothing here waits for the device: each run start is
-    scattered to its rank among the starts, the rest to a discarded slot."""
+    scattered to its rank among the starts, the rest to a discarded slot.
+    ``sentinel`` is that of every plane (default: the words' all-ones
+    sentinel; ``rle_keys`` passes a key's)."""
     lo = words[-1]
     n = lo.shape[0]
     if n >= 1 << 31:
         raise ValueError(f"a batch of {n} windows: run positions and counts are int32; "
                          f"use a smaller batch_bases")
-    starts = run_starts(words)
+    if sentinel is None:
+        sentinel = word_sentinel(words[0].dtype)
+    starts = run_starts(words, sentinel)
     dev = lo.device
     n_distinct = starts.sum(dtype=torch.int32)
-    n_valid = (words[0] != word_sentinel(words[0].dtype)).sum(dtype=torch.int32)
+    n_valid = (words[0] != sentinel).sum(dtype=torch.int32)
     dest = torch.where(starts, torch.cumsum(starts, 0, dtype=torch.int64) - 1, n)
     words_c = []
     for w in words:
-        out = w.new_full((n + 1,), word_sentinel(w.dtype))
+        out = w.new_full((n + 1,), sentinel)
         words_c.append(out.scatter_(0, dest, w)[:n])
     idx = torch.arange(n, dtype=torch.int32, device=dev)
     # pos[j]: the stream index of the j-th run start (n past the last);
@@ -363,6 +391,12 @@ def rle_sorted(words) -> tuple:
     nxt = torch.cat([pos[1:], pos.new_full((1,), n)])
     counts = torch.where(nxt == n, n_valid, nxt) - pos
     return tuple(words_c), counts.to(torch.int32), n_distinct
+
+
+def rle_keys(key: torch.Tensor) -> tuple:
+    """``rle_sorted`` over one ascending sorted key (``_sort_key``'s, its
+    sentinel tail last): ((keys_c,), counts_i32, n_distinct_i32)."""
+    return rle_sorted((key,), key_sentinel(key.dtype))
 
 
 def sort_words_rle(bases: torch.Tensor, n_own: int, k: int, canonical: bool = False) -> tuple:

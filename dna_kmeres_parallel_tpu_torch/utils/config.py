@@ -36,11 +36,14 @@ class KmerConfig:
          host's native row compactor merges the rows); 0 sorts them as one
          flat array.
       device_sort: sparse counter: whether the device sorts the window
-         words. None (the default) and False: no device sort, the native
-         radix compactor builds each table from unsorted words (the port
-         always has its native library, so None never sorts). True: the
-         device sorts (``sort_row_len``) and the host compacts sorted
-         words.
+         words. None (the default): the card builds the call's table
+         where it fits (one sort and run-length of the call's windows on
+         the card, ``sparse_engine.card_table_fits``); elsewhere (a CPU
+         device, a call too large for the card's free memory) as False.
+         False: no device sort, the native radix compactor builds each
+         batch's table from unsorted words and the host merges them.
+         True: the device sorts each batch (``sort_row_len``) and the host
+         compacts sorted words.
       compact: streaming sparse counter (``models/pipeline.py``): where
          each batch's table is built. "device" (encode on the card, words
          to the host, radix compaction there), "host" (the native engine

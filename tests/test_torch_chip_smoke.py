@@ -489,6 +489,19 @@ def test_sort_path_rehearsal(records, tmp_path, monkeypatch, counted_sort_plain_
     assert not (tmp_path / "dup.fasta").exists()
 
 
+def test_main_path_rehearsal(records, tmp_path, monkeypatch, counted_sort_plain_versions):
+    # the card's table build admitted on the CPU, as its gate admits the
+    # main path's calls on a card; the host route's runs beside it
+    from dna_kmeres_parallel_tpu_torch.models import sparse_engine
+
+    monkeypatch.setattr(sparse_engine, "card_table_fits", lambda *a: True)
+    path = tmp_path / "smoke.fasta"
+    chip_smoke.write_fasta(path, *records)
+    refs: dict = {}
+    assert chip_smoke.phase_main_path(records, path, CPU, "cpu", refs) == 1
+    assert set(refs) == {("table", 21, False), ("table", 21, True), ("table", 11, True)}
+
+
 def test_read_set_draws_reads_from_one_genome():
     stream, starts, lengths = chip_smoke.read_set(60, 5000)
     assert np.all((lengths >= 1000) & (lengths <= 2000))

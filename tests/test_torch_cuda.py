@@ -1369,6 +1369,33 @@ def test_device_sort_on_card_equals_cpu(cuda_device, tmp_path, k, canonical, pac
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize(
+    "k,canonical,pack",
+    [(11, True, True), (13, False, False), (16, False, True), (21, False, True),
+     (21, True, False), (24, True, True), (31, False, True)],
+)
+def test_table_on_card_equals_the_host_route(cuda_device, tmp_path, k, canonical, pack):
+    # The card's table build (the default) against the host route on the
+    # card (device_sort=False) and the CPU, over a file of several batches
+    # with N runs, a three-base record and a stretch every record repeats.
+    from dna_kmeres_parallel_tpu_torch import KmerConfig
+    from dna_kmeres_parallel_tpu_torch.models.sparse_engine import SparseKmerEngine
+
+    path = tmp_path / "s.fasta"
+    sort_fasta(path, k)
+    cfg = KmerConfig(k=k, canonical=canonical, pack_input=pack, batch_bases=8192,
+                     dense_bins_limit=1)
+    card = SparseKmerEngine(cfg, device="cuda").count_file(str(path))
+    host = SparseKmerEngine(cfg.replace(device_sort=False), device="cuda").count_file(str(path))
+    cpu = SparseKmerEngine(cfg, device="cpu").count_file(str(path))
+    assert card.table_on_card and not host.table_on_card and not cpu.table_on_card
+    for other in (host, cpu):
+        assert np.array_equal(card.codes, other.codes)
+        assert np.array_equal(card.counts, other.counts)
+    assert card.counts.max() > 1 and card.phases["merge"] == 0.0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("k,pack", [(11, True), (21, False), (31, True)])
 def test_device_rle_on_card_equals_cpu(cuda_device, tmp_path, k, pack):
     from dna_kmeres_parallel_tpu_torch import KmerConfig

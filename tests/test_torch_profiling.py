@@ -177,7 +177,10 @@ def test_entries_keep_their_phase_keys(fasta, traced, entry, keys):
     assert [r["name"] for r in roots] == [entry.rstrip("0123456789")]
     rows = res.packed.shape[0] if "distance" in entry else (
         res.hist.shape[0] if entry == "count_file5" else res.codes.shape[0])
-    assert roots[0]["counters"] == {"rows": rows}
+    # a sparse call's root also says where its table was built: on the
+    # host, on the CPU
+    want = {"rows": rows, "table_on_card": 0} if entry.endswith("21") else {"rows": rows}
+    assert roots[0]["counters"] == want
     assert {r["call"] for r in profiling.records()} == {roots[0]["call"]}
 
 
@@ -214,7 +217,8 @@ def test_sparse_count_spans(fasta):
     _, T = engine.batch_plan(total, 21, 512)
     copies = [r["counters"]["bytes"] for r in recs if r["name"] == "d2h.copy"]
     assert copies == [T * (4 + 2)] * batches
-    assert next(r for r in recs if r["parent"] is None)["counters"] == {"rows": res.codes.size}
+    assert next(r for r in recs if r["parent"] is None)["counters"] == {
+        "rows": res.codes.size, "table_on_card": 0}
 
 
 @pytest.mark.parametrize("fmt", ["fasta", "fastq"])
