@@ -114,16 +114,19 @@ def _add_common(p: argparse.ArgumentParser):
         choices=("auto", "on", "off"),
         default="auto",
         help="sparse path (k >= 13): whether the device sorts window words. "
-        "auto (default) skips the device sort (the native radix compactor "
-        "takes unsorted words)",
+        "auto (default): count builds the table on the card where it fits "
+        "(one sort and run-length of the call's windows), else as off; "
+        "stream and count --mesh take it as off. on: the device sorts each "
+        "batch and the host compacts sorted words. off: the native radix "
+        "compactor takes unsorted words",
     )
     p.add_argument(
         "--compact",
         choices=("auto", "device", "host", "device-rle", "device-super"),
         default="auto",
         help="sparse streamed path: build batch tables from device-shipped "
-        "words ('device'), from the host-resident stream with the native "
-        "engine ('host'), race the two ('auto'), or have the device sort "
+        "words ('auto', the default, and 'device'), from the host-resident "
+        "stream with the native engine ('host'), or have the device sort "
         "and collapse runs and ship only distinct (code, count) pairs "
         "('device-rle'), or ship super-k-mer records, about 1.5-2 B a "
         "window instead of 6-8 ('device-super')",

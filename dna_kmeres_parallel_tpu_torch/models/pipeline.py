@@ -20,8 +20,9 @@ prefetch thread never touches the card's streams.
   every checkpoint.
 - k = 9..12: counted by the sparse arm and densified at the end, as the
   JAX counter does; its checkpoints are sparse tables.
-- Sparse: ``compact`` picks where each batch's table is built.
-  ``"device"``: the card encodes (K1 from planes, K9 from u8 bases), the
+- Sparse: ``compact`` picks, once for the run, where every batch's table
+  is built (``StreamingCounter._resolve_compact``). ``"device"`` and
+  ``"auto"``: the card encodes (K1 from planes, K9 from u8 bases), the
   words come back into pinned memory, and the native radix compactor
   builds the table; batch t is drained only after batch t+1 has been
   dispatched. With ``device_sort=True`` the card also sorts the words
@@ -30,12 +31,7 @@ prefetch thread never touches the card's streams.
   words builds the table. ``"device-rle"``: the card sorts flat and
   collapses the runs; only the distinct (code, count) prefix comes back.
   ``"host"``: the native engine counts the host-resident stream (nothing
-  crosses the link). ``"auto"``: device batches 2-3 and host batch 4
-  race, the faster route carries on, and every ``_COMPACT_RECHECK``-th
-  batch re-probes the loser, flipping when its EWMA rate beats the
-  winner's by ``_COMPACT_HYSTERESIS``. Once the device arm wins, it races
-  its own two formats the same way (k >= 13): the words, and the
-  super-k-mer records. ``"device-super"``: the card cuts each batch into
+  crosses the link). ``"device-super"``: the card cuts each batch into
   super-k-mer records (runs of windows sharing a minimizer position,
   ``bucketed.superkmer_records_device``), only the records come back,
   and the host expands and counts them (``bucketed.table_from_superkmers``).
@@ -90,13 +86,6 @@ from dna_kmeres_parallel_tpu_torch.utils import codec, fasta
 from dna_kmeres_parallel_tpu_torch.utils.config import KmerConfig
 from dna_kmeres_parallel_tpu_torch.utils.metrics import Metrics
 from dna_kmeres_parallel_tpu_torch.utils.profiling import trace
-
-#: 'auto': after the initial race, every Nth batch runs on the LOSING
-#: route to refresh its EWMA rate (0 = never re-probe)
-_COMPACT_RECHECK = 16
-#: 'auto' flips routes only when the loser's EWMA rate beats the winner's
-#: by this factor (a guard against flapping)
-_COMPACT_HYSTERESIS = 1.25
 
 #: minimizer length of the super-k-mer records (the JAX counter's)
 _SUPER_M = 7
@@ -383,14 +372,22 @@ class StreamingCounter:
             elapsed_s=time.perf_counter() - t0,
         )
 
-    def _resolve_compact(self, mesh) -> bool | None:
-        """KmerConfig.compact -> host_mode: True counts on the host, False
-        on the device, None is undecided ('auto': race, then re-check). A
-        mesh takes the device arm: racing its shards against one host core
-        means nothing."""
+    def _resolve_compact(self, mesh) -> str:
+        """The route that builds every sparse batch's table, fixed for the
+        run by ``compact``, ``device_sort`` and the mesh: "host" (the
+        native engine counts the host-resident stream), or what the device
+        arm returns: "words" (unsorted words, radix compaction), "sorted"
+        (``device_sort=True``: the compactor of sorted words or rows),
+        "rle" (distinct codes and counts) or "super" (super-k-mer
+        records). On a mesh the shards return words or sorted words, and
+        "rle" and "super" are refused.
+
+        "auto" is the device arm's words: measured on an H100, a batch
+        counted on the host took about 1.5x a device batch's drain, and the
+        super-k-mer records took 1.5-4x the words' wall."""
         cfg = self.config
         if cfg.compact == "host":
-            return True
+            return "host"
         if cfg.compact in ("device-rle", "device-super"):
             if mesh is not None:
                 raise ValueError(
@@ -398,17 +395,15 @@ class StreamingCounter:
                     "mesh streams route compressed records/codes over ICI "
                     "instead (parallel/bucketed.py exchanges)"
                 )
-            return False
-        if cfg.compact == "device" or mesh is not None:
-            return False
-        return None
+            return "rle" if cfg.compact == "device-rle" else "super"
+        return "sorted" if cfg.device_sort else "words"
 
     def _run_sparse(self, flat, total_bases, n_seqs, t0) -> SparseCountResult:
         cfg, dev = self.config, self.device
         k, canonical = cfg.k, cfg.canonical
         total = flat.shape[0]
         mesh = self._mesh()
-        host_mode = self._resolve_compact(mesh)
+        route = self._resolve_compact(mesh)
         tables = MergeLadder()
         cursor = 0
         ck = self._maybe_resume(total)
@@ -420,62 +415,49 @@ class StreamingCounter:
         since_ckpt = 0
         done_batches = 0
         stopped = False
-        rle = cfg.compact == "device-rle"
-        forced_super = cfg.compact == "device-super"
-        # 'auto': EWMA bases/s of each route. The first decision races the
-        # drain walls of device batches 2 and 3 (batch 1 pays the kernels'
-        # load) against host batch 4, and is re-checked for the rest of
-        # the stream.
-        adaptive = host_mode is None
-        rate: dict[str, float | None] = {"device": None, "host": None, "super": None}
-        # The device arm's super-k-mer sub-route ('auto'): once the race
-        # picks the device arm, batches probe the records format (the first
-        # one only warms), and the EWMA then picks words or records by the
-        # same hysteresis, the loser re-probed half a cycle off the host's
-        # probe. When the host route wins, records (host counting plus a
-        # copy) cannot beat it, so they are not probed.
-        super_eligible = adaptive and k >= 13
-        device_route = "words"
-        super_warm = False
-
-        def rate_update(key: str, n_bases: int, wall: float) -> None:
-            r = n_bases / max(wall, 1e-9)
-            rate[key] = r if rate[key] is None else 0.5 * rate[key] + 0.5 * r
-
-        def stage_words(padded):
-            return pin_host(sparse_engine.stage_words(padded, cfg.pack_input), dev)
-
-        def stage_u8(padded):
-            return pin_host((padded,), dev)
-
-        def stage_shards(padded, start: int, end: int):
-            # Data parallel: halo-carrying shards, as planes for K1 or as
-            # u8 for K9, and each shard's owned windows.
-            shards, n_own = bucketed.shard_stream_with_halo(padded, k, mesh, total_own=end - start)
-            inputs = sharded_sparse.stage_shard_planes(shards) if cfg.pack_input else (shards,)
-            return pin_host(inputs, dev), n_own
 
         def prep(bounds):
-            # Reads the CURRENT mode: around an 'auto' flip the thread may
-            # stage a batch or two in a format the batch then does not use.
-            if host_mode is True:
+            # Stages a batch in its route's one format.
+            if route == "host":
                 return None
+            start, end, _ = bounds
             padded = self._padded(flat, *bounds)
             if mesh is not None:
-                return stage_shards(padded, *bounds[:2])
-            if forced_super or (super_eligible and device_route == "super"):
-                return stage_u8(padded)  # the records read the u8 bases
-            return stage_words(padded)
+                # Data parallel: halo-carrying shards, as planes for K1 or
+                # as u8 for K9, and each shard's owned windows.
+                shards, n_own = bucketed.shard_stream_with_halo(
+                    padded, k, mesh, total_own=end - start)
+                inputs = sharded_sparse.stage_shard_planes(shards) if cfg.pack_input else (shards,)
+                return pin_host(inputs, dev), n_own
+            if route == "super":
+                return pin_host((padded,), dev)  # the records read the u8 bases
+            return pin_host(sparse_engine.stage_words(padded, cfg.pack_input), dev)
 
-        # The device arm's output: "words" (unsorted, radix compaction),
-        # "sorted" (device_sort: the compactor of sorted words or rows),
-        # "rle" (distinct codes and counts, fetched by their count) or
-        # "super" (super-k-mer records, fetched by their count).
-        words_kind = "rle" if rle else ("sorted" if cfg.device_sort else "words")
-
-        # Software pipelining: batch t is drained (words to the host,
-        # compaction) only after batch t+1 has been dispatched.
-        pending = None  # (words, ready event, start, end, batch number, kind)
+        def dispatch(staged, n_own: int):
+            """Launch a batch's device work: (its output, the event after
+            the copy of its words to the host, or None where the drain
+            waits on a count: rle and records)."""
+            if mesh is not None:
+                inputs, n_own_d = staged
+                words = self._with_retry(lambda: sharded_sparse.encode_shards(
+                    inputs, n_own_d, k, canonical, mesh, device_sort=bool(cfg.device_sort),
+                    row_len=cfg.sort_row_len or sharded_sparse.ROW_LEN,
+                    pallas_sort=self.pallas_sort))
+                return _start_fetch(words)
+            if route == "super":
+                bases = host_to_device(staged[0], dev)
+                return self._with_retry(
+                    lambda: bucketed.superkmer_records_device(bases, n_own, k, _SUPER_M)), None
+            words = self._with_retry(
+                lambda: sparse_engine.encode_staged(
+                    tuple(host_to_device(a, dev) for a in staged), n_own, k, canonical
+                )
+            )
+            if route == "rle":
+                return sparse_ops.rle_sorted(sparse_ops.sort_encoded(words, n_own, 0)), None
+            if route == "sorted":
+                words = sparse_ops.sort_encoded(words, n_own, cfg.sort_row_len, self.pallas_sort)
+            return _start_fetch(words)
 
         def book(p_start: int, p_end: int) -> None:
             nonlocal since_ckpt
@@ -491,65 +473,32 @@ class StreamingCounter:
                     self._save(p_end, total_bases, sparse=snap)
                 since_ckpt = 0
 
-        def maybe_flip() -> None:
-            nonlocal host_mode, device_route
-            if not adaptive or host_mode is None:
-                return
-            if super_eligible and None not in (rate["super"], rate["device"]):
-                # The device arm's format: words or records.
-                cur = "super" if device_route == "super" else "device"
-                other = "device" if cur == "super" else "super"
-                if rate[other] > _COMPACT_HYSTERESIS * rate[cur]:
-                    device_route = "super" if other == "super" else "words"
-                    self.metrics.count("compact_super_flips")
-            # In host mode only the words re-probe, so the device arm's rate
-            # is the words'; in device mode, the format that runs.
-            dev_key = ("super" if not host_mode and device_route == "super"
-                       and rate["super"] is not None else "device")
-            if rate[dev_key] is None or rate["host"] is None:
-                return
-            cur, other = ("host", dev_key) if host_mode else (dev_key, "host")
-            if rate[other] > _COMPACT_HYSTERESIS * rate[cur]:
-                host_mode = not host_mode
-                if not host_mode:
-                    device_route = "words"  # the sub-probe re-rates records
-                self.metrics.count("compact_mode_flips")
-
         def drain(p) -> None:
-            nonlocal super_warm
-            words, ready, p_start, p_end, p_idx, kind = p
-            t_d = time.perf_counter()
+            out, ready, p_start, p_end = p
             with self.metrics.phase("compact"):
                 with self.metrics.phase("fetch"):
                     if ready is not None:
                         ready.synchronize()
-                    if kind == "rle":
-                        new = [sparse_engine.table_from_rle(*words)]
-                    elif kind != "super":
-                        host = sparse_engine.fetch_words(words)
-                if kind == "super":
-                    new = [bucketed.table_from_superkmers(*words, k, _SUPER_M, canonical)]
+                    if route == "rle":
+                        new = [sparse_engine.table_from_rle(*out)]
+                    elif route != "super":
+                        host = sparse_engine.fetch_words(out)
+                if route == "super":
+                    new = [bucketed.table_from_superkmers(*out, k, _SUPER_M, canonical)]
                 elif mesh is not None:
-                    new = sharded_sparse.compact_shards(host, k, kind == "sorted")
-                elif kind == "sorted":
+                    new = sharded_sparse.compact_shards(host, k, route == "sorted")
+                elif route == "sorted":
                     new = [sparse_engine.compact_table(host)]
-                elif kind == "words":
+                elif route == "words":
                     new = [sparse_engine.compact_unsorted(host, k)]
                 for table in new:
                     tables.push(table)
-            if adaptive and p_idx >= 2:
-                # The device route's whole cost per batch in the pipelined
-                # steady state: the wait for the device and the D2H copy,
-                # then the compaction. The records' first batch only warms.
-                if kind == "super" and not super_warm:
-                    super_warm = True
-                else:
-                    rate_update("super" if kind == "super" else "device", p_end - p_start,
-                                time.perf_counter() - t_d)
-                    maybe_flip()
             book(p_start, p_end)
 
-        for (start, end, T), staged in _prefetched(self._batches(total, cursor), prep):
+        # Software pipelining: batch t is drained (words to the host,
+        # compaction) only after batch t+1 has been dispatched.
+        pending = None  # (device output, ready event, start, end)
+        for (start, end, _), staged in _prefetched(self._batches(total, cursor), prep):
             if self.max_batches is not None and done_batches >= self.max_batches:
                 if pending is not None:
                     drain(pending)
@@ -561,96 +510,20 @@ class StreamingCounter:
                 stopped = True
                 break
             done_batches += 1
-            # Once decided, every _COMPACT_RECHECK-th batch runs on the
-            # losing route to refresh its rate.
-            probe = (
-                adaptive
-                and host_mode is not None
-                and _COMPACT_RECHECK > 0
-                and done_batches % _COMPACT_RECHECK == 0
-            )
-            if host_mode is None:
-                use_host = done_batches == 4
-            else:
-                use_host = host_mode != probe
-            if use_host:
+            if route == "host":
                 # Count off the host-resident stream: the segment carries the
                 # k-1 halo, so it owns exactly the windows starting in
                 # [start, end).
-                if pending is not None:
-                    drain(pending)
-                    pending = None
                 seg = flat[start : min(end + k - 1, total)]
-                t_h = time.perf_counter()
                 with self.metrics.phase("host_count"):
                     tables.push(native.count_sparse_host_native(seg, k, canonical))
-                if adaptive:
-                    rate_update("host", end - start, time.perf_counter() - t_h)
                 book(start, end)
-                if adaptive and host_mode is None and None not in (rate["device"], rate["host"]):
-                    host_mode = rate["host"] > rate["device"]
-                    self.metrics.count("compact_host_selected", int(host_mode))
-                elif adaptive:
-                    maybe_flip()
                 continue
-            # The device arm's format for THIS batch: records probe once
-            # the race has picked the device arm, then the loser re-probes
-            # half a recheck cycle off the host's probe.
-            batch_route = "words"
-            if super_eligible and host_mode is False:
-                sub_probe = rate["super"] is None or (
-                    _COMPACT_RECHECK > 0
-                    and done_batches % _COMPACT_RECHECK == max(_COMPACT_RECHECK // 2, 1)
-                    and not probe
-                )
-                if sub_probe and rate["super"] is None:
-                    batch_route = "super"
-                elif sub_probe:
-                    batch_route = "words" if device_route == "super" else "super"
-                else:
-                    batch_route = device_route
-                if batch_route == "super":
-                    self.metrics.count("compact_super_batches")
-            want_super = forced_super or batch_route == "super"
-            if mesh is None and (staged is None or (len(staged) == 1) != (
-                    want_super or not cfg.pack_input)):
-                # Staged for the host route, or in the other format (a probe,
-                # or the batch or two around a flip): stage it now.
-                padded = self._padded(flat, start, end, T)
-                staged = stage_u8(padded) if want_super else stage_words(padded)
             with self.metrics.phase("device"):
-                n_own = end - start
-                ready = None  # rle and records: the drain waits on their count
-                if mesh is not None:
-                    inputs, n_own_d = staged
-                    words = self._with_retry(lambda: sharded_sparse.encode_shards(
-                        inputs, n_own_d, k, canonical, mesh, device_sort=bool(cfg.device_sort),
-                        row_len=cfg.sort_row_len or sharded_sparse.ROW_LEN,
-                        pallas_sort=self.pallas_sort))
-                    kind = words_kind
-                    words, ready = _start_fetch(words)
-                elif want_super:
-                    bases = host_to_device(staged[0], dev)
-                    words = self._with_retry(
-                        lambda: bucketed.superkmer_records_device(bases, n_own, k, _SUPER_M))
-                    kind = "super"
-                else:
-                    words = self._with_retry(
-                        lambda: sparse_engine.encode_staged(
-                            tuple(host_to_device(a, dev) for a in staged), n_own, k, canonical
-                        )
-                    )
-                    kind = words_kind
-                    if kind == "sorted":
-                        words = sparse_ops.sort_encoded(
-                            words, n_own, cfg.sort_row_len, self.pallas_sort)
-                    if kind == "rle":
-                        words = sparse_ops.rle_sorted(sparse_ops.sort_encoded(words, n_own, 0))
-                    else:
-                        words, ready = _start_fetch(words)
+                out, ready = dispatch(staged, end - start)
             if pending is not None:
                 drain(pending)
-            pending = (words, ready, start, end, done_batches, kind)
+            pending = (out, ready, start, end)
         if pending is not None:
             drain(pending)
         with self.metrics.phase("merge"):

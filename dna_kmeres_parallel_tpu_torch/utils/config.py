@@ -36,26 +36,27 @@ class KmerConfig:
          host's native row compactor merges the rows); 0 sorts them as one
          flat array.
       device_sort: sparse counter: whether the device sorts the window
-         words. None (the default): the card builds the call's table
-         where it fits (one sort and run-length of the call's windows on
-         the card, ``sparse_engine.card_table_fits``); elsewhere (a CPU
-         device, a call too large for the card's free memory) as False.
+         words. None (the default): in the one-shot engine
+         (``SparseKmerEngine``, ``count_file``) the card builds the call's
+         table where it fits (one sort and run-length of the call's
+         windows on the card, ``sparse_engine.card_table_fits``),
+         elsewhere (a CPU device, a call too large for the card's free
+         memory) as False; the streaming counter takes it as False.
          False: no device sort, the native radix compactor builds each
          batch's table from unsorted words and the host merges them.
          True: the device sorts each batch (``sort_row_len``) and the host
          compacts sorted words.
       compact: streaming sparse counter (``models/pipeline.py``): where
-         each batch's table is built. "device" (encode on the card, words
-         to the host, radix compaction there), "host" (the native engine
-         counts the host-resident stream; nothing crosses the link),
-         "auto" (races the two and keeps re-checking the loser; at k >= 13
-         its device arm also races the words against super-k-mer
-         records), "device-rle" (the card sorts each batch and collapses
-         its runs; only the distinct (code, count) pairs come back) and
-         "device-super" (the card cuts each batch into super-k-mer
-         records; the host expands and counts them). A mesh refuses
-         "device-rle" and "device-super". The one-shot engines ignore it,
-         as the JAX package's do.
+         every batch's table is built, fixed for the run. "auto" and
+         "device" (encode on the card, words to the host, radix compaction
+         there, or with ``device_sort=True`` the compactor of sorted
+         words), "host" (the native engine counts the host-resident
+         stream; nothing crosses the link), "device-rle" (the card sorts
+         each batch and collapses its runs; only the distinct (code,
+         count) pairs come back) and "device-super" (the card cuts each
+         batch into super-k-mer records; the host expands and counts
+         them). A mesh refuses "device-rle" and "device-super". The
+         one-shot engines ignore it, as the JAX package's do.
       mesh_shape: a mesh of the product of these shards on the run's
          device (``parallel/mesh.LocalMesh``): the streaming counter runs
          each batch data parallel over it, and the dense and sparse

@@ -2,9 +2,9 @@
 the CPU route, against the JAX package's ``StreamingCounter`` on the same
 file and against the oracle: dense and sparse arms, k = 9..12 through the
 sparse arm, checkpoint and resume (within the port, across the two
-packages, and after a real SIGKILL), the compact routes and the 'auto'
-race, retries, metrics. The mesh arms and the super-k-mer route:
-``tests/test_torch_stream_mesh.py``.
+packages, and after a real SIGKILL), the compact routes ('auto' takes
+the device arm on every batch), retries, metrics. The mesh arms and the
+super-k-mer route: ``tests/test_torch_stream_mesh.py``.
 
 Integer counts: every comparison is exact (tolerance zero)."""
 
@@ -13,7 +13,6 @@ import os
 import signal
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
@@ -24,9 +23,10 @@ from dna_kmeres_parallel_tpu.models.pipeline import StreamingCounter as JaxStrea
 from dna_kmeres_parallel_tpu.utils import checkpoint as jax_ckpt
 from dna_kmeres_parallel_tpu.utils import fasta
 from dna_kmeres_parallel_tpu.utils.config import KmerConfig as JaxKmerConfig
-from dna_kmeres_parallel_tpu_torch import KmerConfig, native
+from dna_kmeres_parallel_tpu_torch import KmerConfig
 from dna_kmeres_parallel_tpu_torch.models import pipeline, sparse_engine
 from dna_kmeres_parallel_tpu_torch.ops import sparse as sparse_ops
+from dna_kmeres_parallel_tpu_torch.parallel import sharded_sparse
 from dna_kmeres_parallel_tpu_torch.utils import checkpoint as ckpt_mod
 
 REPO = Path(__file__).resolve().parents[1]
@@ -251,63 +251,62 @@ def test_sparse_compact_modes_match_oracle(fasta_file, compact):
     assert ("compact" in sc.metrics.phase_seconds) == (compact == "device")
 
 
-def test_sparse_compact_auto_races_and_decides(fasta_file):
-    # 'auto' host-counts exactly one probe batch before it decides (the
-    # decision itself depends on the machine's load).
+def _count_calls(monkeypatch, module, name: str) -> dict:
+    seen = {"n": 0}
+    real = getattr(module, name)
+
+    def counted(*a, **kw):
+        seen["n"] += 1
+        return real(*a, **kw)
+
+    monkeypatch.setattr(module, name, counted)
+    return seen
+
+
+_AUTO_CASES = [
+    (k, canonical, pack_input, ())
+    for k in (13, 16, 21, 31)
+    for canonical in (False, True)
+    for pack_input in (True, False)
+] + [(21, False, True, (2,))]
+
+
+@pytest.mark.parametrize("k,canonical,pack_input,mesh_shape", _AUTO_CASES)
+def test_auto_takes_the_device_arm(fasta_file, monkeypatch, k, canonical, pack_input,
+                                   mesh_shape):
+    # 'auto' is the device arm on every batch: one encode a batch (a
+    # mesh's encode_shards runs its shards), the words compacted on the
+    # host, nothing counted by the host engine, and no route counters.
     path, seqs = fasta_file
-    sc = counter(KmerConfig(k=21, batch_bases=256, compact="auto"))
+    module, name = ((sharded_sparse, "encode_shards") if mesh_shape
+                    else (sparse_engine, "encode_staged"))
+    seen = _count_calls(monkeypatch, module, name)
+    sc = counter(KmerConfig(k=k, canonical=canonical, pack_input=pack_input,
+                            batch_bases=256, compact="auto", mesh_shape=mesh_shape))
     result = sc.run(path)
-    assert result.table() == oracle.count_table_any_k(seqs, 21)
-    rep = sc.metrics.report()
-    assert rep["counters"]["batches"] >= 5
-    assert "compact_host_selected" in rep["counters"]
-    assert rep["phase_seconds"].get("host_count", 0) > 0
+    assert result.table() == oracle.count_table_any_k(seqs, k, canonical)
+    assert "host_count" not in sc.metrics.phase_seconds
+    assert "compact" in sc.metrics.phase_seconds
+    assert sc.metrics.counters["batches"] > 1
+    assert seen["n"] == sc.metrics.counters["batches"]
+    assert not [c for c in sc.metrics.counters if c.startswith("compact_")]
 
 
-def test_sparse_compact_auto_switches_to_host_when_device_slow(fasta_file, monkeypatch):
-    # A slow fetch of the words makes the device route lose the race.
-    real_fetch = sparse_engine.fetch_words
-
-    def slow_fetch(words):
-        time.sleep(0.05)
-        return real_fetch(words)
-
-    monkeypatch.setattr(sparse_engine, "fetch_words", slow_fetch)
+def test_auto_stops_at_a_batch_boundary_and_resumes(fasta_file, tmp_path, monkeypatch):
     path, seqs = fasta_file
-    sc = counter(KmerConfig(k=21, batch_bases=128, compact="auto"))
+    seen = _count_calls(monkeypatch, sparse_engine, "encode_staged")
+    cfg = KmerConfig(k=21, batch_bases=256, compact="auto")
+    ckpt = str(tmp_path / "auto.npz")
+    first = counter(cfg, checkpoint_path=ckpt, max_batches=3)
+    first.run(path)
+    assert ckpt_mod.load_checkpoint(ckpt).cursor == 3 * 256
+    assert seen["n"] == first.metrics.counters["batches"] == 3
+    sc = counter(cfg, checkpoint_path=ckpt)
     result = sc.run(path)
+    assert sc.metrics.counters["resumed_from_base"] == 3 * 256
     assert result.table() == oracle.count_table_any_k(seqs, 21)
-    assert sc.metrics.counters["compact_host_selected"] == 1
-
-
-def test_sparse_compact_auto_flips_when_route_degrades_midstream(fasta_file, monkeypatch):
-    # The device drain is slowed so the host wins the race; then the host
-    # route degrades from its 3rd call on, and the periodic loser probe
-    # must flip back. The table stays exact across the flips.
-    real_fetch = sparse_engine.fetch_words
-    real_host = native.count_sparse_host_native
-    calls = {"n": 0}
-
-    def slow_fetch(words):
-        if calls["n"] < 3:
-            time.sleep(0.05)
-        return real_fetch(words)
-
-    def degrading(seg, k, canonical):
-        calls["n"] += 1
-        if calls["n"] >= 3:
-            time.sleep(0.3)
-        return real_host(seg, k, canonical)
-
-    monkeypatch.setattr(sparse_engine, "fetch_words", slow_fetch)
-    monkeypatch.setattr(native, "count_sparse_host_native", degrading)
-    monkeypatch.setattr(pipeline, "_COMPACT_RECHECK", 4)
-    path, seqs = fasta_file
-    sc = counter(KmerConfig(k=21, batch_bases=128, compact="auto"))
-    result = sc.run(path)
-    assert result.table() == oracle.count_table_any_k(seqs, 21)
-    assert sc.metrics.counters["compact_host_selected"] == 1
-    assert sc.metrics.counters["compact_mode_flips"] >= 1
+    assert seen["n"] == 3 + sc.metrics.counters["batches"]
+    assert "host_count" not in sc.metrics.phase_seconds
 
 
 def test_sparse_compact_auto_exact_on_coverage_data(tmp_path, make_dna):

@@ -3,12 +3,9 @@ CPU, against the JAX package's ``StreamingCounter`` on its 8 virtual CPU
 devices and against the oracle: the dense and sparse arms over
 ``mesh_shape=(8,)`` (each shard's kernel once a batch), a run stopped on a
 mesh and resumed on one device and the reverse, ``compact="device-super"``
-at k = 13, 21 and 31, and the ``auto`` race's super-k-mer sub-route driven
-as the JAX package's tests drive it.
+at k = 13, 21 and 31.
 
 Integer counts: every comparison is exact (tolerance zero)."""
-
-import time
 
 import numpy as np
 import pytest
@@ -17,8 +14,8 @@ from dna_kmeres_parallel_tpu.models import oracle
 from dna_kmeres_parallel_tpu.models.pipeline import StreamingCounter as JaxStreamingCounter
 from dna_kmeres_parallel_tpu.utils import fasta
 from dna_kmeres_parallel_tpu.utils.config import KmerConfig as JaxKmerConfig
-from dna_kmeres_parallel_tpu_torch import KmerConfig, native
-from dna_kmeres_parallel_tpu_torch.models import pipeline, sparse_engine
+from dna_kmeres_parallel_tpu_torch import KmerConfig
+from dna_kmeres_parallel_tpu_torch.models import pipeline
 from dna_kmeres_parallel_tpu_torch.ops import histogram_cuda
 from dna_kmeres_parallel_tpu_torch.ops import sparse as sparse_ops
 
@@ -147,73 +144,3 @@ def test_compact_device_super_stops_and_resumes(fasta_file, tmp_path):
     counter(cfg, checkpoint_path=ck, max_batches=3).run(path)
     got = counter(cfg, checkpoint_path=ck).run(path)
     assert got.table() == oracle.count_table_any_k(seqs, 21)
-
-
-def test_sparse_compact_auto_probes_super_subroute(fasta_file, monkeypatch):
-    # JAX tests/test_pipeline.py: once the race picks the device arm, the
-    # super-k-mer records are probed (the first batch warms, later ones
-    # rate) and the table stays exact whatever the EWMA decides.
-    real = native.count_sparse_host_native
-    state = {"calls": 0}
-
-    def slow_host(seg, k, canonical):
-        # Slow the host route's probe batch so the device arm wins; the
-        # super drains' expand-and-count calls come later.
-        state["calls"] += 1
-        if state["calls"] <= 2:
-            time.sleep(0.2)
-        return real(seg, k, canonical)
-
-    monkeypatch.setattr(native, "count_sparse_host_native", slow_host)
-    monkeypatch.setattr(pipeline, "_COMPACT_RECHECK", 100)  # no host re-probes
-    path, seqs = fasta_file
-    sc = counter(KmerConfig(k=21, batch_bases=128, compact="auto"))
-    result = sc.run(path)
-    assert result.table() == oracle.count_table_any_k(seqs, 21)
-    counters = sc.metrics.counters
-    assert counters.get("compact_host_selected") == 0
-    assert counters.get("compact_super_batches", 0) >= 1
-
-
-def test_sparse_compact_auto_super_steady_state_with_words_reprobe(fasta_file, monkeypatch):
-    # JAX tests/test_pipeline.py: slow host probes and slow words drains
-    # make the records win; the words re-probe then restages the words
-    # format, and the table stays exact.
-    real_host = native.count_sparse_host_native
-    real_compact = sparse_engine.compact_unsorted
-
-    def slow_host(seg, k, canonical):
-        if seg.shape[0] < 300:  # the host route's batch, not a record stream
-            time.sleep(0.5)
-        return real_host(seg, k, canonical)
-
-    def slow_words_compact(words, k):
-        time.sleep(0.2)
-        return real_compact(words, k)
-
-    monkeypatch.setattr(native, "count_sparse_host_native", slow_host)
-    monkeypatch.setattr(sparse_engine, "compact_unsorted", slow_words_compact)
-    monkeypatch.setattr(pipeline, "_COMPACT_RECHECK", 4)
-    path, seqs = fasta_file
-    sc = counter(KmerConfig(k=21, batch_bases=128, compact="auto"))
-    result = sc.run(path)
-    assert result.table() == oracle.count_table_any_k(seqs, 21)
-    counters = sc.metrics.counters
-    assert counters.get("compact_super_batches", 0) >= 2
-    assert counters.get("compact_super_flips", 0) >= 1
-
-
-@pytest.mark.parametrize("kw", [{"k": 11}, {"k": 21, "mesh_shape": (2,)},
-                                {"k": 21, "compact": "device"}])
-def test_super_subroute_only_where_eligible(fasta_file, monkeypatch, kw):
-    # Not below k=13, not on a mesh, not outside 'auto': no record batch.
-    real = native.count_sparse_host_native
-    monkeypatch.setattr(native, "count_sparse_host_native",
-                        lambda *a: (time.sleep(0.2), real(*a))[1])
-    path, seqs = fasta_file
-    kw = {"compact": "auto", **kw}
-    sc = counter(KmerConfig(batch_bases=128, **kw))
-    result = sc.run(path)
-    assert "compact_super_batches" not in sc.metrics.counters
-    if kw["k"] == 21:
-        assert result.table() == oracle.count_table_any_k(seqs, 21)
