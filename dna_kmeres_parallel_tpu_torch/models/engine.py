@@ -433,8 +433,9 @@ class KmerEngine:
         parse: dict[str, float] = {}
         with span("count_file") as root:
             if cfg.parser_variant == "modern" and isinstance(source, (str, os.PathLike)):
-                with span("parse", parse):
+                with span("parse", parse) as parse_span:
                     parsed = native.parse_fasta_native(source, max_seqs=cfg.max_seqs)
+                    parse_span.count("ranges", parsed.ranges)
                 res = self.count_stream(parsed.stream, parsed.total_bases, parsed.n_seqs)
             else:
                 with span("parse", parse):
@@ -558,9 +559,10 @@ class KmerEngine:
         t0 = time.perf_counter()
         phases = dict.fromkeys(DIST_PHASES, 0.0)
         with span("distance_file") as root:
-            with span("parse", phases):
+            with span("parse", phases) as parse_span:
                 if cfg.parser_variant == "modern" and isinstance(source, (str, os.PathLike)):
                     parsed = native.parse_fasta_text(source, max_seqs=cfg.max_seqs)
+                    parse_span.count("ranges", parsed.ranges)
                     args = (parsed.stream, parsed.offsets[:-1], parsed.lengths, parsed.ids)
                 else:
                     records = self._parse(source)

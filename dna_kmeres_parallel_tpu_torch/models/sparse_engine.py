@@ -496,6 +496,7 @@ class SparseKmerEngine:
                     parsed = native.parse_fasta_native(source, max_seqs=cfg.max_seqs)
                     parse_span.count("records", parsed.n_seqs)
                     parse_span.count("bytes", os.path.getsize(source))
+                    parse_span.count("ranges", parsed.ranges)
                 res = self.count_stream(
                     parsed.stream, parsed.total_bases, parsed.n_seqs
                 )

@@ -47,14 +47,12 @@ class _KpFasta(ctypes.Structure):
     _fields_ = [
         ("n_seqs", ctypes.c_int64),
         ("stream_len", ctypes.c_int64),
-        ("stream", ctypes.POINTER(ctypes.c_uint8)),
-        ("offsets", ctypes.POINTER(ctypes.c_int64)),
-        ("lengths", ctypes.POINTER(ctypes.c_int64)),
-        ("ids", ctypes.POINTER(ctypes.c_char)),
         ("ids_len", ctypes.c_int64),
         ("total_bases", ctypes.c_int64),
         ("invalid_bases", ctypes.c_int64),
         ("lone_cr", ctypes.c_int64),
+        ("ranges", ctypes.c_int64),
+        ("parse", ctypes.c_void_p),
     ]
 
 
@@ -143,6 +141,9 @@ def load() -> ctypes.CDLL:
     lib.kp_parse_fasta_range.argtypes = [
         ctypes.c_char_p, i64, i64, i64, ctypes.POINTER(ctypes.POINTER(_KpFasta)),
     ]
+    lib.kp_fasta_join.restype = None
+    lib.kp_fasta_join.argtypes = [ctypes.POINTER(_KpFasta), vp, vp, vp, vp]
+    lib.kp_free_fasta.restype = None
     lib.kp_free_fasta.argtypes = [ctypes.POINTER(_KpFasta)]
     lib.kp_pack_2bit.restype = None
     lib.kp_pack_2bit.argtypes = [vp, i64, vp, vp]
@@ -193,18 +194,30 @@ def _ptr(a: np.ndarray) -> int:
 
 @dataclass
 class ParsedFasta:
-    """A parsed file: the flat base stream plus per-record metadata."""
+    """A parsed file: the flat base stream plus per-record metadata.
+
+    ``ids`` are the header lines (with their ``>`` or ``@``), decoded from
+    ``id_bytes`` (each line ended by a NUL) on first use: a caller that
+    never reads them, as the counting entries, makes no Python string."""
 
     n_seqs: int
     stream: np.ndarray  # uint8 [stream_len], 0xFF = invalid or separator
     offsets: np.ndarray  # int64 [n_seqs + 1]
     lengths: np.ndarray  # int64 [n_seqs]
-    ids: list[str]
+    id_bytes: np.ndarray  # uint8: the header lines, each ended by a NUL
     total_bases: int
     invalid_bases: int
     #: lines holding a CR that does not end them: where this is nonzero
     #: the records may differ from ``utils/fasta.parse_fasta``'s
     lone_cr: int = 0
+    #: the record-aligned ranges the file was parsed in, on as many
+    #: threads (1: the one-range path)
+    ranges: int = 1
+
+    @functools.cached_property
+    def ids(self) -> list[str]:
+        raw = self.id_bytes.tobytes()
+        return [s.decode("ascii", "replace") for s in raw.split(b"\0") if s]
 
     def sequence_codes(self, i: int) -> np.ndarray:
         """Record i's base codes, a view into ``stream``."""
@@ -216,15 +229,28 @@ def parse_fasta_native(path, max_seqs: int | None = None,
     """Parse a FASTA (or FASTQ, or gzip) file into a flat encoded stream
     with one 0xFF separator between records.
 
+    An uncompressed file larger than the library's thread grain is mapped
+    and cut into record-aligned ranges, one a host thread
+    (``num_threads``: at most 16; ``KMER_NATIVE_THREADS`` overrides): a
+    FASTA range starts at a line that starts with ``>``; a FASTQ range at a
+    guess, a line that starts with ``@`` whose second line after starts
+    with ``+``, and where the range before does not end between two
+    records the range is parsed again from where it does end. The join of
+    the ranges is byte for byte the one-range parse, which gzip input
+    (compressed offsets), a ``max_seqs`` cap and a small file take. The
+    arrays are filled in place by the join; ``ranges`` says how many
+    ranges ran.
+
     byte_range=(start, end) parses only the records in those bytes of the
     file (end < 0: to its end): one rank's share of a multi-host run, its
-    bounds record starts (``parallel/multihost.split_fasta_byte_ranges``).
-    A byte range on gzip input raises ``ValueError``."""
+    bounds record starts (``parallel/multihost.split_fasta_byte_ranges``),
+    split into ranges the same way. A byte range on gzip input raises
+    ``ValueError``."""
     lib = load()
     if max_seqs == 0:
         # The C side reads <= 0 as "no cap"; an explicit 0 means no records.
         return ParsedFasta(0, np.zeros(0, np.uint8), np.zeros(1, np.int64),
-                           np.zeros(0, np.int64), [], 0, 0)
+                           np.zeros(0, np.int64), np.zeros(0, np.uint8), 0, 0)
     out = ctypes.POINTER(_KpFasta)()
     start, end = byte_range if byte_range is not None else (0, -1)
     rc = lib.kp_parse_fasta_range(os.fspath(path).encode(), int(start), int(end),
@@ -236,25 +262,19 @@ def parse_fasta_native(path, max_seqs: int | None = None,
                          "ranges are compressed offsets); decompress it first")
     if rc != 0:
         raise OSError(f"native FASTA parse failed with code {rc}")
-    r = out.contents
     try:
+        r = out.contents
         n = int(r.n_seqs)
-
-        def copy(ptr, count, dtype):
-            if not count:
-                return np.zeros(0, dtype)
-            return np.ctypeslib.as_array(ptr, shape=(count,)).astype(dtype)
-
-        raw_ids = ctypes.string_at(r.ids, int(r.ids_len)) if r.ids_len else b""
+        stream = np.empty(int(r.stream_len), np.uint8)
+        offsets = np.empty(n + 1, np.int64)
+        lengths = np.empty(n, np.int64)
+        id_bytes = np.empty(int(r.ids_len), np.uint8)
+        lib.kp_fasta_join(out, _ptr(stream), _ptr(offsets), _ptr(lengths), _ptr(id_bytes))
         return ParsedFasta(
-            n_seqs=n,
-            stream=copy(r.stream, int(r.stream_len), np.uint8),
-            offsets=copy(r.offsets, n + 1, np.int64),
-            lengths=copy(r.lengths, n, np.int64),
-            ids=[s.decode("ascii", "replace") for s in raw_ids.split(b"\0") if s],
-            total_bases=int(r.total_bases),
-            invalid_bases=int(r.invalid_bases),
-            lone_cr=int(r.lone_cr),
+            n_seqs=n, stream=stream, offsets=offsets, lengths=lengths,
+            id_bytes=id_bytes, total_bases=int(r.total_bases),
+            invalid_bases=int(r.invalid_bases), lone_cr=int(r.lone_cr),
+            ranges=int(r.ranges),
         )
     finally:
         lib.kp_free_fasta(out)
@@ -280,12 +300,15 @@ def parse_fasta_text(path, max_seqs: int | None = None) -> ParsedFasta:
     offsets = np.concatenate([[0], np.cumsum(lengths + 1)]).astype(np.int64)
     offsets[-1] -= 1 if len(seqs) else 0
     stream = codec.concat_with_sentinels(seqs)
-    return ParsedFasta(
+    out = ParsedFasta(
         n_seqs=len(seqs), stream=stream, offsets=offsets, lengths=lengths,
-        ids=[r.id for r in records], total_bases=int(lengths.sum()),
+        id_bytes=np.zeros(0, np.uint8), total_bases=int(lengths.sum()),
         invalid_bases=int(np.count_nonzero(stream == codec.INVALID_BASE)) - max(len(seqs) - 1, 0),
-        lone_cr=parsed.lone_cr,
+        lone_cr=parsed.lone_cr, ranges=parsed.ranges,
     )
+    # Python's text mode may have read other header lines than the bytes.
+    out.ids = [r.id for r in records]
+    return out
 
 
 def pack_2bit_native(bases: np.ndarray) -> tuple[np.ndarray, np.ndarray, int]:

@@ -10,17 +10,23 @@
 // never the JAX package's. The parse emits a flat uint8 base-code stream
 // (A=0, C=1, G=2, T=3; 0xFF for any other character and as the single
 // sentinel between records), per-record offsets and lengths, and the
-// concatenated header lines.
+// concatenated header lines; it parses a large uncompressed file as
+// record-aligned ranges on the host's threads and joins them into the
+// one-range machine's records (kp_parse_fasta_range).
 //
 // Plain C ABI, loaded with ctypes (native/__init__.py builds it with g++
 // at first use).
 
+#include <cerrno>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
 
+#include <fcntl.h>
 #include <sys/mman.h>
+#include <sys/stat.h>
+#include <unistd.h>
 
 #include <zlib.h>
 
@@ -32,7 +38,7 @@
 #include <type_traits>
 #include <vector>
 
-#if defined(__AVX512F__)
+#if defined(__AVX512F__) || defined(__AVX2__)
 #include <immintrin.h>
 #elif defined(__x86_64__) || defined(_M_X64)
 #include <emmintrin.h>  // SSE2 non-temporal stores + sfence
@@ -71,94 +77,225 @@ struct Lut {
 };
 const Lut kLut;
 
-struct Buf {
-  uint8_t* data = nullptr;
-  int64_t len = 0;
-  int64_t cap = 0;
-  void reserve(int64_t need) {
-    if (len + need <= cap) return;
-    int64_t ncap = cap ? cap : 1 << 20;
-    while (ncap < len + need) ncap *= 2;
-    data = static_cast<uint8_t*>(realloc(data, ncap));
-    cap = ncap;
+// The base codes of the n bytes at s, written to dst; returns how many
+// are invalid. The low nibble tells 'A' (1), 'C' (3), 'T' (4) and 'G' (7)
+// apart, so a byte is a base exactly when it equals the letter its low
+// nibble names: one shuffle gives that letter, another its code.
+int64_t encode_bases(const uint8_t* s, int64_t n, uint8_t* dst) {
+  int64_t bad = 0;
+  int64_t i = 0;
+#if defined(__AVX512BW__) || defined(__AVX2__)
+  // Entries no base names hold a byte whose low nibble is not theirs.
+  const __m128i chr4 = _mm_setr_epi8(1, 'A', 0, 'C', 'T', 0, 0, 'G', 0, 0, 0,
+                                     0, 0, 0, 0, 0);
+  const __m128i code4 = _mm_setr_epi8(-1, 0, -1, 1, 3, -1, -1, 2, -1, -1, -1,
+                                      -1, -1, -1, -1, -1);
+#endif
+#if defined(__AVX512BW__)
+  const __m512i chr = _mm512_broadcast_i32x4(chr4);
+  const __m512i code = _mm512_broadcast_i32x4(code4);
+  const __m512i nib = _mm512_set1_epi8(0x0F);
+  const __m512i inv = _mm512_set1_epi8(-1);
+  for (; i < n; i += 64) {
+    const int64_t m = n - i < 64 ? n - i : 64;
+    const __mmask64 live = m == 64 ? ~0ULL : (1ULL << m) - 1;
+    const __m512i x = _mm512_maskz_loadu_epi8(live, s + i);
+    const __m512i lo = _mm512_and_si512(x, nib);
+    const __mmask64 ok =
+        _mm512_cmpeq_epi8_mask(x, _mm512_shuffle_epi8(chr, lo)) & live;
+    _mm512_mask_storeu_epi8(
+        dst + i, live,
+        _mm512_mask_blend_epi8(ok, inv, _mm512_shuffle_epi8(code, lo)));
+    bad += m - __builtin_popcountll(ok);
   }
-  void push(const uint8_t* src, int64_t n) {
-    reserve(n);
-    memcpy(data + len, src, n);
-    len += n;
+#elif defined(__AVX2__)
+  const __m256i chr = _mm256_broadcastsi128_si256(chr4);
+  const __m256i code = _mm256_broadcastsi128_si256(code4);
+  const __m256i nib = _mm256_set1_epi8(0x0F);
+  for (; i + 32 <= n; i += 32) {
+    const __m256i x =
+        _mm256_loadu_si256(reinterpret_cast<const __m256i*>(s + i));
+    const __m256i lo = _mm256_and_si256(x, nib);
+    const __m256i ok = _mm256_cmpeq_epi8(x, _mm256_shuffle_epi8(chr, lo));
+    _mm256_storeu_si256(
+        reinterpret_cast<__m256i*>(dst + i),
+        _mm256_or_si256(_mm256_and_si256(ok, _mm256_shuffle_epi8(code, lo)),
+                        _mm256_andnot_si256(ok, _mm256_set1_epi8(-1))));
+    bad += 32 - __builtin_popcount(
+                     static_cast<uint32_t>(_mm256_movemask_epi8(ok)));
   }
-  void push1(uint8_t b) {
-    reserve(1);
-    data[len++] = b;
+#endif
+  for (; i < n; i++) {
+    const uint8_t c = kLut.v[s[i]];
+    dst[i] = c;
+    bad += (c == kInvalid);
   }
-};
-
-struct I64Buf {
-  int64_t* data = nullptr;
-  int64_t len = 0;
-  int64_t cap = 0;
-  void push(int64_t x) {
-    if (len == cap) {
-      cap = cap ? cap * 2 : 4096;
-      data = static_cast<int64_t*>(realloc(data, cap * sizeof(int64_t)));
-    }
-    data[len++] = x;
-  }
-};
-
-}  // namespace
-
-extern "C" {
-
-// Result of a parse; all arrays are malloc'd and freed by kp_free_fasta.
-struct KpFasta {
-  int64_t n_seqs;
-  int64_t stream_len;
-  uint8_t* stream;   // flat base codes with one 0xFF sentinel between seqs
-  int64_t* offsets;  // [n_seqs + 1] start offset of each sequence in stream
-  int64_t* lengths;  // [n_seqs] real sequence length (no sentinel)
-  char* ids;         // concatenated NUL-terminated header lines (with '>')
-  int64_t ids_len;
-  int64_t total_bases;
-  int64_t invalid_bases;
-  int64_t lone_cr;   // lines holding a CR that does not end them
-};
-
-// Parse a FASTA file into a flat encoded stream; max_seqs <= 0 means
-// unlimited. Record semantics are those of utils/fasta.parse_fasta: '>'
-// starts a header, a record's sequence is the concatenation of the
-// following non-header lines, blank lines are ignored and a trailing CR is
-// stripped. A CR inside a line is read as an invalid base, where Python's
-// text mode ends the line there; lone_cr counts such lines, so a caller
-// that must read records as parse_fasta does can tell when they differ.
-// Returns 0 on success, 1 on open failure, 2 on read failure.
-int kp_parse_fasta_range(const char* path, int64_t start, int64_t end,
-                         int64_t max_seqs, KpFasta** out);
-
-int kp_parse_fasta(const char* path, int64_t max_seqs, KpFasta** out) {
-  return kp_parse_fasta_range(path, 0, -1, max_seqs, out);
+  return bad;
 }
 
-// The records in bytes [start, end) of the file (end < 0: to the end of
-// the file): one rank's share of a multi-host run, whose boundaries are
-// record starts (parallel/multihost.split_fasta_byte_ranges). Also reads
-// gzip-compressed input (zlib's gzread reads plain files transparently)
-// and FASTQ (first significant byte '@'; a 4-state record machine, so '@'
-// at the start of a quality line cannot start a record). A byte range on
-// gzip input is refused with rc 3: the ranges are offsets into the
-// compressed file, and gzseek takes uncompressed ones.
-int kp_parse_fasta_range(const char* path, int64_t start, int64_t end,
-                         int64_t max_seqs, KpFasta** out) {
-  bool is_gz = false;
-  {
-    FILE* probe = fopen(path, "rb");
-    if (!probe) return 1;
-    unsigned char magic[2] = {0, 0};
-    size_t got = fread(magic, 1, 2, probe);
-    fclose(probe);
-    is_gz = (got == 2 && magic[0] == 0x1F && magic[1] == 0x8B);
+// An output array of a parse: a heap block that doubles as it fills, or,
+// for a split range's stream, a slice of one block sized to the range's
+// bound, which never grows (`grow` past it is a broken bound).
+template <class T>
+struct Out {
+  T* data = nullptr;
+  int64_t len = 0;
+  int64_t cap = 0;
+  bool owned = true;
+  T* grow(int64_t need) {
+    if (len + need > cap) {
+      if (!owned) abort();
+      int64_t ncap = cap ? cap : (1 << 20) / static_cast<int64_t>(sizeof(T));
+      while (ncap < len + need) ncap *= 2;
+      data = static_cast<T*>(realloc(data, ncap * sizeof(T)));
+      cap = ncap;
+    }
+    return data + len;
   }
-  if (is_gz && (start > 0 || end >= 0)) return 3;
+  void release() {
+    if (owned) free(data);
+    data = nullptr;
+    len = cap = 0;
+  }
+};
+
+enum { FQ_HDR, FQ_SEQ, FQ_QUAL };
+
+// Where the record machine stands between two lines.
+struct ParseState {
+  int format = 0;  // 0 = undecided, 1 = FASTA, 2 = FASTQ
+  int fq_state = FQ_HDR;
+  bool in_seq = false;  // a record is open
+  int64_t cur_len = 0;  // the open record's bases so far
+  int64_t qual_seen = 0;
+};
+
+// The record machine of one range of lines, with what it wrote. Record
+// semantics are those of utils/fasta.parse_fasta: '>' starts a header, a
+// record's sequence is the concatenation of the following non-header
+// lines, blank lines are ignored and a trailing CR is stripped. A CR
+// inside a line is read as an invalid base, where Python's text mode ends
+// the line there; lone_cr counts such lines. FASTQ (first significant
+// byte '@') is a 4-state machine, HDR -> SEQ -> '+' -> QUAL (until the
+// quality covers the sequence) -> HDR, so a quality line beginning with
+// '@' or '+' never starts a record.
+struct RangeParse {
+  ParseState st;
+  Out<uint8_t> stream;
+  Out<char> ids;                 // header lines, each ended by a NUL
+  std::vector<int64_t> offsets;  // stream offset of each header's record
+  std::vector<int64_t> lengths;  // the length of each record closed here
+  int64_t total_bases = 0;
+  int64_t invalid_bases = 0;
+  int64_t lone_cr = 0;
+  int64_t max_seqs = 0;  // <= 0: no cap
+  bool done = false;
+  bool sep = false;  // a record came before: the next header writes a 0xFF
+
+  void end_record() {
+    if (!st.in_seq) return;
+    lengths.push_back(st.cur_len);
+    st.in_seq = false;
+    if (max_seqs > 0 && static_cast<int64_t>(lengths.size()) >= max_seqs)
+      done = true;
+  }
+
+  void header(const uint8_t* s, int64_t n) {
+    end_record();
+    if (done) return;
+    char* id = ids.grow(n + 1);
+    memcpy(id, s, n);
+    id[n] = '\0';
+    ids.len += n + 1;
+    if (sep) *stream.grow(1) = kInvalid, stream.len++;
+    sep = true;
+    offsets.push_back(stream.len);
+    st.cur_len = 0;
+    st.in_seq = true;
+  }
+
+  void bases(const uint8_t* s, int64_t n) {
+    invalid_bases += encode_bases(s, n, stream.grow(n));
+    stream.len += n;
+    st.cur_len += n;
+    total_bases += n;
+  }
+
+  void line(const uint8_t* s, int64_t n) {
+    while (n > 0 && s[n - 1] == '\r') n--;
+    if (n == 0) return;
+    if (memchr(s, '\r', n)) lone_cr++;
+    if (st.format == 0) st.format = (s[0] == '@') ? 2 : 1;
+    if (st.format == 2) {
+      if (st.fq_state == FQ_HDR) {
+        if (s[0] != '@') return;  // tolerate junk between records
+        header(s, n);
+        if (!done) st.fq_state = FQ_SEQ;
+      } else if (st.fq_state == FQ_SEQ) {
+        if (s[0] != '+') {
+          bases(s, n);
+        } else if (st.cur_len == 0) {
+          // Zero-length read (adapter-trimmed): no quality bytes follow,
+          // so waiting in QUAL would eat the NEXT record's '@' header.
+          end_record();
+          st.fq_state = FQ_HDR;
+        } else {
+          st.fq_state = FQ_QUAL;
+          st.qual_seen = 0;
+        }
+      } else {  // FQ_QUAL: consume until the quality covers the sequence
+        st.qual_seen += n;
+        if (st.qual_seen >= st.cur_len) {
+          end_record();
+          st.fq_state = FQ_HDR;
+        }
+      }
+      return;
+    }
+    if (s[0] == '>')
+      header(s, n);
+    else if (st.in_seq)
+      bases(s, n);
+  }
+
+  // The lines of [p, e): '\n' ends a line, and the last may have none.
+  void lines(const uint8_t* p, const uint8_t* e) {
+    while (p < e && !done) {
+      const uint8_t* nl =
+          static_cast<const uint8_t*>(memchr(p, '\n', e - p));
+      const uint8_t* q = nl ? nl : e;
+      line(p, q - p);
+      p = q + 1;
+    }
+  }
+};
+
+// A parse in progress: its ranges in file order, their joined sizes, and
+// where each range lands in the joined arrays.
+struct Parse {
+  std::vector<RangeParse> ranges;
+  uint8_t* stream_slab = nullptr;  // the ranges' stream slices
+  // per range: whether it was parsed on from the state the range before
+  // ended in (else afresh, from a header line); the bytes its stream
+  // skips (the first record's 0xFF when no record came before it);
+  // whether the join closes its open record (the next range starts
+  // afresh, or none follows); where its arrays start in the joined ones
+  std::vector<char> continued;
+  std::vector<int64_t> skip, closes, stream_at, offset_at, length_at, ids_at;
+  ~Parse() {
+    for (auto& r : ranges) {
+      r.stream.release();
+      r.ids.release();
+    }
+    free(stream_slab);
+  }
+};
+
+// The one-range path: the file read in 1 MB chunks through zlib (gzip or
+// plain), each line handed to the machine as it completes. Returns 0, or
+// 2 on a read failure.
+int parse_streaming(const char* path, int64_t start, int64_t end,
+                    RangeParse& rp) {
   gzFile f = gzopen(path, "rb");
   if (!f) return 1;
   if (start > 0 && gzseek(f, static_cast<z_off_t>(start), SEEK_SET) < 0) {
@@ -166,182 +303,317 @@ int kp_parse_fasta_range(const char* path, int64_t start, int64_t end,
     return 2;
   }
   int64_t remaining = (end < 0) ? INT64_MAX : end - start;
-
-  Buf stream;
-  I64Buf offsets;
-  I64Buf lengths;
-  Buf ids;
-  int64_t n_seqs = 0;
-  int64_t cur_len = 0;
-  int64_t total_bases = 0;
-  int64_t invalid_bases = 0;
-  int64_t lone_cr = 0;
-  bool in_seq = false;
-  bool done = false;
-
-  auto end_record = [&]() {
-    if (in_seq) {
-      lengths.push(cur_len);
-      n_seqs++;
-      in_seq = false;
-      if (max_seqs > 0 && n_seqs >= max_seqs) done = true;
-    }
-  };
-
   constexpr int64_t CHUNK = 1 << 20;
-  uint8_t* buf = static_cast<uint8_t*>(malloc(CHUNK));
-  Buf line;  // line assembly across chunk boundaries
-
-  // Format detection: first significant byte decides FASTA ('>') vs
-  // FASTQ ('@'). FASTQ record machine: HDR -> SEQ(+) -> QUAL(length ==
-  // sequence length) -> HDR, so quality lines beginning with '@' or '+'
-  // never start a record.
-  enum { FQ_HDR, FQ_SEQ, FQ_QUAL };
-  int fq_state = FQ_HDR;
-  int64_t fq_qual_seen = 0;
-  int format = 0;  // 0 = undecided, 1 = fasta, 2 = fastq
-
-  auto append_bases = [&](const uint8_t* s, int64_t n) {
-    stream.reserve(n);
-    uint8_t* dst = stream.data + stream.len;
-    for (int64_t i = 0; i < n; i++) {
-      uint8_t code = kLut.v[s[i]];
-      dst[i] = code;
-      invalid_bases += (code == kInvalid);
-    }
-    stream.len += n;
-    cur_len += n;
-    total_bases += n;
-  };
-
-  auto handle_line = [&](const uint8_t* s, int64_t n) {
-    // strip trailing CR
-    while (n > 0 && s[n - 1] == '\r') n--;
-    if (n == 0) return;
-    if (memchr(s, '\r', n)) lone_cr++;
-    if (format == 0) format = (s[0] == '@') ? 2 : 1;
-    if (format == 2) {
-      if (fq_state == FQ_HDR) {
-        if (s[0] != '@') return;  // tolerate junk between records
-        end_record();
-        if (done) return;
-        ids.push(s, n);
-        ids.push1('\0');
-        if (n_seqs > 0 || stream.len > 0) stream.push1(kInvalid);
-        offsets.push(stream.len);
-        cur_len = 0;
-        in_seq = true;
-        fq_state = FQ_SEQ;
-      } else if (fq_state == FQ_SEQ) {
-        if (s[0] == '+') {
-          if (cur_len == 0) {
-            // Zero-length read (adapter-trimmed): no quality bytes follow,
-            // so waiting in QUAL would eat the NEXT record's '@' header.
-            end_record();
-            fq_state = FQ_HDR;
-          } else {
-            fq_state = FQ_QUAL;
-            fq_qual_seen = 0;
-          }
-        } else {
-          append_bases(s, n);
-        }
-      } else {  // FQ_QUAL: consume until quality length covers the seq
-        fq_qual_seen += n;
-        if (fq_qual_seen >= cur_len) {
-          end_record();
-          fq_state = FQ_HDR;
-        }
-      }
-      return;
-    }
-    if (s[0] == '>') {
-      end_record();
-      if (done) return;
-      ids.push(s, n);
-      ids.push1('\0');
-      // sentinel between records (not before the first)
-      if (n_seqs > 0 || stream.len > 0) stream.push1(kInvalid);
-      offsets.push(stream.len);
-      cur_len = 0;
-      in_seq = true;
-    } else if (in_seq) {
-      append_bases(s, n);
-    }
-  };
-
-  while (!done && remaining > 0) {
-    int64_t want = CHUNK < remaining ? CHUNK : remaining;
-    int64_t got = static_cast<int64_t>(
-        gzread(f, buf, static_cast<unsigned>(want)));
+  std::unique_ptr<uint8_t[]> buf(new uint8_t[CHUNK]);
+  Out<uint8_t> line;  // a line that spans chunks
+  int rc = 0;
+  while (!rp.done && remaining > 0) {
+    const int64_t want = CHUNK < remaining ? CHUNK : remaining;
+    const int64_t got = static_cast<int64_t>(
+        gzread(f, buf.get(), static_cast<unsigned>(want)));
     if (got < 0) {
-      gzclose(f);
-      free(buf);
-      // Buf/I64Buf carry raw pointers (ownership normally transfers to
-      // the result struct): free the accumulated buffers on this error
-      // path or a failed multi-GB parse leaks them all.
-      free(stream.data);
-      free(offsets.data);
-      free(lengths.data);
-      free(ids.data);
-      free(line.data);
-      return 2;
+      rc = 2;
+      break;
     }
     if (got == 0) break;
     remaining -= got;
-    int64_t pos = 0;
-    while (pos < got && !done) {
-      // find newline
+    const uint8_t* p = buf.get();
+    const uint8_t* e = p + got;
+    while (p < e && !rp.done) {
       const uint8_t* nl =
-          static_cast<const uint8_t*>(memchr(buf + pos, '\n', got - pos));
-      if (nl) {
-        int64_t n = nl - (buf + pos);
-        if (line.len) {
-          line.push(buf + pos, n);
-          handle_line(line.data, line.len);
-          line.len = 0;
-        } else {
-          handle_line(buf + pos, n);
-        }
-        pos += n + 1;
+          static_cast<const uint8_t*>(memchr(p, '\n', e - p));
+      const int64_t n = (nl ? nl : e) - p;
+      if (nl && !line.len) {
+        rp.line(p, n);
       } else {
-        line.push(buf + pos, got - pos);
-        pos = got;
+        memcpy(line.grow(n), p, n);
+        line.len += n;
+        if (!nl) break;
+        rp.line(line.data, line.len);
+        line.len = 0;
       }
+      p = nl + 1;
     }
   }
-  if (!done && line.len) {
-    handle_line(line.data, line.len);
-    line.len = 0;
-  }
-  end_record();
+  if (rc == 0 && !rp.done && line.len) rp.line(line.data, line.len);
+  line.release();
   gzclose(f);
-  free(buf);
-  free(line.data);
+  return rc;
+}
 
-  offsets.push(stream.len);  // terminal offset, always present
+// The cut after byte `from` of text[0, n) where a range may start: FASTA,
+// the first '>' that starts a line (lines end at '\n' alone, so every
+// such line is a header in every state); FASTQ, a guess: the first line
+// that starts with '@' and whose second line after starts with '+'.
+// Returns n where there is none.
+int64_t next_cut(const uint8_t* text, int64_t n, int64_t from, int format) {
+  int64_t j = from;
+  while (j < n) {
+    if (j > 0 && text[j - 1] != '\n') {
+      const void* nl = memchr(text + j, '\n', n - j);
+      if (!nl) return n;
+      j = static_cast<const uint8_t*>(nl) - text + 1;
+      continue;
+    }
+    if (format == 1 && text[j] == '>') return j;
+    if (format == 2 && text[j] == '@') {
+      const void* a = memchr(text + j, '\n', n - j);
+      const int64_t l1 = a ? static_cast<const uint8_t*>(a) - text + 1 : n;
+      const void* b = l1 < n ? memchr(text + l1, '\n', n - l1) : nullptr;
+      const int64_t l2 = b ? static_cast<const uint8_t*>(b) - text + 1 : n;
+      if (l2 < n && text[l2] == '+') return j;
+    }
+    j++;
+  }
+  return n;
+}
 
+// The format of text's first significant line (1 FASTA, 2 FASTQ; 0 for
+// none), as the record machine decides it.
+int first_format(const uint8_t* text, int64_t n) {
+  const uint8_t* p = text;
+  const uint8_t* e = text + n;
+  while (p < e) {
+    const uint8_t* nl = static_cast<const uint8_t*>(memchr(p, '\n', e - p));
+    const uint8_t* q = nl ? nl : e;
+    int64_t len = q - p;
+    while (len > 0 && p[len - 1] == '\r') len--;
+    if (len > 0) return p[0] == '@' ? 2 : 1;
+    p = q + 1;
+  }
+  return 0;
+}
+
+// The range split: bytes [start, start + n) of an uncompressed file,
+// mapped read-only, cut into at most nt record-aligned ranges, each parsed
+// on its own thread into its slice of one stream block (its header lines
+// into a block of its own). A range's codes and sentinels never outnumber
+// its bytes (each base is a byte of a sequence line, each sentinel the
+// first byte of a header line), so its slice starts at the range's own
+// byte offset and never grows.
+//
+// Exactness: a range is parsed from the machine's state after a header
+// line's start with no record open. In FASTA that state holds at every
+// cut (a '>' line closes whatever record is open; the join closes it).
+// In FASTQ it holds where the range before ends in HDR; where it does
+// not, the range is parsed again from the state the range before really
+// ended in, and so on along the file, so the joined records are the
+// one-range machine's on every input. (The file must not shrink while it
+// is parsed: a mapped read past its end faults.)
+int parse_split(int fd, int64_t start, int64_t n, int nt, Parse& P) {
+  // The bytes, mapped read-only: each range's thread faults in its own
+  // pages, and no heap block holds a copy.
+  const int64_t lead = start % sysconf(_SC_PAGESIZE);
+  void* map = mmap(nullptr, n + lead, PROT_READ, MAP_PRIVATE, fd, start - lead);
+  if (map == MAP_FAILED) return 2;
+  struct Unmap {
+    size_t len;
+    void operator()(void* m) const { munmap(m, len); }
+  };
+  const std::unique_ptr<void, Unmap> unmap(map, Unmap{size_t(n + lead)});
+  const uint8_t* text = static_cast<const uint8_t*>(map) + lead;
+
+  const int format = first_format(text, n);
+  std::vector<int64_t> cuts{0};
+  for (int t = 1; t < nt && format; t++) {
+    const int64_t c = next_cut(text, n, std::max(n * t / nt, cuts.back() + 1),
+                               format);
+    if (c >= n) break;
+    cuts.push_back(c);
+  }
+  cuts.push_back(n);
+  const int nr = static_cast<int>(cuts.size()) - 1;
+
+  P.stream_slab = static_cast<uint8_t*>(malloc(n));
+  if (!P.stream_slab) return 2;
+  P.ranges.resize(nr);
+  auto run = [&](int r, const ParseState& from, bool sep) {
+    RangeParse& rp = P.ranges[r];
+    rp.stream.release();
+    rp.ids.release();
+    rp = RangeParse();
+    rp.stream = {P.stream_slab + cuts[r], 0, cuts[r + 1] - cuts[r], false};
+    rp.st = from;
+    rp.sep = sep;
+    rp.lines(text + cuts[r], text + cuts[r + 1]);
+  };
+  ParseState fresh;
+  fresh.format = format;
+  {
+    std::vector<std::thread> ths;
+    for (int r = 0; r < nr; r++)
+      ths.emplace_back([&, r] { run(r, fresh, r > 0); });
+    for (auto& th : ths) th.join();
+  }
+  P.continued.assign(nr, 0);
+  for (int r = 1; r < nr; r++) {
+    const ParseState& before = P.ranges[r - 1].st;
+    if (format == 2 && before.fq_state != FQ_HDR) {
+      run(r, before, true);
+      P.continued[r] = 1;
+    }
+  }
+  return 0;
+}
+
+// Lays the ranges out in the joined arrays: each range's stream after the
+// one before (the first record's sentinel dropped), its offsets shifted
+// by where its stream lands, and the open record closed where the next
+// range starts afresh or none follows.
+void plan_join(Parse& P, int64_t* sizes) {
+  const size_t nr = P.ranges.size();
+  P.continued.resize(nr, 0);
+  for (auto* v : {&P.skip, &P.closes, &P.stream_at, &P.offset_at,
+                  &P.length_at, &P.ids_at})
+    v->assign(nr, 0);
+  int64_t stream_len = 0, n_seqs = 0, n_headers = 0, ids_len = 0;
+  int64_t total = 0, invalid = 0, lone_cr = 0;
+  for (size_t r = 0; r < nr; r++) {
+    const RangeParse& rp = P.ranges[r];
+    // A range after the first writes a 0xFF before its first header; the
+    // first record of the file has none.
+    P.skip[r] = r > 0 && n_headers == 0 && !rp.offsets.empty();
+    P.closes[r] = rp.st.in_seq && (r + 1 == nr || !P.continued[r + 1]);
+    P.stream_at[r] = stream_len;
+    P.offset_at[r] = n_headers;
+    P.length_at[r] = n_seqs;
+    P.ids_at[r] = ids_len;
+    stream_len += rp.stream.len - P.skip[r];
+    n_headers += static_cast<int64_t>(rp.offsets.size());
+    n_seqs += static_cast<int64_t>(rp.lengths.size()) + P.closes[r];
+    ids_len += rp.ids.len;
+    total += rp.total_bases;
+    invalid += rp.invalid_bases;
+    lone_cr += rp.lone_cr;
+  }
+  // n_headers == n_seqs: every record has one header and closes once.
+  sizes[0] = n_seqs;
+  sizes[1] = stream_len;
+  sizes[2] = ids_len;
+  sizes[3] = total;
+  sizes[4] = invalid;
+  sizes[5] = lone_cr;
+  sizes[6] = static_cast<int64_t>(nr);
+}
+
+}  // namespace
+
+extern "C" {
+
+// A parse's joined sizes (the join fills arrays of these sizes), and the
+// parse itself until kp_free_fasta.
+struct KpFasta {
+  int64_t n_seqs;
+  int64_t stream_len;
+  int64_t ids_len;
+  int64_t total_bases;
+  int64_t invalid_bases;
+  int64_t lone_cr;   // lines holding a CR that does not end them
+  int64_t ranges;    // the ranges the file was parsed in (1: one range)
+  Parse* parse;
+};
+
+// Parse a FASTA or FASTQ file, plain or gzip, into a flat encoded stream:
+// base codes (A=0, C=1, G=2, T=3, 0xFF for any other byte) with one 0xFF
+// between records, each record's offset and length, and its header line.
+// The records of bytes [start, end) of the file (end < 0: to its end):
+// one rank's share of a multi-host run, whose bounds are record starts
+// (parallel/multihost.split_fasta_byte_ranges). max_seqs <= 0: no cap.
+//
+// An uncompressed input with no cap, of more than the thread grain, is
+// mapped and parsed as record-aligned ranges on the host's
+// threads (num_threads: at most 16, KMER_NATIVE_THREADS overrides), and
+// the ranges' output joined: parse_split states the cut and why the join
+// equals the one-range machine's records, byte for byte. gzip (whose
+// offsets are compressed ones), a cap, or a small input take one range,
+// streamed through zlib. A byte range on gzip input is refused with rc 3:
+// gzseek takes uncompressed offsets.
+//
+// Returns 0 on success, 1 on open failure, 2 on read failure. kp_fasta_join
+// then writes the arrays, and kp_free_fasta frees the parse.
+int kp_parse_fasta_range(const char* path, int64_t start, int64_t end,
+                         int64_t max_seqs, KpFasta** out) {
+  bool is_gz = false;
+  int fd = open(path, O_RDONLY | O_CLOEXEC);
+  if (fd < 0) return 1;
+  unsigned char magic[2] = {0, 0};
+  is_gz = pread(fd, magic, 2, 0) == 2 && magic[0] == 0x1F && magic[1] == 0x8B;
+  if (is_gz && (start > 0 || end >= 0)) {
+    close(fd);
+    return 3;
+  }
+  struct stat sb;
+  if (fstat(fd, &sb) != 0) {
+    close(fd);
+    return 2;
+  }
+  const int64_t size = static_cast<int64_t>(sb.st_size);
+  const int64_t a = std::min(std::max<int64_t>(start, 0), size);
+  const int64_t b = (end < 0 || end > size) ? size : std::max(end, a);
+  const int nt = num_threads(b - a, 1 << 18);
+  std::unique_ptr<Parse> P(new Parse());
+  int rc;
+  if (!is_gz && max_seqs <= 0 && nt > 1 && S_ISREG(sb.st_mode)) {
+    rc = parse_split(fd, a, b - a, nt, *P);
+    close(fd);
+  } else {
+    close(fd);
+    P->ranges.resize(1);
+    P->ranges[0].max_seqs = max_seqs;
+    rc = parse_streaming(path, start, end, P->ranges[0]);
+  }
+  if (rc != 0) return rc;
+  int64_t sizes[7];
+  plan_join(*P, sizes);
   KpFasta* r = static_cast<KpFasta*>(malloc(sizeof(KpFasta)));
-  r->n_seqs = n_seqs;
-  r->stream_len = stream.len;
-  r->stream = stream.data;
-  r->offsets = offsets.data;
-  r->lengths = lengths.data;
-  r->ids = reinterpret_cast<char*>(ids.data);
-  r->ids_len = ids.len;
-  r->total_bases = total_bases;
-  r->invalid_bases = invalid_bases;
-  r->lone_cr = lone_cr;
+  r->n_seqs = sizes[0];
+  r->stream_len = sizes[1];
+  r->ids_len = sizes[2];
+  r->total_bases = sizes[3];
+  r->invalid_bases = sizes[4];
+  r->lone_cr = sizes[5];
+  r->ranges = sizes[6];
+  r->parse = P.release();
   *out = r;
   return 0;
 }
 
+// The joined arrays, into the caller's: stream [stream_len], offsets
+// [n_seqs + 1] (the last the stream's length), lengths [n_seqs], ids
+// [ids_len] (the header lines, each ended by a NUL). One thread a range.
+void kp_fasta_join(const KpFasta* r, uint8_t* stream, int64_t* offsets,
+                   int64_t* lengths, char* ids) {
+  Parse& P = *r->parse;
+  const size_t nr = P.ranges.size();
+  auto one = [&](size_t i) {
+    const RangeParse& rp = P.ranges[i];
+    const int64_t skip = P.skip[i];
+    // (an empty range may hold no buffer at all: memcpy takes none)
+    if (rp.stream.len > skip)
+      memcpy(stream + P.stream_at[i], rp.stream.data + skip,
+             rp.stream.len - skip);
+    const int64_t shift = P.stream_at[i] - skip;
+    int64_t* off = offsets + P.offset_at[i];
+    for (size_t j = 0; j < rp.offsets.size(); j++)
+      off[j] = rp.offsets[j] + shift;
+    int64_t* len = lengths + P.length_at[i];
+    std::copy(rp.lengths.begin(), rp.lengths.end(), len);
+    if (P.closes[i]) len[rp.lengths.size()] = rp.st.cur_len;
+    if (rp.ids.len) memcpy(ids + P.ids_at[i], rp.ids.data, rp.ids.len);
+  };
+  if (nr == 1) {
+    one(0);
+  } else {
+    std::vector<std::thread> ths;
+    for (size_t i = 0; i < nr; i++) ths.emplace_back(one, i);
+    for (auto& th : ths) th.join();
+  }
+  offsets[r->n_seqs] = r->stream_len;
+}
+
 void kp_free_fasta(KpFasta* r) {
   if (!r) return;
-  free(r->stream);
-  free(r->offsets);
-  free(r->lengths);
-  free(r->ids);
+  delete r->parse;
   free(r);
 }
 
